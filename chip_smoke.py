@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Smoke run of voronoirt_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the exit code is non-zero:
+  1. the card's name and power limit (nvidia-smi); build the kernels;
+  2. each hand-written kernel against its plain PyTorch version on the
+     card, float64 and float32, at the production plane shape
+     (52, 256, 256), at (16, 256, 256) and at a ragged (5, 37, 29),
+     over every stencil-shift / march-direction combination with mixed
+     per-element geometry; then both timed at the production shape;
+  3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
+     through the port's short_characteristics on the card, float64;
+  4. the small entry() step on the card against the same step on the CPU;
+  5. two Lambda iterations of the production configuration
+     (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
+     through RegularEngine.run(), with both kernels' launch counts.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.  Exits non-zero without a result when no
+CUDA device is visible or the package is not beside it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+PROD = dict(nz=215, nx=256, ny=256, nlam_bb=51, nlam_bf=20,
+            quadrature="ul7n12", lambda_chunk=13, group_max_angles=4)
+TOL = {"float64": dict(rtol=1e-12, atol=0.0),
+       "float32": dict(rtol=2e-5, atol=1e-6)}
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+# ------------------------------------------------------------ phase 2
+
+def _rand(gen, shape, lo, hi, dtype, log=False):
+    import torch
+    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    v = lo + (hi - lo) * u
+    if log:
+        v = 10.0 ** v
+    return v.to(dtype=dtype, device="cuda")
+
+
+def _planes(gen, B, nx, ny, dtype):
+    # extinction over 7 decades so dtau crosses every weight branch
+    a_p = _rand(gen, (B, nx, ny), -5.0, 2.0, dtype, log=True)
+    a_c = _rand(gen, (B, nx, ny), -5.0, 2.0, dtype, log=True)
+    s_p = _rand(gen, (B, nx, ny), 0.1, 1.0, dtype)
+    s_c = _rand(gen, (B, nx, ny), 0.1, 1.0, dtype)
+    i_p = _rand(gen, (B, nx, ny), 0.0, 1.0, dtype)
+    return a_p, a_c, s_p, s_c, i_p
+
+
+def _fractions(gen, B, dtype):
+    """Per-element fractions in [0, 1], with exact 0 and 1 among them."""
+    f = _rand(gen, (B,), 0.0, 1.0, dtype)
+    f[0] = 0.0
+    if B > 1:
+        f[1] = 1.0
+    return f
+
+
+def _compare(name, got, want, dtype_name):
+    import torch
+    err = (got - want).abs()
+    tol = TOL[dtype_name]
+    bad = err > tol["atol"] + tol["rtol"] * want.abs()
+    require(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    require(not bool(bad.any()),
+            f"{name} disagrees with its plain version: max abs err "
+            f"{float(err.max()):.3e}, max rel err "
+            f"{float((err / want.abs()).max()):.3e} ({dtype_name})")
+    return float(err.max()), float((err / want.abs()).max())
+
+
+def check_kernels():
+    """Phase 2: each kernel against its plain version on the card.
+    Returns {kernel: max abs err in float64}."""
+    import torch
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+
+    worst = {"xy_plane": 0.0, "march_plane": 0.0}
+    gen = torch.Generator().manual_seed(2024)
+    # the production group-plane shape (4 angles x lambda_chunk), a
+    # smaller full plane and a ragged one
+    shapes = ((4 * PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
+              (16, 256, 256), (5, 37, 29))
+    for dtype_name, dtype in (("float64", torch.float64),
+                              ("float32", torch.float32)):
+        for (B, nx, ny) in shapes:
+            e_xy = e_m = (0.0, 0.0)
+            for sxs in (0, -1):
+                for sys_ in (0, -1):
+                    planes = _planes(gen, B, nx, ny, dtype)
+                    r = _rand(gen, (B,), -1.0, 1.0, dtype, log=True)
+                    fx, fy = _fractions(gen, B, dtype), _fractions(gen, B,
+                                                                   dtype)
+                    got = xp.xy_plane(*planes, r, fx, fy, sxs, sys_)
+                    want = xp.xy_plane_plain(*planes, r, fx, fy, sxs, sys_)
+                    torch.cuda.synchronize()
+                    e = _compare("xy_plane", got, want, dtype_name)
+                    e_xy = tuple(map(max, e_xy, e))
+            for axis in ("x", "y"):
+                for sign in (1, -1):
+                    for s_base in (0, -1):
+                        planes = _planes(gen, B, nx, ny, dtype)
+                        r = _rand(gen, (B,), -1.0, 1.0, dtype, log=True)
+                        f_line = _fractions(gen, B, dtype)
+                        w_cur = _rand(gen, (B,), 0.0, 1.0, dtype)
+                        c_prev = (torch.arange(B, device="cuda") % 2).to(dtype)
+                        st = dict(march_axis=axis, sign=sign, s_base=s_base,
+                                  n_sweeps=3)
+                        got = mp.march_plane(*planes, r, f_line, w_cur,
+                                             c_prev, **st)
+                        want = mp.march_plane_plain(*planes, r, f_line,
+                                                    w_cur, c_prev, **st)
+                        torch.cuda.synchronize()
+                        e = _compare("march_plane", got, want, dtype_name)
+                        e_m = tuple(map(max, e_m, e))
+            print(f"  {dtype_name} B={B} {nx}x{ny}: xy_plane max abs err "
+                  f"{e_xy[0]:.3e} (rel {e_xy[1]:.3e}); march_plane max abs "
+                  f"err {e_m[0]:.3e} (rel {e_m[1]:.3e})", flush=True)
+            if dtype_name == "float64":
+                worst["xy_plane"] = max(worst["xy_plane"], e_xy[0])
+                worst["march_plane"] = max(worst["march_plane"], e_m[0])
+    return worst
+
+
+def _time_ms(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_kernels():
+    """Kernel and plain times at the production group-plane shape
+    (B = 4 angles x lambda_chunk wavelengths, 256x256, float64)."""
+    import torch
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+
+    B = 4 * PROD["lambda_chunk"]
+    nx, ny = PROD["nx"], PROD["ny"]
+    gen = torch.Generator().manual_seed(7)
+    planes = _planes(gen, B, nx, ny, torch.float64)
+    r = _rand(gen, (B,), -1.0, 1.0, torch.float64, log=True)
+    f1, f2 = (_fractions(gen, B, torch.float64) for _ in range(2))
+    c_prev = (torch.arange(B, device="cuda") % 2).to(torch.float64)
+    times = {}
+    xy_args = (*planes, r, f1, f2, -1, 0)
+    times["xy_plane"] = (_time_ms(lambda: xp.xy_plane(*xy_args), 50),
+                         _time_ms(lambda: xp.xy_plane_plain(*xy_args), 10))
+    print(f"  xy_plane (B={B}, {nx}x{ny}, float64): kernel "
+          f"{times['xy_plane'][0]:.4f} ms, plain {times['xy_plane'][1]:.4f} ms",
+          flush=True)
+    km, pm = [], []
+    for axis in ("x", "y"):
+        st = dict(march_axis=axis, sign=-1, s_base=-1, n_sweeps=3)
+        m_args = (*planes, r, f1, f2, c_prev)
+        km.append(_time_ms(lambda: mp.march_plane(*m_args, **st), 10))
+        pm.append(_time_ms(lambda: mp.march_plane_plain(*m_args, **st), 2))
+        print(f"  march_plane axis={axis} (B={B}, {nx}x{ny}, float64): "
+              f"kernel {km[-1]:.4f} ms, plain {pm[-1]:.4f} ms", flush=True)
+    times["march_plane"] = (sum(km) / 2, sum(pm) / 2)
+    return times
+
+
+# ------------------------------------------------------------ phase 3-4
+
+def check_goldens():
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch.solvers.sweep_regular import \
+        short_characteristics
+    fx = np.load(os.path.join(HERE, "tests", "golden",
+                              "regular_sweep_fixtures.npz"))
+    for case in ("up_xy", "dn_xy", "up_yz", "dn_yz", "up_xz", "dn_xz",
+                 "up_mix", "dn_mix"):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+        S = fx[f"{case}_S"]
+        dx = 1.0 / S.shape[1]
+        I = short_characteristics(
+            fx[f"{case}_k"], t(S), t(fx[f"{case}_alpha"]),
+            t(fx[f"{case}_I0"]), fx[f"{case}_z"], dx, dx,
+            up=bool(fx[f"{case}_up"]), n_sweeps=3).cpu().numpy()
+        want = fx[f"{case}_I"]
+        err = float(np.max(np.abs(I - want) / (np.abs(want) + 1e-12)))
+        print(f"  golden {case}: max rel err {err:.3e}", flush=True)
+        require(err < 1e-12, f"golden {case}: max rel err {err}")
+
+
+def _max_rel(a, b):
+    import torch
+    return float(torch.max(torch.abs(a / b - 1.0)))
+
+
+def check_entry():
+    import torch
+    from voronoirt_tpu_torch.entry import entry
+    step_g, args_g = entry(device="cuda")
+    S_g, P_g = step_g(*args_g)
+    torch.cuda.synchronize()
+    step_c, args_c = entry(device="cpu")
+    S_c, P_c = step_c(*args_c)
+    eS, eP = _max_rel(S_g.cpu(), S_c), _max_rel(P_g.cpu(), P_c)
+    print(f"  entry step card vs CPU: S max rel diff {eS:.3e} (< 1e-10), "
+          f"populations {eP:.3e} (< 1e-8)", flush=True)
+    require(eS < 1e-10 and eP < 1e-8, "entry step: card disagrees with CPU")
+
+
+# ------------------------------------------------------------ phase 5
+
+def run_production():
+    """Two lambda-streamed iterations at the production configuration."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch import Config, synthetic_atmosphere
+    from voronoirt_tpu_torch.engine import RegularEngine
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+
+    p = PROD
+    t0 = time.perf_counter()
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], stream_rates=True,
+                 lambda_chunk=p["lambda_chunk"],
+                 group_max_angles=p["group_max_angles"], maxiter=2, eps=0.0)
+    atmos = synthetic_atmosphere(nz=p["nz"], nx=p["nx"], ny=p["ny"])
+    T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
+                        device="cuda")
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    eng = RegularEngine(atmos, line, cfg, device="cuda")
+    torch.cuda.synchronize()
+    groups = [(len(g), sorted({s.case for s in g[0][1].segments}))
+              for g in eng.plan_groups]
+    print(f"  set-up {time.perf_counter() - t0:.2f} s; grid "
+          f"{p['nz']}x{p['nx']}x{p['ny']}, {line.n_lambda} wavelengths, "
+          f"{eng.quad.n_angles} directions, lambda_chunk "
+          f"{cfg.lambda_chunk}; groups (angles, cases) {groups}", flush=True)
+
+    # J-pass time: synchronise around every chunk's grouped J
+    j_times = []
+    j_chunk = eng._J_chunk_grouped
+
+    def timed_J(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = j_chunk(*args, **kwargs)
+        torch.cuda.synchronize()
+        j_times.append(time.perf_counter() - t)
+        return out
+
+    eng._J_chunk_grouped = timed_J
+    torch.cuda.reset_peak_memory_stats()
+    xp.LAUNCHES = 0
+    mp.LAUNCHES = 0
+    res = eng.run()
+    launches = {"xy_plane": xp.LAUNCHES, "march_plane": mp.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+
+    require(res.iterations == 2 and len(res.timings) == 2,
+            f"expected 2 iterations, ran {res.iterations}")
+    n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
+    it2, j2 = res.timings[1], sum(j_times[-n_chunks:])
+    shape = (line.n_lambda, p["nz"], p["nx"], p["ny"])
+    require(tuple(res.S.shape) == shape, f"S shape {tuple(res.S.shape)}")
+    require(tuple(res.populations.shape) == shape[1:] + (3,),
+            f"populations shape {tuple(res.populations.shape)}")
+    finite = bool(torch.isfinite(res.S).all()) and bool(
+        torch.isfinite(res.populations).all())
+    require(finite, "S or populations not finite")
+    mass = _max_rel(res.populations.sum(-1), eng.nH)
+    require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
+    rate = (p["nz"] * p["nx"] * p["ny"] * line.n_lambda
+            * eng.quad.n_angles) / j2
+    print(f"  iteration seconds {[round(t, 4) for t in res.timings]}; "
+          f"second iteration {it2:.4f} s, J pass {j2:.4f} s "
+          f"({100 * j2 / it2:.1f}%), {rate:.4e} grid-points*rays/s",
+          flush=True)
+    print(f"  peak device memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated); criterion {res.convergence}; "
+          f"S, populations finite: {finite}; sum(populations)/n_H - 1 "
+          f"max {mass:.3e}", flush=True)
+    print(f"  launches during the two iterations: {launches}", flush=True)
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the main path")
+    return launches
+
+
+def main():
+    import torch
+    sys.path.insert(0, HERE)
+    from voronoirt_tpu_torch import require_cuda
+    from voronoirt_tpu_torch.kernels import build
+
+    require_cuda()
+    smi = smi_line()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"phase 1: kernels built/loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    print("phase 2: kernels vs plain versions on the card", flush=True)
+    errs = check_kernels()
+    times = time_kernels()
+    print("phase 3: regular-sweep goldens on the card", flush=True)
+    check_goldens()
+    print("phase 4: small entry step, card vs CPU", flush=True)
+    check_entry()
+    print("phase 5: production iterations", flush=True)
+    launches = run_production()
+
+    require("jax" not in sys.modules, "jax was imported")
+    src = {"xy_plane": ("voronoirt_tpu_torch/csrc/xy_plane.cu",
+                        "voronoirt_tpu/solvers/pallas_xy.py:65"),
+           "march_plane": ("voronoirt_tpu_torch/csrc/march_plane.cu",
+                           "voronoirt_tpu/solvers/pallas_march.py:89")}
+    kernels = [{"name": name, "route": "cuda", "source": src[name][0],
+                "replaces": src[name][1], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": times[name][0],
+                "plain_ms": times[name][1]} for name in src]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

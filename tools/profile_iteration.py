@@ -1,0 +1,281 @@
+#!/usr/bin/env python3
+"""Where the time of the port's production Lambda iteration goes, on one
+CUDA card.
+
+    python3 tools/profile_iteration.py [--nz 215] [--out profile.json]
+
+Builds the configuration of chip_smoke.py phase 5 (215x256x256 grid, 91
+wavelengths, ul7n12, float64, lambda-streamed, lambda_chunk 13, 4-angle
+groups) and runs three iterations of RegularEngine.iterate_streamed, the
+step RegularEngine.run() repeats:
+
+  1. parts timed: host timers around synchronised calls of each part
+     (extinction, each group sweep by plane-cut case, rate accumulation,
+     S update, statistical equilibrium);
+  2. plain: the iteration's wall seconds, as run() times it;
+  3. profiled under torch.profiler: the kernels' summed device time
+     against the plain iteration's wall gives the device's busy share;
+     the kernels are listed by device time.
+
+Then the two hand-written kernels at the production plane shape (B = 52,
+256x256), float64, built as the package builds them (-fmad=false) and
+with multiply-add contraction (-fmad=true), timed in the order A B B A,
+with each variant's largest relative difference from the plain version
+in float64 and float32.
+
+Prints a summary; --out also writes it as JSON.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from unittest import mock
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+from voronoirt_tpu_torch import Config, require_cuda, synthetic_atmosphere  # noqa: E402
+from voronoirt_tpu_torch.engine import RegularEngine  # noqa: E402
+from voronoirt_tpu_torch.engine import lambda_iter  # noqa: E402
+from voronoirt_tpu_torch.kernels import build  # noqa: E402
+from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
+from voronoirt_tpu_torch.solvers import march_plane as mp  # noqa: E402
+from voronoirt_tpu_torch.solvers import xy_plane as xp  # noqa: E402
+
+
+def _timed(fn, key, acc):
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[key(*args) if callable(key) else key] += time.perf_counter() - t
+        return out
+    return wrapped
+
+
+def _case(plans, *_):
+    return "sweep " + "+".join(sorted({s.case for s in plans[0].segments}))
+
+
+def parts_timed(eng, S, pops):
+    """One iteration with every part behind synchronised host timers."""
+    acc = defaultdict(float)
+    patches = [
+        mock.patch.object(eng, "_alpha_tot_t",
+                          _timed(eng._alpha_tot_t, "extinction", acc)),
+        mock.patch.object(lambda_iter, "sweep_group_J",
+                          _timed(lambda_iter.sweep_group_J, _case, acc)),
+        mock.patch.object(lambda_iter, "sweep",
+                          _timed(lambda_iter.sweep, "sweep single", acc)),
+        mock.patch.object(lambda_iter, "_rates_accum",
+                          _timed(lambda_iter._rates_accum, "rates", acc)),
+        mock.patch.object(lambda_iter, "_s_update_stream",
+                          _timed(lambda_iter._s_update_stream, "S update",
+                                 acc)),
+        mock.patch.object(lambda_iter, "get_revised_populations",
+                          _timed(lambda_iter.get_revised_populations,
+                                 "statistical equilibrium", acc)),
+    ]
+    for p in patches:
+        p.start()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        S, pops, _ = eng.iterate_streamed(S, pops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        for p in patches:
+            p.stop()
+    acc["other (unwrapped)"] = wall - sum(acc.values())
+    return S, pops, wall, dict(acc)
+
+
+def plain(eng, S, pops):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    S, pops, _ = eng.iterate_streamed(S, pops)
+    torch.cuda.synchronize()
+    return S, pops, time.perf_counter() - t
+
+
+def profiled(eng, S, pops):
+    """One iteration under torch.profiler; the device kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        S, pops, _ = eng.iterate_streamed(S, pops)
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((e.key, e.count, us * 1e-6))
+    kernels.sort(key=lambda k: -k[2])
+    return S, pops, kernels
+
+
+def _rand_planes(B, nx, ny, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def u(shape, lo, hi, log=False):
+        v = lo + (hi - lo) * torch.rand(shape, generator=g,
+                                        dtype=torch.float64)
+        return (10.0 ** v if log else v).to(dtype=dtype, device="cuda")
+    planes = (u((B, nx, ny), -5, 2, True), u((B, nx, ny), -5, 2, True),
+              u((B, nx, ny), 0.1, 1), u((B, nx, ny), 0.1, 1),
+              u((B, nx, ny), 0, 1))
+    r = u((B,), -1, 1, True)
+    f1, f2 = u((B,), 0, 1), u((B,), 0, 1)
+    c_prev = (torch.arange(B, device="cuda") % 2).to(dtype)
+    return planes, r, f1, f2, c_prev
+
+
+def _ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def fmad_variants(B, nx, ny):
+    """Kernel times and largest relative difference from the plain
+    version, built with and without multiply-add contraction."""
+    flags = {"fmad=false": build.NVCC_FLAGS,
+             "fmad=true": tuple("-fmad=true" if f == "-fmad=false" else f
+                                for f in build.NVCC_FLAGS)}
+    suffix = {torch.float64: "_f64", torch.float32: "_f32"}
+    libs = {name: build.library(f) for name, f in flags.items()}
+
+    def use(name):
+        lib = libs[name]
+        return mock.patch.object(
+            build, "launch_fn",
+            lambda fn_name, dtype: getattr(lib, fn_name + suffix[dtype]))
+
+    calls = {
+        "xy_plane": lambda p, r, f1, f2, cp: xp.xy_plane(*p, r, f1, f2, -1, 0),
+        "march_plane x": lambda p, r, f1, f2, cp: mp.march_plane(
+            *p, r, f1, f2, cp, march_axis="x", sign=-1, s_base=-1,
+            n_sweeps=3),
+        "march_plane y": lambda p, r, f1, f2, cp: mp.march_plane(
+            *p, r, f1, f2, cp, march_axis="y", sign=-1, s_base=-1,
+            n_sweeps=3),
+    }
+    plain_calls = {
+        "xy_plane": lambda p, r, f1, f2, cp: xp.xy_plane_plain(
+            *p, r, f1, f2, -1, 0),
+        "march_plane x": lambda p, r, f1, f2, cp: mp.march_plane_plain(
+            *p, r, f1, f2, cp, march_axis="x", sign=-1, s_base=-1,
+            n_sweeps=3),
+        "march_plane y": lambda p, r, f1, f2, cp: mp.march_plane_plain(
+            *p, r, f1, f2, cp, march_axis="y", sign=-1, s_base=-1,
+            n_sweeps=3),
+    }
+    out = {}
+    args64 = _rand_planes(B, nx, ny, torch.float64, 11)
+    for kname, call in calls.items():
+        reps = 50 if kname == "xy_plane" else 10
+        times = defaultdict(list)
+        for vname in ("fmad=false", "fmad=true", "fmad=true", "fmad=false"):
+            with use(vname):
+                times[vname].append(_ms(lambda: call(*args64), reps))
+        rel = {}
+        for dtype in (torch.float64, torch.float32):
+            args = _rand_planes(B, nx, ny, dtype, 12)
+            want = plain_calls[kname](*args)
+            for vname in flags:
+                with use(vname):
+                    got = call(*args)
+                rel[f"{vname} {str(dtype)[6:]}"] = float(
+                    ((got - want).abs() / want.abs()).max())
+        out[kname] = {"ms": dict(times), "max_rel_vs_plain": rel}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nz", type=int, default=215)
+    ap.add_argument("--lambda-chunk", type=int, default=13)
+    ap.add_argument("--out", default=None, help="write the summary as JSON")
+    args = ap.parse_args()
+    require_cuda()
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+
+    cfg = Config(nlam_bb=51, nlam_bf=20, quadrature="ul7n12",
+                 stream_rates=True, lambda_chunk=args.lambda_chunk,
+                 group_max_angles=4, eps=0.0)
+    atmos = synthetic_atmosphere(nz=args.nz, nx=256, ny=256)
+    T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
+                        device="cuda")
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    eng = RegularEngine(atmos, line, cfg, device="cuda")
+    build.library()
+    S, pops = eng.B0, eng.lte
+    eng.B0 = None       # S is the iteration state, updated in place
+    n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
+
+    S, pops, wall1, parts = parts_timed(eng, S, pops)
+    print(f"iteration 1 (parts timed): {wall1:.4f} s over {n_chunks} "
+          f"chunks", flush=True)
+    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"  {k:26s} {v:9.4f} s/iteration  {v / n_chunks:8.4f} "
+              f"s/chunk  {100 * v / wall1:5.1f} %", flush=True)
+    S, pops, wall2 = plain(eng, S, pops)
+    print(f"iteration 2 (plain): {wall2:.4f} s", flush=True)
+    S, pops, kernels = profiled(eng, S, pops)
+    busy = sum(k[2] for k in kernels)
+    print(f"iteration 3 (profiled): kernels' device time {busy:.4f} s = "
+          f"{100 * busy / wall2:.1f} % of the plain iteration's wall",
+          flush=True)
+    for name, count, s in kernels[:15]:
+        print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
+    require_finite = bool(torch.isfinite(S).all()) and bool(
+        torch.isfinite(pops).all())
+    print(f"S, populations finite: {require_finite}", flush=True)
+    del S, pops, eng
+    torch.cuda.empty_cache()
+
+    B = 4 * cfg.lambda_chunk
+    variants = fmad_variants(B, 256, 256)
+    print(f"kernels at (B={B}, 256x256), float64 ms in the order "
+          f"fmad=false, fmad=true, fmad=true, fmad=false:", flush=True)
+    for kname, v in variants.items():
+        print(f"  {kname}: {json.dumps(v)}", flush=True)
+
+    summary = {"device": smi, "nz": args.nz,
+               "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
+               "iteration_parts_timed_s": wall1, "parts_s": parts,
+               "iteration_plain_s": wall2, "kernels_device_s": busy,
+               "kernels": kernels[:40], "finite": require_finite,
+               "fmad_variants": variants}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    if not require_finite:
+        raise SystemExit("S or populations not finite")
+
+
+if __name__ == "__main__":
+    main()

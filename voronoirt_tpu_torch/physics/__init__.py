@@ -1,0 +1,14 @@
+"""Units-free physics library, ported from voronoirt_tpu.physics."""
+
+
+def tensors(*xs):
+    """The arguments as tensors sharing the dtype and device of the
+    first tensor among them (float64 on the CPU when none is one), so
+    that the JAX package's Python-scalar arguments (a line-centre
+    wavelength, say) keep working."""
+    import torch
+    ref = next((x for x in xs if isinstance(x, torch.Tensor)), None)
+    if ref is None:
+        ref = torch.empty((), dtype=torch.float64)
+    return tuple(torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+                 for x in xs)
