@@ -15,7 +15,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
   4. the small entry() step on the card against the same step on the CPU;
   5. two Lambda iterations of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
-     through RegularEngine.run(), with both kernels' launch counts.
+     through RegularEngine.run(), with both kernels' launch counts;
+  6. the Voronoi NLTE chain goldens (tests/golden/nlte_fixtures.npz
+     vor_*: 500 sites, 'layer' order, 3 iterations) through
+     VoronoiEngine.run() on the card, and wavefront sweeps of every
+     ul7n12 direction with the adaptive relax exit, card against CPU;
+  7. two Voronoi Lambda iterations ('layer' order) at the reference's
+     quarter-resolution production count, 442,368 sites sampled from the
+     phase-5 atmosphere, 91 wavelengths, ul7n12, float64, then one
+     'wavefront' J pass on the same sites; set-up and iteration seconds,
+     per-direction seconds, level steps and peak memory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is visible or the package is not beside it.
@@ -26,11 +35,16 @@ import os
 import subprocess
 import sys
 import time
+import warnings
+from contextlib import contextmanager
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PROD = dict(nz=215, nx=256, ny=256, nlam_bb=51, nlam_bf=20,
             quadrature="ul7n12", lambda_chunk=13, group_max_angles=4)
+# the reference's quarter-resolution Voronoi production count
+# (compare_line.jl:64-68)
+VOR_SITES = 442_368
 TOL = {"float64": dict(rtol=1e-12, atol=0.0),
        "float32": dict(rtol=2e-5, atol=1e-6)}
 
@@ -237,11 +251,10 @@ def check_entry():
 
 # ------------------------------------------------------------ phase 5
 
-def run_production():
+def run_production(atmos):
     """Two lambda-streamed iterations at the production configuration."""
-    import numpy as np
     import torch
-    from voronoirt_tpu_torch import Config, synthetic_atmosphere
+    from voronoirt_tpu_torch import Config
     from voronoirt_tpu_torch.engine import RegularEngine
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
     from voronoirt_tpu_torch.solvers import march_plane as mp
@@ -253,7 +266,6 @@ def run_production():
                  quadrature=p["quadrature"], stream_rates=True,
                  lambda_chunk=p["lambda_chunk"],
                  group_max_angles=p["group_max_angles"], maxiter=2, eps=0.0)
-    atmos = synthetic_atmosphere(nz=p["nz"], nx=p["nx"], ny=p["ny"])
     T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
                         device="cuda")
     line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
@@ -315,6 +327,251 @@ def run_production():
     return launches
 
 
+# ------------------------------------------------------------ phase 6-7
+
+_VOR_FIELDS = ("positions", "neighbours", "delaunay_lines", "layers_up",
+               "layers_down", "temperature", "electron_density",
+               "hydrogen_populations", "velocity_z", "velocity_x",
+               "velocity_y")
+
+
+def _rel_err(got, want):
+    """Max relative difference, absolute where want == 0 (as
+    tests/test_nlte_parity.py measures it)."""
+    import torch
+    denom = torch.where(want == 0.0, 1.0, want)
+    return float(torch.where(want == 0.0, got.abs(),
+                             (got / denom - 1.0).abs()).max())
+
+
+def _sample(atmos, n_sites):
+    """n_sites positions sampled with the production density, and the
+    atmosphere's bounds."""
+    from voronoirt_tpu_torch import grid
+    pos = grid.sample_sites(atmos, n_sites, density="invNH_invT", seed=2022)
+    bounds = (atmos.z[0], atmos.z[-1], atmos.x[0], atmos.x[-1],
+              atmos.y[0], atmos.y[-1])
+    return pos, bounds
+
+
+def check_voronoi_goldens():
+    """Phase 6: the vor_* chain through VoronoiEngine.run() on the card,
+    then wavefront sweeps card against CPU."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch import Config, get_quadrature, synthetic_atmosphere
+    from voronoirt_tpu_torch import grid
+    from voronoirt_tpu_torch.engine import VoronoiEngine
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
+
+    fx = np.load(os.path.join(HERE, "tests", "golden", "nlte_fixtures.npz"))
+    sites = grid.VoronoiSites(
+        **{f: fx[f"vor_sites_{f}"] for f in _VOR_FIELDS},
+        bounds=tuple(fx["vor_bounds"]))
+    cfg = Config(maxiter=3, eps=1e-30, quadrature="ul7n12", nlam_bb=9,
+                 nlam_bf=4, compat="reference", voronoi_order="layer")
+    T = torch.as_tensor(sites.temperature, dtype=torch.float64,
+                        device="cuda")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # 'layer' at grazing angles
+        eng = VoronoiEngine(sites, lyman_alpha_line(9, 4, T), cfg,
+                            device="cuda")
+    eng.load_state({"a_cont": fx["vor_alpha_cont"], "eps": fx["vor_eps"],
+                    **{f"C_{k}": fx[f"vor_C_{k}"]
+                       for k in ("01", "10", "02", "20", "12", "21")}})
+    res = eng.run()
+    require(res.iterations == 3, f"vor chain ran {res.iterations} iterations")
+    for what, got, key, tol in (("J", res.J, "vor_J_2", 1e-8),
+                                ("S", res.S, "vor_S_2", 1e-8),
+                                ("populations", res.populations,
+                                 "vor_pops_2", 1e-7)):
+        require(got.is_cuda, f"vor chain {what} left the card")
+        err = _rel_err(got, torch.as_tensor(fx[key], device="cuda"))
+        print(f"  vor_* golden {what}: max rel err {err:.3e} (< {tol:g})",
+              flush=True)
+        require(err < tol, f"vor_* golden {what}: max rel err {err:.3e}")
+
+    # wavefront sweeps, card against CPU: the 4 steep directions are
+    # exact-only, the 8 others relax with repeats; the extinction keeps
+    # every dtau above 0.03, clear of the linear weights' cancellation
+    # near their 5e-4 guard, where one-ulp exp differences between the
+    # devices' libraries grow (ROADMAP C3)
+    atmos = synthetic_atmosphere(nz=40, nx=32, ny=32)
+    pos, bounds = _sample(atmos, 5000)
+    wsites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
+    quad = get_quadrature("ul7n12")
+    gen = np.random.default_rng(6)
+    B, worst, kinds = 8, 0.0, set()
+    for i in range(quad.n_angles):
+        plan = grid.build_voronoi_plan(wsites, quad.k[i],
+                                       bool(quad.is_up[i]),
+                                       order="wavefront")
+        r = np.asarray(plan.r)
+        S = gen.uniform(0.1, 1.0, (B, wsites.n))
+        alpha = 10.0 ** gen.uniform(0.0, 2.0, (B, wsites.n)) * 0.03 / r[
+            r > 0].min()
+        I0 = gen.uniform(0.0, 1.0, (B, len(plan.bc_sites)))
+        out, steps = {}, {}
+        for dev in ("cuda", "cpu"):
+            t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+            sv.LEVEL_STEPS = 0
+            out[dev] = sv.sweep_voronoi(plan, t(S), t(alpha), t(I0),
+                                        relax_tol=1e-7)
+            steps[dev] = sv.LEVEL_STEPS
+        require(steps["cuda"] == steps["cpu"],
+                f"direction {i}: {steps['cuda']} level steps on the card, "
+                f"{steps['cpu']} on the CPU")
+        worst = max(worst, _rel_err(out["cuda"].cpu(), out["cpu"]))
+        kinds |= {st.kind for st in sv.build_slot_plan(plan).stages}
+    print(f"  wavefront sweeps ({wsites.n} sites, B={B}, 12 directions, "
+          f"stages {sorted(kinds)}, relax_tol 1e-7): card vs CPU max rel "
+          f"diff {worst:.3e} (<= 1e-10), equal level steps", flush=True)
+    require(kinds == {"exact", "relax"}, f"stage kinds {kinds}")
+    require(worst <= 1e-10, f"wavefront sweep card vs CPU: {worst:.3e}")
+
+
+@contextmanager
+def _timed_J(eng, lambda_iter, sv):
+    """Synchronised host timers around each compute_J (seconds, level
+    steps) and, inside the last one, each direction's extinction and
+    sweep.  Without lambda chunking a J pass makes one extinction and
+    one sweep per direction, in quadrature order."""
+    import torch
+    n_dir = eng.quad.n_angles
+    rec = {"J": [], "steps": [], "ext": [], "sweep": []}
+    compute_J, alpha_tot, sweep_t = (eng.compute_J, eng._alpha_tot_T,
+                                     lambda_iter.sweep_voronoi_t)
+
+    def timed(fn, times):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    def J(*args, **kwargs):
+        rec["ext"].clear()
+        rec["sweep"].clear()
+        s0 = sv.LEVEL_STEPS
+        out = timed(compute_J, rec["J"])(*args, **kwargs)
+        rec["steps"].append(sv.LEVEL_STEPS - s0)
+        require(len(rec["sweep"]) == len(rec["ext"]) == n_dir,
+                f"{len(rec['sweep'])} sweeps in a J pass of {n_dir} "
+                f"directions")
+        return out
+
+    eng.compute_J = J
+    eng._alpha_tot_T = timed(alpha_tot, rec["ext"])
+    lambda_iter.sweep_voronoi_t = timed(sweep_t, rec["sweep"])
+    try:
+        yield rec
+    finally:
+        del eng.compute_J, eng._alpha_tot_T
+        lambda_iter.sweep_voronoi_t = sweep_t
+
+
+def run_voronoi_production(atmos):
+    """Phase 7: two 'layer' iterations and one 'wavefront' J pass at
+    VOR_SITES sites, 91 wavelengths, ul7n12, float64."""
+    import torch
+    from voronoirt_tpu_torch import Config, get_quadrature, grid
+    from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
+
+    p = PROD
+    setup = {}
+    t = time.perf_counter()
+    pos, bounds = _sample(atmos, VOR_SITES)
+    setup["sampling"] = time.perf_counter() - t
+    require(grid.build_native() is not None,
+            "native tessellation library not built")
+    t = time.perf_counter()
+    sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
+    setup["tessellation"] = time.perf_counter() - t
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], voronoi_order="layer",
+                 maxiter=2, eps=0.0)
+    cfg_w = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                   quadrature=p["quadrature"], voronoi_order="wavefront")
+    quad = get_quadrature(cfg.quadrature)
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # 'layer' at grazing angles
+        plans = VoronoiEngine.build_plans(sites, quad, cfg)
+    setup["plans (layer, 12 directions)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    plans_w = VoronoiEngine.build_plans(sites, quad, cfg_w)
+    setup["plans (wavefront, 12 directions)"] = time.perf_counter() - t
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    T = torch.as_tensor(sites.temperature, dtype=torch.float64,
+                        device="cuda")
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    eng = VoronoiEngine(sites, line, cfg, plans=plans, device="cuda")
+    torch.cuda.synchronize()
+    setup["engine set-up"] = time.perf_counter() - t
+    print(f"  {sites.n} sites, {line.n_lambda} wavelengths, "
+          f"{quad.n_angles} directions; set-up seconds "
+          f"{ {k: round(v, 4) for k, v in setup.items()} }", flush=True)
+
+    with _timed_J(eng, lambda_iter, sv) as rec:
+        res = eng.run()
+    require(res.iterations == 2 and len(res.timings) == 2,
+            f"expected 2 iterations, ran {res.iterations}")
+    n, nlam = sites.n, line.n_lambda
+    require(tuple(res.S.shape) == (nlam, n) and res.S.is_cuda,
+            f"S shape {tuple(res.S.shape)} on {res.S.device}")
+    require(tuple(res.populations.shape) == (n, 3),
+            f"populations shape {tuple(res.populations.shape)}")
+    finite = bool(torch.isfinite(res.S).all()) and bool(
+        torch.isfinite(res.populations).all())
+    require(finite, "S or populations not finite")
+    mass = _max_rel(res.populations.sum(-1), eng.nH)
+    require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
+    it2, j2 = res.timings[1], rec["J"][1]
+    rays = n * nlam * quad.n_angles
+    sweep_s = sum(rec["sweep"])
+    print(f"  layer: iteration seconds {[round(x, 4) for x in res.timings]};"
+          f" J pass {[round(x, 4) for x in rec['J']]} s "
+          f"({100 * j2 / it2:.1f}% of the second iteration), "
+          f"{rays / j2:.4e} sites*wavelengths*rays/s", flush=True)
+    print(f"  layer, second J pass by direction: extinction s "
+          f"{[round(x, 4) for x in rec['ext']]}; sweep s "
+          f"{[round(x, 4) for x in rec['sweep']]}",
+          flush=True)
+    print(f"  layer: level steps per J pass {rec['steps']}; "
+          f"{1e6 * sweep_s / rec['steps'][1]:.2f} us of sweep per level step",
+          flush=True)
+    print(f"  criterion {res.convergence}; sum(populations)/n_H - 1 max "
+          f"{mass:.3e}", flush=True)
+    pops, S = res.populations, res.S
+    del res, eng
+
+    eng_w = VoronoiEngine(sites, line, cfg_w, plans=plans_w, device="cuda")
+    with _timed_J(eng_w, lambda_iter, sv) as rec_w:
+        J_w = eng_w.compute_J(S, pops)
+    require(J_w.is_cuda and bool(torch.isfinite(J_w).all()),
+            "wavefront J not finite or not on the card")
+    jw = rec_w["J"][0]
+    sweep_w = sum(rec_w["sweep"])
+    print(f"  wavefront (relax_tol {cfg_w.voronoi_relax_tol:g}): J pass "
+          f"{jw:.4f} s, {rays / jw:.4e} sites*wavelengths*rays/s; level "
+          f"steps {rec_w['steps'][0]}, {1e6 * sweep_w / rec_w['steps'][0]:.2f}"
+          f" us of sweep per level step; by direction: extinction s "
+          f"{[round(x, 4) for x in rec_w['ext']]}, sweep s "
+          f"{[round(x, 4) for x in rec_w['sweep']]}",
+          flush=True)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB (max_memory_allocated, phase 7)", flush=True)
+
+
 def main():
     import torch
     sys.path.insert(0, HERE)
@@ -331,15 +588,26 @@ def main():
     print(f"phase 1: kernels built/loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    print("phase 2: kernels vs plain versions on the card", flush=True)
+    from voronoirt_tpu_torch import synthetic_atmosphere
+
+    def phase(title):
+        print(f"{title} (at {time.perf_counter() - t0:.1f} s)", flush=True)
+
+    phase("phase 2: kernels vs plain versions on the card")
     errs = check_kernels()
     times = time_kernels()
-    print("phase 3: regular-sweep goldens on the card", flush=True)
+    phase("phase 3: regular-sweep goldens on the card")
     check_goldens()
-    print("phase 4: small entry step, card vs CPU", flush=True)
+    phase("phase 4: small entry step, card vs CPU")
     check_entry()
-    print("phase 5: production iterations", flush=True)
-    launches = run_production()
+    phase("phase 5: production iterations")
+    atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
+    launches = run_production(atmos)
+    phase("phase 6: Voronoi goldens on the card, wavefront sweeps card vs CPU")
+    check_voronoi_goldens()
+    phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
+    run_voronoi_production(atmos)
+    phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
     src = {"xy_plane": ("voronoirt_tpu_torch/csrc/xy_plane.cu",

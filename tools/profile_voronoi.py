@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""Where the time of the port's Voronoi Lambda iteration goes, on one
+CUDA card.
+
+    python3 tools/profile_voronoi.py [--n-sites 3522560] [--out profile.json]
+
+Drives the path of chip_smoke.py phase 7 at --n-sites sites (default
+3,522,560, the reference's half-resolution production count,
+compare_line.jl:64-68): sites sampled with the production density
+(invNH_invT, seed 2022) from synthetic_atmosphere(215, 256, 256),
+tessellated by the native library, ul7n12 plans in 'layer' and in
+'wavefront' order, Ly-alpha with 91 wavelengths, float64, no lambda
+chunking.
+
+  1. set-up seconds: sampling, tessellation, each order's 12 plans,
+     engine set-up;
+  2. 'layer': a first iteration of VoronoiEngine.run() (cold: the
+     allocator's first pass over every level shape), one with
+     synchronised host timers around each part (per direction:
+     extinction, sweep; then the S update and the rates with
+     statistical equilibrium), then one plain;
+  3. 'wavefront': a first compute_J (cold), one with the parts timed
+     (per direction: extinction, the relax stages' weight hoist, the
+     rest of the sweep), then one plain;
+  4. under torch.profiler, for each order, the J work of a steep and a
+     grazing direction (extinction + sweep): the kernels' summed device
+     time against the same window's plain wall gives the device's busy
+     share; the kernels are listed by device time.
+
+Level steps (sweep_voronoi.LEVEL_STEPS) are counted per J pass.  Prints
+a summary; --out also writes it as JSON.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import warnings
+from collections import defaultdict
+from unittest import mock
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+from voronoirt_tpu_torch import (Config, get_quadrature, grid,  # noqa: E402
+                                 require_cuda, synthetic_atmosphere)
+from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter  # noqa: E402
+from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
+from voronoirt_tpu_torch.solvers import sweep_voronoi as sv  # noqa: E402
+
+# the profiled directions: ul7n12 direction 2 is steep (|mu| 0.888),
+# direction 8 grazing (|mu| 0.205)
+WINDOW = (2, 8)
+
+
+def _timed(fn, acc, key):
+    """fn behind synchronised host timers; the seconds of each call are
+    appended to acc[key]."""
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[key].append(time.perf_counter() - t)
+        return out
+    return wrapped
+
+
+def _patches(eng, acc):
+    return [
+        mock.patch.object(eng, "_alpha_tot_T",
+                          _timed(eng._alpha_tot_T, acc, "extinction")),
+        mock.patch.object(lambda_iter, "sweep_voronoi_t",
+                          _timed(lambda_iter.sweep_voronoi_t, acc, "sweep")),
+        mock.patch.object(sv, "_precompute_lean",
+                          _timed(sv._precompute_lean, acc, "hoist")),
+        mock.patch.object(lambda_iter, "_update_S",
+                          _timed(lambda_iter._update_S, acc, "S update")),
+        mock.patch.object(lambda_iter, "_rates_and_populations",
+                          _timed(lambda_iter._rates_and_populations, acc,
+                                 "rates + statistical equilibrium")),
+    ]
+
+
+def _synced(fn):
+    """Wall seconds of fn() between two synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def parts_timed(eng, fn):
+    """fn() with every part behind synchronised timers.  Returns (wall
+    seconds, {part: [seconds per call]}, level steps)."""
+    acc = defaultdict(list)
+    patches = _patches(eng, acc)
+    for p in patches:
+        p.start()
+    try:
+        sv.LEVEL_STEPS = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        for p in patches:
+            p.stop()
+    return wall, dict(acc), sv.LEVEL_STEPS
+
+
+def summarise(wall, acc, steps, n_dir):
+    """Per-direction and per-part seconds of one parts-timed J pass or
+    iteration (the hoist is inside the sweep's time)."""
+    ext, sweep = acc.get("extinction", []), acc.get("sweep", [])
+    hoist = sum(acc.get("hoist", []))
+    assert len(ext) == len(sweep) == n_dir, (len(ext), len(sweep))
+    parts = {"extinction": sum(ext), "hoist": hoist,
+             "level loop": sum(sweep) - hoist}
+    for k in ("S update", "rates + statistical equilibrium"):
+        if k in acc:
+            parts[k] = sum(acc[k])
+    parts["other (unwrapped)"] = wall - sum(parts.values())
+    return {"wall_s": wall, "parts_s": parts, "level_steps": steps,
+            "us_per_level_step": 1e6 * parts["level loop"] / max(steps, 1),
+            "direction_s": [e + s for e, s in zip(ext, sweep)],
+            "direction_extinction_s": ext, "direction_sweep_s": sweep}
+
+
+def window(eng, S_T, pops, damp, lam):
+    """The J work of the WINDOW directions, as compute_J does it."""
+    for i in WINDOW:
+        a_T = eng._alpha_tot_T(eng.quad.k[i], lam, pops, damp)
+        lambda_iter.sweep_voronoi_t(eng.plans[i], S_T, a_T,
+                                    eng._I0(i, lam), n_sweeps=eng.cfg.n_sweeps,
+                                    relax_tol=eng.cfg.voronoi_relax_tol)
+    torch.cuda.synchronize()
+
+
+def profiled_window(eng, S, pops):
+    """Plain wall of the window, then its kernels under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lam = eng.line.lam_tensor()
+    S_T = S.T.contiguous()
+    damp = eng.damping_lam(pops)
+    window(eng, S_T, pops, damp, lam)           # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    window(eng, S_T, pops, damp, lam)
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        window(eng, S_T, pops, damp, lam)
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((e.key, e.count, us * 1e-6))
+    kernels.sort(key=lambda k: -k[2])
+    busy = sum(k[2] for k in kernels)
+    return {"directions": list(WINDOW), "plain_wall_s": wall,
+            "kernels_device_s": busy, "busy_share": busy / wall,
+            "kernels": kernels[:25]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n-sites", type=int, default=3_522_560)
+    ap.add_argument("--out", default=None, help="write the summary as JSON")
+    args = ap.parse_args()
+    require_cuda()
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    if grid.build_native() is None:
+        raise SystemExit("native tessellation library not built")
+
+    setup = {}
+    atmos = synthetic_atmosphere(nz=215, nx=256, ny=256)
+    t = time.perf_counter()
+    pos = grid.sample_sites(atmos, args.n_sites, density="invNH_invT",
+                            seed=2022)
+    setup["sampling"] = time.perf_counter() - t
+    bounds = (atmos.z[0], atmos.z[-1], atmos.x[0], atmos.x[-1],
+              atmos.y[0], atmos.y[-1])
+    t = time.perf_counter()
+    sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
+    setup["tessellation"] = time.perf_counter() - t
+    del atmos, pos
+    cfgs = {order: Config(nlam_bb=51, nlam_bf=20, quadrature="ul7n12",
+                          voronoi_order=order, maxiter=1, eps=0.0)
+            for order in ("layer", "wavefront")}
+    quad = get_quadrature("ul7n12")
+    plans = {}
+    for order, cfg in cfgs.items():
+        t = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # 'layer' at grazing angles
+            plans[order] = VoronoiEngine.build_plans(sites, quad, cfg)
+        setup[f"plans ({order})"] = time.perf_counter() - t
+    t = time.perf_counter()
+    T = torch.as_tensor(sites.temperature, dtype=torch.float64,
+                        device="cuda")
+    line = lyman_alpha_line(51, 20, T)
+    eng = VoronoiEngine(sites, line, cfgs["layer"], plans=plans["layer"],
+                        device="cuda")
+    torch.cuda.synchronize()
+    setup["engine set-up"] = time.perf_counter() - t
+    n_dir = quad.n_angles
+    print(f"{sites.n} sites, {line.n_lambda} wavelengths, {n_dir} "
+          f"directions; set-up s {json.dumps(setup)}", flush=True)
+
+    out = {"device": smi, "n_sites": sites.n, "setup_s": setup}
+    torch.cuda.reset_peak_memory_stats()
+    out["layer_iteration_cold_s"] = eng.run().timings[0]
+    res = None
+
+    def iterate():
+        nonlocal res
+        res = eng.run()
+
+    wall, acc, steps = parts_timed(eng, iterate)
+    out["layer_iteration_parts_timed"] = summarise(wall, acc, steps, n_dir)
+    res = eng.run()
+    out["layer_iteration_plain_s"] = res.timings[0]
+    S, pops = res.S, res.populations
+    if not (bool(torch.isfinite(S).all())
+            and bool(torch.isfinite(pops).all())):
+        raise SystemExit("S or populations not finite")
+    del res
+    out["layer_window"] = profiled_window(eng, S, pops)
+
+    eng_w = VoronoiEngine(sites, line, cfgs["wavefront"],
+                          plans=plans["wavefront"], device="cuda")
+    damp = eng_w.damping_lam(pops)
+    out["wavefront_J_cold_s"] = _synced(
+        lambda: eng_w.compute_J(S, pops, damp))
+    wall, acc, steps = parts_timed(
+        eng_w, lambda: eng_w.compute_J(S, pops, damp))
+    out["wavefront_J_parts_timed"] = summarise(wall, acc, steps, n_dir)
+    J = []
+    out["wavefront_J_plain_s"] = _synced(
+        lambda: J.append(eng_w.compute_J(S, pops, damp)))
+    if not bool(torch.isfinite(J[0]).all()):
+        raise SystemExit("wavefront J not finite")
+    del J
+    out["wavefront_window"] = profiled_window(eng_w, S, pops)
+    out["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+
+    rays = sites.n * line.n_lambda * n_dir
+    for key in ("layer_iteration_parts_timed", "wavefront_J_parts_timed"):
+        r = out[key]
+        print(f"{key}: {r['wall_s']:.4f} s, {r['level_steps']} level "
+              f"steps, {r['us_per_level_step']:.2f} us per level step",
+              flush=True)
+        for k, v in sorted(r["parts_s"].items(), key=lambda kv: -kv[1]):
+            print(f"  {k:32s} {v:9.4f} s  {100 * v / r['wall_s']:5.1f} %",
+                  flush=True)
+        print(f"  seconds per direction "
+              f"{[round(x, 4) for x in r['direction_s']]}", flush=True)
+    print(f"layer iteration: first {out['layer_iteration_cold_s']:.4f} s,"
+          f" plain {out['layer_iteration_plain_s']:.4f} s; wavefront J pass:"
+          f" first {out['wavefront_J_cold_s']:.4f} s, plain "
+          f"{out['wavefront_J_plain_s']:.4f} s, "
+          f"{rays / out['wavefront_J_plain_s']:.4e} "
+          f"sites*wavelengths*rays/s", flush=True)
+    for key in ("layer_window", "wavefront_window"):
+        w = out[key]
+        print(f"{key} (directions {w['directions']}): plain "
+              f"{w['plain_wall_s']:.4f} s, kernels' device time "
+              f"{w['kernels_device_s']:.4f} s = {100 * w['busy_share']:.1f} %"
+              f" busy", flush=True)
+        for name, count, s in w["kernels"][:10]:
+            print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
+    print(f"peak device memory {out['peak_GiB']:.3f} GiB", flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""Lambda-iteration engines (regular grid)."""
+"""Lambda-iteration engines (regular and Voronoi grid)."""
 
-from .lambda_iter import NLTEResult, RegularEngine, frozen_setup
+from .lambda_iter import NLTEResult, RegularEngine, VoronoiEngine, frozen_setup
 
-__all__ = ["NLTEResult", "RegularEngine", "frozen_setup"]
+__all__ = ["NLTEResult", "RegularEngine", "VoronoiEngine", "frozen_setup"]

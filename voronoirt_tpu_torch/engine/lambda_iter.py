@@ -1,8 +1,9 @@
-"""NLTE Lambda-iteration engine on the regular grid.
+"""NLTE Lambda-iteration engines, regular and Voronoi grid.
 
-Port of the regular-grid half of voronoirt_tpu/engine/lambda_iter.py
-(reference src/lambda_iteration.jl: J_lambda_regular :1-58,
-Lambda_regular :116-205, criterion :299-349).
+Port of voronoirt_tpu/engine/lambda_iter.py (reference
+src/lambda_iteration.jl: J_lambda_regular :1-58, J_lambda_voronoi
+:60-113, Lambda_regular :116-205, Lambda_voronoi :207-297, criterion
+:299-349).
 
 Iteration scheme (identical to the reference): LTE populations, the
 continuum extinction at line centre, the destruction probability
@@ -19,6 +20,9 @@ buffer-donation tricks have no counterpart here: where JAX donated a
 buffer, this module updates in place (the J accumulation and the S chunk
 write of the streamed update) and says so at each site.  The angle-
 distributed (MPMD) path and the site-slabbed rates are not ported.
+RegularEngine and VoronoiEngine share the frozen set-up, the per-cell
+fields and load_state through one base class, and run() through one
+outer loop.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from voronoirt_tpu.config import Config
+from voronoirt_tpu.grid.voronoi import build_voronoi_plan
 from voronoirt_tpu.quadrature import get_quadrature
 
 from ..device import torch_dtype
@@ -44,6 +49,7 @@ from ..physics.rates import calculate_C, calculate_R, calculate_R_chunk
 from ..physics.stateq import get_revised_populations
 from ..solvers.sweep_regular import (build_plan, group_plans, sweep,
                                      sweep_group_J)
+from ..solvers.sweep_voronoi import device_plan, sweep_voronoi_t
 
 _C_KEYS = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
 
@@ -141,25 +147,21 @@ def _sync(t):
         torch.cuda.synchronize(t.device)
 
 
-# --------------------------------------------------------- regular grid
+# -------------------------------------------------------------- engines
 
 
-class RegularEngine:
-    """Lambda iteration on the regular grid.
+class _Engine:
+    """What both engines share: the working dtype and device, the line
+    bound to them, the quadrature, the frozen set-up on per-cell (or
+    per-site) fields, the damping and the state loaded to start from.
 
-    Field layout: (nlam, nz, nx, ny); sweeps run on (nz, nlam, nx, ny).
     device: where every field lives (default: the device of
     line.dlamD).  cfg.dtype is the working type of physics and
     transport alike; a different cfg.transport_dtype is refused (float32
-    transport is not accurate yet, ROADMAP C3), and so is any
-    cfg.formal_interpolation but 'linear'.  cfg.group_max_angles caps the
-    angles per batched group sweep when set; unset, groups are not
-    capped.
+    transport is not accurate yet, ROADMAP C3).
     """
 
-    def __init__(self, atmos, line, cfg: Config, quadrature=None,
-                 device=None):
-        self.atmos = atmos
+    def __init__(self, line, cfg: Config, quadrature, device):
         self.cfg = cfg
         self.device = torch.device(device if device is not None
                                    else line.dlamD.device)
@@ -168,27 +170,20 @@ class RegularEngine:
             raise NotImplementedError(
                 f"transport_dtype={cfg.transport_dtype!r} differs from "
                 f"dtype={cfg.dtype!r}: only one working type is ported")
-        if cfg.formal_interpolation != "linear":
-            raise NotImplementedError(
-                f"formal_interpolation={cfg.formal_interpolation!r}: only "
-                f"the linear formal solution is ported")
         self.line = dataclasses.replace(
             line, dlamD=line.dlamD.to(self.device, self.dtype))
         self.quad = get_quadrature(quadrature or cfg.quadrature)
-        z = np.asarray(atmos.z)
-        self.plans = [build_plan(self.quad.k[i], z, atmos.dx, atmos.dy,
-                                 bool(self.quad.is_up[i]))
-                      for i in range(self.quad.n_angles)]
-        # mirror-quadrant angles share one batched sweep
-        self.plan_groups = group_plans(self.quad.k, self.quad.is_up, z,
-                                       atmos.dx, atmos.dy,
-                                       max_group=cfg.group_max_angles)
-        self.T = self._field(atmos.temperature)
-        self.ne = self._field(atmos.electron_density)
-        self.nH = self._field(atmos.hydrogen_populations)
-        self.v = self._field(atmos.velocity_zxy())
+
+    def _frozen_setup(self, fields):
+        """The per-cell fields of `fields` (an Atmosphere or
+        VoronoiSites) on the device, and the frozen set-up on them."""
+        self.T = self._field(fields.temperature)
+        self.ne = self._field(fields.electron_density)
+        self.nH = self._field(fields.hydrogen_populations)
+        self.v = self._field(fields.velocity_zxy())
         (self.lte, self.a_cont, self.eps, self.C,
-         self.B0) = frozen_setup(self.line, self.T, self.ne, self.nH, cfg)
+         self.B0) = frozen_setup(self.line, self.T, self.ne, self.nH,
+                                 self.cfg)
         self.S_start = None
         self.populations_start = None
 
@@ -221,13 +216,50 @@ class RegularEngine:
         if "populations" in arrays:
             self.populations_start = self._field(arrays["populations"])
 
-    # ---- extinction
-
     def _gamma_cell(self, populations):
         """Per-cell damping rate gamma (lambda-independent)."""
         return gamma_constant(self.line, self.T,
                               populations[..., 0] + populations[..., 1],
                               self.ne, self.cfg.gamma_natural)
+
+    def damping_lam(self, populations):
+        """The full (nlam, ...) damping cube."""
+        lam = self.line.lam_tensor().reshape((-1,) + (1,) * self.T.dim())
+        return damping(self._gamma_cell(populations)[None], lam,
+                       self.line.dlamD[None])
+
+
+# --------------------------------------------------------- regular grid
+
+
+class RegularEngine(_Engine):
+    """Lambda iteration on the regular grid.
+
+    Field layout: (nlam, nz, nx, ny); sweeps run on (nz, nlam, nx, ny).
+    Besides the _Engine rules: any cfg.formal_interpolation but 'linear'
+    is refused; cfg.group_max_angles caps the angles per batched group
+    sweep when set, and unset, groups are not capped.
+    """
+
+    def __init__(self, atmos, line, cfg: Config, quadrature=None,
+                 device=None):
+        super().__init__(line, cfg, quadrature, device)
+        if cfg.formal_interpolation != "linear":
+            raise NotImplementedError(
+                f"formal_interpolation={cfg.formal_interpolation!r}: only "
+                f"the linear formal solution is ported")
+        self.atmos = atmos
+        z = np.asarray(atmos.z)
+        self.plans = [build_plan(self.quad.k[i], z, atmos.dx, atmos.dy,
+                                 bool(self.quad.is_up[i]))
+                      for i in range(self.quad.n_angles)]
+        # mirror-quadrant angles share one batched sweep
+        self.plan_groups = group_plans(self.quad.k, self.quad.is_up, z,
+                                       atmos.dx, atmos.dy,
+                                       max_group=cfg.group_max_angles)
+        self._frozen_setup(atmos)
+
+    # ---- extinction
 
     def _alpha_tot_t(self, k, lam_c, populations, damp_c=None, g_cell=None):
         """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c, in
@@ -327,12 +359,6 @@ class RegularEngine:
             Jc.add_(I_g.transpose(0, 1))
         return Jc
 
-    def damping_lam(self, populations):
-        """The full (nlam, nz, nx, ny) damping cube."""
-        lam = self.line.lam_tensor().reshape(-1, 1, 1, 1)
-        return damping(self._gamma_cell(populations)[None], lam,
-                       self.line.dlamD[None])
-
     def bottom_boundary(self):
         return B_lambda(self.line.lam_tensor()[:, None, None],
                         self.T[0][None])
@@ -368,14 +394,142 @@ class RegularEngine:
         return _run_iteration(self)
 
 
+# --------------------------------------------------------- voronoi grid
+
+# points per block of the Voronoi extinction: the eager Voigt's complex
+# temporaries stay one voigt_H slab in size
+_EXT_POINTS = 1 << 24
+
+
+class VoronoiEngine(_Engine):
+    """Lambda iteration on the irregular grid (J_lambda_voronoi,
+    Lambda_voronoi).
+
+    Field layout: (nlam, n_sites); the sweeps run site-major, (n, B).
+    plans: optionally the per-direction VoronoiPlans, in quadrature
+    order (the JAX engine's `plans` list serves as is); else they are
+    built with cfg.voronoi_order, disk-cached under cfg.cache_dir.  The
+    Voronoi sweep is linear whatever cfg.formal_interpolation says, as
+    in the JAX package.  cfg.stream_rates does not apply.
+    """
+
+    def __init__(self, sites, line, cfg: Config, quadrature=None,
+                 plans=None, device=None):
+        super().__init__(line, cfg, quadrature, device)
+        self.sites = sites
+        self.plans = list(plans) if plans is not None else \
+            self.build_plans(sites, self.quad, cfg)
+        self._frozen_setup(sites)
+        self._bc_sites = [torch.as_tensor(np.asarray(p.bc_sites,
+                                                     dtype=np.int64),
+                                          device=self.device)
+                          for p in self.plans]
+        # the slot plans and their device arrays, built here rather
+        # than in the first J pass
+        for p in self.plans:
+            device_plan(p, cfg.n_sweeps, self.device, self.dtype)
+
+    @staticmethod
+    def build_plans(sites, quad, cfg: Config):
+        """Host-side plan construction for every quadrature direction
+        (disk-cached when cfg.cache_dir is set)."""
+        return [build_voronoi_plan(
+            sites, quad.k[i], bool(quad.is_up[i]), p=cfg.upwind_exponent,
+            compat=cfg.compat, order=cfg.voronoi_order,
+            n_sweeps=cfg.n_sweeps, cache_dir=cfg.cache_dir)
+            for i in range(quad.n_angles)]
+
+    def _alpha_tot_T(self, k, lam_c, populations, damp_c=None,
+                     g_cell=None):
+        """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c,
+        site-major (n, B): the counterpart of the JAX package's
+        _alpha_tot_g_T.  Computed in blocks of wavelengths of about
+        _EXT_POINTS points (every op is pointwise, so the values are
+        those of the whole-chunk expression); damp_c: the chunk's damping
+        rows, or None to compute them from the per-site g_cell."""
+        line = self.line
+        v_los = line_of_sight_velocity(self.v, -np.asarray(k))
+        n, nlam = self.T.shape[0], lam_c.shape[0]
+        out = torch.empty((n, nlam), dtype=self.dtype, device=self.device)
+        n_i, n_j = populations[..., 0], populations[..., 1]
+        step = max(1, _EXT_POINTS // max(n, 1))
+        for j0 in range(0, nlam, step):
+            j1 = min(j0 + step, nlam)
+            lam_j = lam_c[j0:j1]
+            if damp_c is not None:
+                damp = damp_c[j0:j1]
+            else:
+                damp = damping(g_cell[None], lam_j[:, None],
+                               line.dlamD[None])
+            profile = compute_profile(line, lam_j, damp, v_los)
+            out[:, j0:j1] = (alpha_line(line, profile, n_j, n_i)
+                             + self.a_cont).T
+        return out
+
+    def _I0(self, i, lam_c):
+        """Boundary intensity on plan i's bc sites: B(T) at the bottom
+        layer for up sweeps, dark for down sweeps
+        (lambda_iteration.jl:99-102)."""
+        bc = self._bc_sites[i]
+        if self.plans[i].up:
+            return B_lambda(lam_c[:, None], self.T[bc][None])
+        return torch.zeros((lam_c.shape[0], bc.shape[0]), dtype=self.dtype,
+                           device=self.device)
+
+    def compute_J(self, S, populations, damping_lam=None):
+        """J accumulation over the quadrature (J_lambda_voronoi).
+
+        Wavelengths stream in blocks of cfg.lambda_chunk; within a chunk
+        everything is site-major: S is transposed once, each direction's
+        extinction is made as (n, B), and the quadrature-weighted J
+        accumulates into one (n, B) buffer.  damping_lam=None computes
+        the damping per chunk from the per-site gamma.
+        """
+        lam = self.line.lam_tensor()
+        chunks = _lambda_chunks(self.line.n_lambda, self.cfg.lambda_chunk)
+        g_cell = self._gamma_cell(populations) if damping_lam is None \
+            else None
+        J = None
+        if len(chunks) > 1:
+            J = torch.empty_like(S)
+        for sl in chunks:
+            damp_c = damping_lam[sl] if damping_lam is not None else None
+            Jc_T = self._J_chunk_T(S[sl], populations, damp_c, lam[sl],
+                                   g_cell)
+            if J is None:
+                return Jc_T.T.contiguous()
+            J[sl] = Jc_T.T
+        return J
+
+    def _J_chunk_T(self, S_c, populations, damp_c, lam_c, g_cell):
+        """One lambda chunk of J, site-major (n, B)."""
+        quad, cfg = self.quad, self.cfg
+        S_T = S_c.T.contiguous()
+        Jc_T = torch.zeros_like(S_T)
+        for i, plan in enumerate(self.plans):
+            a_T = self._alpha_tot_T(quad.k[i], lam_c, populations, damp_c,
+                                    g_cell)
+            I_T = sweep_voronoi_t(plan, S_T, a_T, self._I0(i, lam_c),
+                                  n_sweeps=cfg.n_sweeps,
+                                  relax_tol=cfg.voronoi_relax_tol)
+            del a_T
+            # in-place J accumulation (the JAX package donates J to a
+            # fused J + w * I)
+            Jc_T.add_(I_T.mul_(float(quad.weights[i])))
+        return Jc_T
+
+    def run(self):
+        return _run_iteration(self)
+
+
 # --------------------------------------------------------- outer loop
 
 
 def _run_iteration(engine, start_iteration=0, S_init=None,
                    populations_init=None):
-    """Host-side while loop: iterate until converged (Lambda_regular).
-    Starts from S_init / populations_init, else the engine's loaded
-    state, else B0 / LTE."""
+    """Host-side while loop: iterate until converged (Lambda_regular and
+    Lambda_voronoi, lambda_iteration.jl:116-297).  Starts from S_init /
+    populations_init, else the engine's loaded state, else B0 / LTE."""
     cfg = engine.cfg
     line = engine.line
     if cfg.rates_site_chunk:

@@ -1,0 +1,448 @@
+"""Irregular-grid (Voronoi) sweep in slot order.
+
+Port of voronoirt_tpu/solvers/sweep_voronoi.py (reference
+src/irregular_ray_tracing.jl Delaunay_upII/_downII): per site, blend the
+formal solutions along the two most-upwind Delaunay edges.
+
+Sites are renumbered per direction into schedule order, so every level
+of a stage is a contiguous row range of the (rows + 1, B) intensity
+array (one extra zero row, the dummy slot that absent upwinds read):
+
+  [ boundary sites | stage-0 level 0 | stage-0 level 1 | ... | orphans ]
+
+Host half: numpy copies of `SlotStage`, `SlotPlan`, `_schedule_stages`
+and `build_slot_plan` (the JAX module imports jax at its top).  The copy
+is JAX's unpadded form, `build_slot_plan(plan, n_sweeps, bucket=False)`,
+and is held equal to it by tests/test_torch_sweep_voronoi.py.  JAX pads
+stage shapes (`_bucket`, `share_plan_shapes`, `_pad_to`) only so that
+the directions share compiled XLA programs, and its own tests pin the
+padded and unpadded sweeps as bitwise equal on every real site
+(tests/test_sweep_voronoi.py:385-502).  Also left out: the
+`VRT_STAGE_ROWS` stage segmentation (`_split_stage`), the donation
+switch and the hoist byte budget, which fit the sweep into a 16 GB TPU.
+
+Device half, torch on any device: each stage is a Python loop over its
+levels.  A level gathers its upwind and own-site S and extinction with
+index_select, forms the linear formal-solution weights, gathers the two
+upwind intensity rows and writes its rows into I with one contiguous
+slice copy.  'relax' stages (wavefront plans) repeat, with the exact
+per-lap sup-change and the two-lap adaptive exit; when a relax stage
+repeats, its weights are precomputed once (the "lean hoist") and each
+lap reads only them and I.  Unlike the JAX sweep, the device layout
+drops the slot plan's padding entries (`_device_arrays`): in 'layer'
+order the rows of a stage are padded to its widest row, several times
+the real slots at production site counts.  Real slots get the same
+values either way.
+
+LEVEL_STEPS counts the sequential level steps (one per level and pass,
+hoisted laps included) since it was last set to 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .formal import linear_weights
+
+LEVEL_STEPS = 0
+
+# block size (in rows) of the hoisted-weight precompute: it bounds the
+# precompute's eager (rows, 2, B) temporaries, about fifteen of them in
+# the linear weights (191 MB each at B = 91 in float64), not what is
+# hoisted
+_LEAN_CHUNK_ROWS = 1 << 17
+
+
+# ------------------------------------------------------------ slot plan
+
+@dataclasses.dataclass(frozen=True)
+class SlotStage:
+    """One schedule stage in slot order.
+
+    Rows [base + l*W, base + (l+1)*W) of the slot array are level l.
+    up/w/r: (L, W, 2) upwind SLOT ids / blend weights / path lengths.
+    passes: Jacobi passes per level (1 for exact topological levels).
+    repeats: global repeats of the stage (seam-wrapping relaxation).
+    kind: 'exact' | 'relax' | 'gs' | 'layer'; only 'relax' stages repeat.
+    """
+    base: int
+    L: int
+    W: int
+    up: np.ndarray
+    w: np.ndarray
+    r: np.ndarray
+    passes: int
+    repeats: int
+    kind: str = "exact"
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPlan:
+    """JAX's SlotPlan, plus slot_site: the site id of every slot with
+    padding left at n, which the device layout needs to drop it."""
+    n_slots: int
+    n_bc: int
+    slot_gather: np.ndarray   # (n_slots,) site id per slot (clipped pad)
+    site_gather: np.ndarray   # (n,) slot id per site
+    stages: tuple
+    slot_site: np.ndarray     # (n_slots,) site id per slot, n for padding
+
+
+def _schedule_stages(plan, n_sweeps):
+    """(schedule (L, W), passes, kind, repeats, occ) in execution order."""
+    if plan.exact_levels is not None or plan.relax_levels is not None:
+        out = []
+        if plan.exact_levels is not None:
+            out.append((plan.exact_levels, 1, "exact", 1, None))
+        if plan.relax_levels is not None:
+            out.append((plan.relax_levels, 1, "relax",
+                        int(plan.relax_repeats), None))
+        return out
+    if plan.gs_levels is not None:
+        # exact Gauss-Seidel row order (grid/voronoi.py
+        # _gs_layer_schedule): n_sweeps is already baked into the rows
+        return [(plan.gs_levels, 1, "gs", 1, plan.gs_up_occ)]
+    return [(plan.layer_sites, n_sweeps, "layer", 1, None)]
+
+
+def build_slot_plan(plan, n_sweeps=3):
+    """Compile the slot renumbering for one direction (host, cached on
+    the plan per n_sweeps).
+
+    Every real site appears in exactly one schedule row (bc sites form
+    slot block 0); padding entries (site id == n) map to the dummy slot
+    n_slots, whose row stays zero.  A `_pad_to` target that the JAX
+    package's share_plan_shapes attached to the plan is ignored.
+    """
+    cache = getattr(plan, "_torch_slot_cache", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(plan, "_torch_slot_cache", cache)
+    if n_sweeps in cache:
+        return cache[n_sweeps]
+
+    n = plan.n
+    n_bc = len(plan.bc_sites)
+    blocks = [np.asarray(plan.bc_sites, dtype=np.int64)]
+    base = n_bc
+    metas = []
+    for sched, passes, kind, repeats, occ in _schedule_stages(plan,
+                                                             n_sweeps):
+        sched = np.asarray(sched, dtype=np.int64)
+        L, W = sched.shape
+        blocks.append(sched.reshape(-1))
+        metas.append((sched, occ, base, L, W, passes, kind, repeats))
+        base += L * W
+    slot2site = np.concatenate(blocks)
+
+    # sites absent from every schedule row (the reference's skipped last
+    # perm site, unreachable layer-0 sites) still appear as UPWINDS of
+    # scheduled sites: give them read-only slots so their S/alpha gather
+    # real values while their intensity stays the initial 0 (exactly the
+    # reference's behaviour) -- the dummy zero row is only for padding.
+    present = np.zeros(n, dtype=bool)
+    present[slot2site[slot2site < n]] = True
+    orphans = np.nonzero(~present)[0]
+    if orphans.size:
+        slot2site = np.concatenate([slot2site, orphans])
+    n_slots = len(slot2site)
+
+    site2slot = np.full(n + 1, n_slots, dtype=np.int64)  # dummy -> zero row
+    real = slot2site < n
+    site2slot[slot2site[real]] = np.nonzero(real)[0]
+
+    up_pad = np.concatenate(
+        [plan.upwind.astype(np.int64), [[n, n]]], axis=0)   # (n+1, 2)
+    w_pad = np.concatenate([plan.weights, [[0.0, 0.0]]], axis=0)
+    r_pad = np.concatenate([plan.r, [[0.0, 0.0]]], axis=0)
+
+    stages = []
+    for sched, occ, b, L, W, passes, kind, repeats in metas:
+        up_slots = site2slot[up_pad[sched]]               # (L, W, 2) slots
+        if kind == "gs" and occ is not None:
+            # exact-GS stage: a site occurs once per pass; readers whose
+            # upwind lives in the same layer target the occurrence of the
+            # pass their value must come from; -1 keeps the site-level
+            # resolution
+            up_slots = np.where(occ >= 0, b + occ, up_slots)
+        stages.append(SlotStage(
+            base=b, L=L, W=W, up=up_slots.astype(np.int32),
+            w=w_pad[sched], r=r_pad[sched],
+            passes=passes, repeats=repeats, kind=kind))
+
+    sp = SlotPlan(n_slots=n_slots, n_bc=n_bc,
+                  slot_gather=np.minimum(slot2site, n - 1).astype(np.int32),
+                  site_gather=site2slot[:n].astype(np.int32),
+                  stages=tuple(stages), slot_site=slot2site)
+    cache[n_sweeps] = sp
+    return sp
+
+
+# ------------------------------------------------------- device arrays
+
+@dataclasses.dataclass(frozen=True)
+class _StageDev:
+    """A stage on the device with its padding dropped: rows [start +
+    off[l], start + off[l + 1]) of the compact intensity array are level
+    l.  up_slot/up_site/w/r: (R, 2) upwind slot ids, upwind site ids,
+    blend weights and path lengths; row_site: (R,) own-site ids."""
+    kind: str
+    passes: int
+    repeats: int
+    start: int
+    off: tuple
+    up_slot: torch.Tensor
+    up_site: torch.Tensor
+    row_site: torch.Tensor
+    w: torch.Tensor
+    r: torch.Tensor
+
+
+def _device_arrays(sp, device, dtype):
+    """(stages, site_gather, n_rows) on `device`, built once per slot
+    plan, device and dtype.
+
+    The slot plan's padding entries (site id n) are dropped: real slots
+    keep their order and are renumbered densely, so each level stays one
+    contiguous row range of an (n_rows + 1, B) intensity array whose
+    last row is the dummy zero row.  Padding only ever read the dummy
+    row with weight 0 and wrote zeros into padding slots, so the real
+    slots' values are those of the padded layout.  The field gathers
+    read the (n, B) site-ordered S and extinction through SITE-id maps,
+    so no slot-reordered copies of them exist; an upwind that is the
+    dummy slot reads site 0, with weight 0 and path length 0."""
+    cache = getattr(sp, "_dev_cache", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(sp, "_dev_cache", cache)
+    key = (str(device), dtype)
+    if key in cache:
+        return cache[key]
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    def val(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    n = len(sp.site_gather)
+    real = sp.slot_site < n
+    n_rows = int(np.count_nonzero(real))
+    # old slot id -> dense row; padding and the dummy slot -> dummy row
+    dense = np.full(sp.n_slots + 1, n_rows, dtype=np.int64)
+    dense[np.nonzero(real)[0]] = np.arange(n_rows)
+    # old slot id -> site id, the dummy slot -> site 0
+    slot_full = np.concatenate(
+        [sp.slot_gather, np.zeros(1, dtype=sp.slot_gather.dtype)])
+    stages = []
+    for st in sp.stages:
+        rows = st.base + np.arange(st.L * st.W, dtype=np.int64)
+        keep = real[rows]
+        off = np.concatenate(
+            [[0], np.cumsum(keep.reshape(st.L, st.W).sum(1))])
+        up = st.up.reshape(-1, 2)[keep]
+        stages.append(_StageDev(
+            kind=st.kind, passes=st.passes, repeats=st.repeats,
+            start=int(np.count_nonzero(real[:st.base])),
+            off=tuple(int(o) for o in off),
+            up_slot=idx(dense[up]), up_site=idx(slot_full[up]),
+            row_site=idx(slot_full[rows[keep]]),
+            w=val(st.w.reshape(-1, 2)[keep]),
+            r=val(st.r.reshape(-1, 2)[keep])))
+    cache[key] = (tuple(stages), idx(dense[sp.site_gather]), n_rows)
+    return cache[key]
+
+
+def device_plan(plan, n_sweeps, device, dtype):
+    """The slot plan of one direction and its device arrays, built and
+    cached (the first sweep of a direction builds them otherwise)."""
+    return _device_arrays(build_slot_plan(plan, n_sweeps), device, dtype)
+
+
+# ---------------------------------------------------------- device sweep
+
+def _level_src_ew(S_T, a_T, up_site, row_site, r2):
+    """Field-dependent weights of a block of rows: gathers of the upwind
+    and own-site field values straight from the (n, B) site-ordered
+    arrays.  up_site/r2: (R, 2); row_site: (R,).  Returns (ew, src),
+    (R, 2, B) each."""
+    B = S_T.shape[1]
+    s_u = S_T.index_select(0, up_site.reshape(-1)).view(
+        up_site.shape + (B,))
+    a_u = a_T.index_select(0, up_site.reshape(-1)).view(
+        up_site.shape + (B,))
+    s_c = S_T.index_select(0, row_site)
+    a_c = a_T.index_select(0, row_site)
+    dtau = r2[..., None] * (a_c[:, None, :] + a_u) * 0.5
+    aw, bw, ew = linear_weights(dtau)
+    src = aw * s_u + bw * s_c[:, None, :]
+    return ew, src
+
+
+def _level_update(I, sd, l, new_rows, dmax=None, smax=None):
+    """The passes of level l: gather the 2 upwind I rows (SLOT ids --
+    occurrence semantics live in I) as i_u (W, 2, B), make the level's
+    rows new_rows(i_u) and write them contiguously.  With dmax/smax (0-d
+    tensors) also folds the rows' change and size into them, read
+    before the write."""
+    global LEVEL_STEPS
+    o0, o1 = sd.off[l], sd.off[l + 1]
+    rows = I[sd.start + o0:sd.start + o1]
+    fl = sd.up_slot[o0:o1].reshape(-1)
+    for _ in range(sd.passes):
+        i_new = new_rows(I.index_select(0, fl).view(o1 - o0, 2, I.shape[1]))
+        if dmax is not None:
+            dmax = torch.maximum(dmax, (i_new - rows).abs().max())
+            smax = torch.maximum(smax, i_new.abs().max())
+        # the JAX package donates I to this update
+        # (dynamic_update_slice); here the rows are written in place
+        rows.copy_(i_new)
+        LEVEL_STEPS += 1
+    return dmax, smax
+
+
+def _formal(S_T, a_T, sd, l):
+    """new_rows of level l from the fields: the fused formal solution
+    sum_j w_j (ew_j I_j + src_j)."""
+    o0, o1 = sd.off[l], sd.off[l + 1]
+    ew, src = _level_src_ew(S_T, a_T, sd.up_site[o0:o1], sd.row_site[o0:o1],
+                            sd.r[o0:o1])
+    w2 = sd.w[o0:o1][..., None]
+    return lambda i_u: (w2 * (ew * i_u + src)).sum(1)
+
+
+def _hoisted(lean, sd, l):
+    """new_rows of level l from the packed lean weights A = w * ew and
+    b = sum_j w_j src_j: no field gathers."""
+    o0, o1 = sd.off[l], sd.off[l + 1]
+    A, b = lean[0][o0:o1], lean[1][o0:o1]
+    return lambda i_u: (A * i_u).sum(1) + b
+
+
+def _run_stage(I, sd, S_T, a_T):
+    """One pass over a stage's levels (exact / gs / layer, or one plain
+    relax lap), I updated in place."""
+    for l in range(len(sd.off) - 1):
+        _level_update(I, sd, l, _formal(S_T, a_T, sd, l))
+
+
+def _zeros2(I):
+    z = torch.zeros((), dtype=I.dtype, device=I.device)
+    return z, z
+
+
+def _rel_change(dmax, smax):
+    return dmax / torch.clamp(smax, min=1e-30)
+
+
+def _run_relax_lap(I, sd, S_T, a_T):
+    """One relax lap + its EXACT relative sup-change (0-d tensor): each
+    level's old rows are read before the update writes them, so the
+    change covers every written row (unwritten rows cannot change)."""
+    dmax, smax = _zeros2(I)
+    for l in range(len(sd.off) - 1):
+        dmax, smax = _level_update(I, sd, l, _formal(S_T, a_T, sd, l),
+                                   dmax, smax)
+    return _rel_change(dmax, smax)
+
+
+def _precompute_lean(sd, S_T, a_T):
+    """The packed lean weights (A (R, 2, B), b (R, B)) of a whole stage,
+    built in blocks of _LEAN_CHUNK_ROWS rows (they depend on the fields
+    only, not on I, so the blocks ignore the levels)."""
+    R, B = sd.off[-1], S_T.shape[1]
+    A = torch.empty((R, 2, B), dtype=S_T.dtype, device=S_T.device)
+    b = torch.empty((R, B), dtype=S_T.dtype, device=S_T.device)
+    for c0 in range(0, R, _LEAN_CHUNK_ROWS):
+        c = slice(c0, min(c0 + _LEAN_CHUNK_ROWS, R))
+        ew, src = _level_src_ew(S_T, a_T, sd.up_site[c], sd.row_site[c],
+                                sd.r[c])
+        w2 = sd.w[c][..., None]
+        A[c] = w2 * ew
+        b[c] = (w2 * src).sum(1)
+    return A, b
+
+
+def _run_hoisted_lap(I, sd, lean):
+    """One relax lap from the lean weights."""
+    for l in range(len(sd.off) - 1):
+        _level_update(I, sd, l, _hoisted(lean, sd, l))
+
+
+def _run_hoisted_lap_d(I, sd, lean):
+    """Hoisted relax lap + its exact relative sup-change."""
+    dmax, smax = _zeros2(I)
+    for l in range(len(sd.off) - 1):
+        dmax, smax = _level_update(I, sd, l, _hoisted(lean, sd, l),
+                                   dmax, smax)
+    return _rel_change(dmax, smax)
+
+
+def _sweep_slots(stages, site_gather, n_rows, relax_tol, S_T, a_T, I0):
+    """The slot sweep: stages in order, a relax stage's laps repeated
+    up to its repeat count.  With relax_tol > 0, two consecutive laps
+    whose relative sup-change is at most relax_tol end the repeats (a
+    single stalled-but-unconverged lap must not truncate the schedule);
+    each lap reads one scalar back.  S_T/a_T: (n, B) site-ordered
+    fields.  Returns I as (n, B)."""
+    B = S_T.shape[1]
+    I = torch.zeros((n_rows + 1, B), dtype=S_T.dtype, device=S_T.device)
+    I[:I0.shape[-1]] = I0.T
+    for sd in stages:
+        if sd.kind != "relax":
+            _run_stage(I, sd, S_T, a_T)
+            continue
+        lean = _precompute_lean(sd, S_T, a_T) if sd.repeats > 1 else None
+        if not relax_tol:
+            for _ in range(sd.repeats):
+                if lean is not None:
+                    _run_hoisted_lap(I, sd, lean)
+                else:
+                    _run_stage(I, sd, S_T, a_T)
+            continue
+        streak = 0
+        for _ in range(sd.repeats):
+            if lean is not None:
+                rel = _run_hoisted_lap_d(I, sd, lean)
+            else:
+                rel = _run_relax_lap(I, sd, S_T, a_T)
+            streak = streak + 1 if float(rel) <= relax_tol else 0
+            if streak >= 2:
+                break
+    return I.index_select(0, site_gather)
+
+
+def sweep_voronoi_t(plan, S_T, a_T, I0, n_sweeps=3, relax_tol=0.0):
+    """sweep_voronoi on site-major (n, B) fields; returns I as (n, B).
+
+    The engine's entry point: it transposes S once per wavelength chunk
+    and emits each direction's extinction site-major, so no transposes
+    happen per direction."""
+    stages, site_gather, n_rows = device_plan(plan, n_sweeps, S_T.device,
+                                              S_T.dtype)
+    return _sweep_slots(stages, site_gather, n_rows, float(relax_tol),
+                        S_T, a_T, I0)
+
+
+def sweep_voronoi(plan, S, alpha, I0, n_sweeps=3, relax_tol=0.0):
+    """Formal solution over the irregular grid along plan.k.
+
+    Args:
+      plan: VoronoiPlan (static geometry for one direction).
+      S, alpha: (B, n) or (n,) source function / extinction tensors.
+      I0: (B, n_bc) or (n_bc,) boundary intensity on plan.bc_sites
+          (bottom-layer sites for up sweeps: lambda_iteration.jl:99-102).
+      relax_tol: early-exit tolerance for seam-wrap relax repeats
+          ('wavefront' plans); 0 = fixed repeat count.
+    Returns:
+      I with the shape of S.
+    """
+    squeeze = S.dim() == 1
+    if squeeze:
+        S, alpha, I0 = S[None], alpha[None], I0[None]
+    I_T = sweep_voronoi_t(plan, S.T.contiguous(), alpha.T.contiguous(), I0,
+                          n_sweeps=n_sweeps, relax_tol=relax_tol)
+    return I_T[:, 0] if squeeze else I_T.T
