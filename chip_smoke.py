@@ -9,13 +9,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      card, float64 and float32, at the production plane shape
      (52, 256, 256), at (16, 256, 256) and at a ragged (5, 37, 29),
      over every stencil-shift / march-direction combination with mixed
-     per-element geometry; then both timed at the production shape;
+     per-element geometry: xy_plane (K1), and K2 as march_coeffs,
+     march_chain and their composition march_plane; then all timed at
+     the production shape beside their bounds, K2 per march axis;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
   5. two Lambda iterations of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
-     through RegularEngine.run(), with both kernels' launch counts;
+     through RegularEngine.run(), with every kernel's launch count;
   6. the Voronoi NLTE chain goldens (tests/golden/nlte_fixtures.npz
      vor_*: 500 sites, 'layer' order, 3 iterations) through
      VoronoiEngine.run() on the card, and wavefront sweeps of every
@@ -27,7 +29,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      per-direction seconds, level steps and peak memory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
-CUDA device is visible or the package is not beside it.
+CUDA device is visible or the package is not beside it, and fails if
+jax or any module of the JAX package (voronoirt_tpu) was imported.
 """
 
 import json
@@ -47,6 +50,11 @@ PROD = dict(nz=215, nx=256, ny=256, nlam_bb=51, nlam_bf=20,
 VOR_SITES = 442_368
 TOL = {"float64": dict(rtol=1e-12, atol=0.0),
        "float32": dict(rtol=2e-5, atol=1e-6)}
+# the hand-written kernels of the regular path; march_plane is K2 as the
+# composition of march_coeffs and march_chain
+KERNELS = ("xy_plane", "march_plane", "march_coeffs", "march_chain")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
+F64_OPS_PER_S = 34e12         # float64 outside the tensor cores, the same
 
 
 def require(cond, msg):
@@ -106,13 +114,15 @@ def _compare(name, got, want, dtype_name):
 
 
 def check_kernels():
-    """Phase 2: each kernel against its plain version on the card.
-    Returns {kernel: max abs err in float64}."""
+    """Phase 2: each kernel against its plain version on the card; K2 as
+    its two kernels, march_coeffs and march_chain (on the kernel's own
+    scratch), and as their composition march_plane.  Returns {kernel:
+    max abs err in float64}."""
     import torch
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
-    worst = {"xy_plane": 0.0, "march_plane": 0.0}
+    worst = dict.fromkeys(KERNELS, 0.0)
     gen = torch.Generator().manual_seed(2024)
     # the production group-plane shape (4 angles x lambda_chunk), a
     # smaller full plane and a ragged one
@@ -121,19 +131,24 @@ def check_kernels():
     for dtype_name, dtype in (("float64", torch.float64),
                               ("float32", torch.float32)):
         for (B, nx, ny) in shapes:
-            e_xy = e_m = (0.0, 0.0)
+            err = dict.fromkeys(KERNELS, (0.0, 0.0))
+
+            def compare(name, got, want):
+                torch.cuda.synchronize()
+                e = _compare(name, got, want, dtype_name)
+                err[name] = tuple(map(max, err[name], e))
+
             for sxs in (0, -1):
                 for sys_ in (0, -1):
                     planes = _planes(gen, B, nx, ny, dtype)
                     r = _rand(gen, (B,), -1.0, 1.0, dtype, log=True)
                     fx, fy = _fractions(gen, B, dtype), _fractions(gen, B,
                                                                    dtype)
-                    got = xp.xy_plane(*planes, r, fx, fy, sxs, sys_)
-                    want = xp.xy_plane_plain(*planes, r, fx, fy, sxs, sys_)
-                    torch.cuda.synchronize()
-                    e = _compare("xy_plane", got, want, dtype_name)
-                    e_xy = tuple(map(max, e_xy, e))
+                    compare("xy_plane", xp.xy_plane(*planes, r, fx, fy, sxs,
+                                                    sys_),
+                            xp.xy_plane_plain(*planes, r, fx, fy, sxs, sys_))
             for axis in ("x", "y"):
+                line = ny if axis == "x" else nx
                 for sign in (1, -1):
                     for s_base in (0, -1):
                         planes = _planes(gen, B, nx, ny, dtype)
@@ -141,21 +156,26 @@ def check_kernels():
                         f_line = _fractions(gen, B, dtype)
                         w_cur = _rand(gen, (B,), 0.0, 1.0, dtype)
                         c_prev = (torch.arange(B, device="cuda") % 2).to(dtype)
-                        st = dict(march_axis=axis, sign=sign, s_base=s_base,
-                                  n_sweeps=3)
-                        got = mp.march_plane(*planes, r, f_line, w_cur,
-                                             c_prev, **st)
-                        want = mp.march_plane_plain(*planes, r, f_line,
-                                                    w_cur, c_prev, **st)
-                        torch.cuda.synchronize()
-                        e = _compare("march_plane", got, want, dtype_name)
-                        e_m = tuple(map(max, e_m, e))
-            print(f"  {dtype_name} B={B} {nx}x{ny}: xy_plane max abs err "
-                  f"{e_xy[0]:.3e} (rel {e_xy[1]:.3e}); march_plane max abs "
-                  f"err {e_m[0]:.3e} (rel {e_m[1]:.3e})", flush=True)
+                        args = (*planes, r, f_line, w_cur, c_prev)
+                        st = dict(march_axis=axis, sign=sign, s_base=s_base)
+                        scratch = mp.march_coeffs(*args, **st)
+                        compare("march_coeffs", scratch,
+                                mp.march_coeffs_plain(*args, **st))
+                        compare("march_chain",
+                                mp.march_chain(scratch, f_line, line,
+                                               n_sweeps=3, **st),
+                                mp.march_chain_plain(scratch, f_line, line,
+                                                     n_sweeps=3, **st))
+                        compare("march_plane",
+                                mp.march_plane(*args, n_sweeps=3, **st),
+                                mp.march_plane_plain(*args, n_sweeps=3,
+                                                     **st))
+            print(f"  {dtype_name} B={B} {nx}x{ny}: max abs err (rel) "
+                  + "; ".join(f"{k} {a:.3e} ({b:.3e})"
+                              for k, (a, b) in err.items()), flush=True)
             if dtype_name == "float64":
-                worst["xy_plane"] = max(worst["xy_plane"], e_xy[0])
-                worst["march_plane"] = max(worst["march_plane"], e_m[0])
+                for k in KERNELS:
+                    worst[k] = max(worst[k], err[k][0])
     return worst
 
 
@@ -173,15 +193,38 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def _bounds(B, nx, ny, n_sweeps=3):
+    """Least time (ms) of each kernel's work at (B, nx, ny), float64, on
+    an H100 SXM: the larger of its bytes (each input plane read once,
+    each output written once) over 3.35 TB/s and its floating-point
+    operations over the 34 TFLOP/s of float64 outside the tensor cores
+    (NVIDIA's data sheet); operations counted per point from the CUDA
+    source, an exp as one.  Returns {kernel: (ms, 'bytes' | 'operations')}."""
+    pts = B * nx * ny
+    plane = 8 * pts
+    work = {"xy_plane": (6 * plane, 60 * pts),
+            "march_coeffs": (7 * plane, 50 * pts),
+            "march_chain": (3 * plane, 5 * n_sweeps * pts),
+            "march_plane": (6 * plane, (50 + 5 * n_sweeps) * pts)}
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+        out[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    return out
+
+
 def time_kernels():
     """Kernel and plain times at the production group-plane shape
-    (B = 4 angles x lambda_chunk wavelengths, 256x256, float64)."""
+    (B = 4 angles x lambda_chunk wavelengths, 256x256, float64), beside
+    each kernel's bound.  K2 per march axis, and split into its two
+    kernels."""
     import torch
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
     B = 4 * PROD["lambda_chunk"]
     nx, ny = PROD["nx"], PROD["ny"]
+    bound = _bounds(B, nx, ny)
     gen = torch.Generator().manual_seed(7)
     planes = _planes(gen, B, nx, ny, torch.float64)
     r = _rand(gen, (B,), -1.0, 1.0, torch.float64, log=True)
@@ -192,18 +235,46 @@ def time_kernels():
     times["xy_plane"] = (_time_ms(lambda: xp.xy_plane(*xy_args), 50),
                          _time_ms(lambda: xp.xy_plane_plain(*xy_args), 10))
     print(f"  xy_plane (B={B}, {nx}x{ny}, float64): kernel "
-          f"{times['xy_plane'][0]:.4f} ms, plain {times['xy_plane'][1]:.4f} ms",
+          f"{times['xy_plane'][0]:.4f} ms, plain {times['xy_plane'][1]:.4f} "
+          f"ms, bound {bound['xy_plane'][0]:.4f} ms "
+          f"({100 * bound['xy_plane'][0] / times['xy_plane'][0]:.1f} %)",
           flush=True)
-    km, pm = [], []
+    acc = {k: ([], []) for k in ("march_plane", "march_coeffs",
+                                 "march_chain")}
+    m_args = (*planes, r, f1, f2, c_prev)
     for axis in ("x", "y"):
-        st = dict(march_axis=axis, sign=-1, s_base=-1, n_sweeps=3)
-        m_args = (*planes, r, f1, f2, c_prev)
-        km.append(_time_ms(lambda: mp.march_plane(*m_args, **st), 10))
-        pm.append(_time_ms(lambda: mp.march_plane_plain(*m_args, **st), 2))
+        st = dict(march_axis=axis, sign=-1, s_base=-1)
+        line = ny if axis == "x" else nx
+        scratch = mp.march_coeffs(*m_args, **st)
+        fns = {"march_plane": (
+                   lambda: mp.march_plane(*m_args, n_sweeps=3, **st),
+                   lambda: mp.march_plane_plain(*m_args, n_sweeps=3, **st)),
+               "march_coeffs": (
+                   lambda: mp.march_coeffs(*m_args, **st),
+                   lambda: mp.march_coeffs_plain(*m_args, **st)),
+               "march_chain": (
+                   lambda: mp.march_chain(scratch, f1, line, n_sweeps=3,
+                                          **st),
+                   lambda: mp.march_chain_plain(scratch, f1, line,
+                                                n_sweeps=3, **st))}
+        for k, (kern, plain) in fns.items():
+            acc[k][0].append(_time_ms(kern, 20))
+            acc[k][1].append(_time_ms(plain, 2))
+        kp = acc["march_plane"][0][-1]
         print(f"  march_plane axis={axis} (B={B}, {nx}x{ny}, float64): "
-              f"kernel {km[-1]:.4f} ms, plain {pm[-1]:.4f} ms", flush=True)
-    times["march_plane"] = (sum(km) / 2, sum(pm) / 2)
-    return times
+              f"kernel {kp:.4f} ms = march_coeffs "
+              f"{acc['march_coeffs'][0][-1]:.4f} + march_chain "
+              f"{acc['march_chain'][0][-1]:.4f} ms (alone); plain "
+              f"{acc['march_plane'][1][-1]:.4f} ms; bound "
+              f"{bound['march_plane'][0]:.4f} ms ({bound['march_plane'][1]}),"
+              f" {100 * bound['march_plane'][0] / kp:.1f} % of it",
+              flush=True)
+    for k, (km, pm) in acc.items():
+        times[k] = (sum(km) / 2, sum(pm) / 2)
+    print(f"  march_plane mean of both axes {times['march_plane'][0]:.4f} "
+          f"ms, {100 * bound['march_plane'][0] / times['march_plane'][0]:.1f}"
+          f" % of its bound", flush=True)
+    return times, bound
 
 
 # ------------------------------------------------------------ phase 3-4
@@ -238,7 +309,7 @@ def _max_rel(a, b):
 def check_entry():
     import torch
     from voronoirt_tpu_torch.entry import entry
-    step_g, args_g = entry(device="cuda")
+    step_g, args_g = entry()            # the card, by default
     S_g, P_g = step_g(*args_g)
     torch.cuda.synchronize()
     step_c, args_c = entry(device="cpu")
@@ -293,9 +364,11 @@ def run_production(atmos):
     eng._J_chunk_grouped = timed_J
     torch.cuda.reset_peak_memory_stats()
     xp.LAUNCHES = 0
-    mp.LAUNCHES = 0
+    mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
     res = eng.run()
-    launches = {"xy_plane": xp.LAUNCHES, "march_plane": mp.LAUNCHES}
+    launches = {"xy_plane": xp.LAUNCHES, "march_plane": mp.LAUNCHES,
+                "march_coeffs": mp.COEFFS_LAUNCHES,
+                "march_chain": mp.CHAIN_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
 
     require(res.iterations == 2 and len(res.timings) == 2,
@@ -595,7 +668,7 @@ def main():
 
     phase("phase 2: kernels vs plain versions on the card")
     errs = check_kernels()
-    times = time_kernels()
+    times, bounds = time_kernels()
     phase("phase 3: regular-sweep goldens on the card")
     check_goldens()
     phase("phase 4: small entry step, card vs CPU")
@@ -610,14 +683,21 @@ def main():
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
+    jax_pkg = sorted(m for m in sys.modules if m == "voronoirt_tpu"
+                     or m.startswith("voronoirt_tpu."))
+    require(not jax_pkg, f"modules of the JAX package imported: {jax_pkg}")
+    k2 = ("voronoirt_tpu_torch/csrc/march_plane.cu",
+          "voronoirt_tpu/solvers/pallas_march.py:89")
     src = {"xy_plane": ("voronoirt_tpu_torch/csrc/xy_plane.cu",
                         "voronoirt_tpu/solvers/pallas_xy.py:65"),
-           "march_plane": ("voronoirt_tpu_torch/csrc/march_plane.cu",
-                           "voronoirt_tpu/solvers/pallas_march.py:89")}
+           "march_plane": k2, "march_coeffs": k2, "march_chain": k2}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in src]
+                "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "pct_of_bound": 100 * bounds[name][0] / times[name][0],
+                "library_ms": None} for name in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from voronoirt_tpu.atmosphere import Atmosphere, synthetic_atmosphere
-from voronoirt_tpu.config import Config
+from voronoirt_tpu_torch import Atmosphere, Config, synthetic_atmosphere
 from voronoirt_tpu_torch.engine import RegularEngine
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
 
@@ -66,11 +65,29 @@ def test_entry_step_matches_jax():
 
     step_j, args_j = __graft_entry__.entry()
     S_j, P_j = (np.asarray(a) for a in step_j(*args_j))
-    step_t, args_t = entry()
+    step_t, args_t = entry(device="cpu")
     assert [tuple(a.shape) for a in args_t] == [a.shape for a in args_j]
     S_t, P_t = step_t(*(torch.from_numpy(np.asarray(a)) for a in args_j))
     np.testing.assert_allclose(S_t.numpy(), S_j, rtol=1e-10, atol=0)
     np.testing.assert_allclose(P_t.numpy(), P_j, rtol=1e-8, atol=0)
+
+
+def test_entry_defaults_to_the_card(monkeypatch):
+    """entry() and small_problem() run on the CUDA card unless given a
+    device, and so do the public functions that make tensors from no
+    tensor; with no card visible they raise rather than fall back to
+    the CPU."""
+    from voronoirt_tpu_torch.entry import entry, small_problem
+    from voronoirt_tpu_torch.physics.planck import B_lambda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (entry, small_problem,
+                 lambda: lyman_alpha_line(5, 3, np.full((2, 2), 6e3)),
+                 lambda: B_lambda(1.2e-7, 6e3)):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+    cfg, atmos, line, eng = small_problem(nz=4, nx=2, ny=2, device="cpu")
+    assert eng.device.type == line.dlamD.device.type == "cpu"
 
 
 def test_load_state_round_trip():

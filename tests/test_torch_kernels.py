@@ -1,12 +1,14 @@
 """The sweep kernels' plain versions against the JAX package.
 
-voronoirt_tpu_torch.solvers.xy_plane / march_plane each hold a CUDA
-kernel (csrc/) and its plain PyTorch version.  Here, on the CPU, the
+voronoirt_tpu_torch.solvers.xy_plane / march_plane hold the CUDA
+kernels (csrc/) and their plain PyTorch versions.  Here, on the CPU, the
 plain versions are held against the Pallas kernels they replace (run in
 interpret mode, float32, the tier of tests/test_pallas_march.py) and
-against the JAX XLA steps with per-element geometry (float64, 1e-12).
-The kernels themselves are held against the plain versions on the card
-by the tests marked cuda (and by chip_smoke.py).
+against the JAX XLA steps with per-element geometry (float64, 1e-12);
+the march's split into march_coeffs and march_chain is held bit for bit
+to the march-order formulation it replaced.  The kernels themselves are
+held against the plain versions on the card by the tests marked cuda
+(and by chip_smoke.py).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from voronoirt_tpu.solvers.pallas_march import march_plane_pallas
 from voronoirt_tpu.solvers.pallas_xy import xy_plane_pallas
 from voronoirt_tpu_torch.solvers import march_plane as mp
 from voronoirt_tpu_torch.solvers import xy_plane as xp
+from voronoirt_tpu_torch.solvers.formal import linear_weights
 
 F32 = dict(rtol=2e-5, atol=1e-6)
 F64 = dict(rtol=1e-12, atol=0)
@@ -137,15 +140,119 @@ def test_march_plain_matches_xla_per_element(case, sign, s_base):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64)
 
 
+def _march_plane_by_march_order(alpha_p, alpha_c, S_p, S_c, I_p, r, f_line,
+                                w_cur, c_prev, *, march_axis, sign, s_base,
+                                n_sweeps):
+    """The march as one function, columns gathered in march order, as
+    sweep_regular._march_step computes it (the plain version before the
+    split into march_coeffs and march_chain)."""
+    ax = -2 if march_axis == "x" else -1
+    N = alpha_c.shape[ax]
+    order = np.arange(N) if sign > 0 else np.arange(N - 1, -1, -1)
+    upwind = torch.as_tensor((order + sign) % N)
+    inv = torch.as_tensor(np.argsort(order))
+    order = torch.as_tensor(order)
+
+    def take(A, idx):
+        # (B, Nx, Ny) -> (N, B, M), march axis leading
+        return torch.movedim(torch.index_select(A, ax, idx), ax, 0)
+
+    def LI(A):
+        return mp._line_interp(A, s_base, f_line.reshape(-1, 1))
+
+    cp = c_prev.reshape(-1, 1, 1)
+    wc = w_cur.reshape(-1, 1)
+    wp = 1.0 - wc
+    alpha_c0 = take(cp * alpha_p + (1.0 - cp) * alpha_c, order)
+    S_c0 = take(cp * S_p + (1.0 - cp) * S_c, order)
+    a_up = wp * LI(take(alpha_p, upwind)) + wc * LI(take(alpha_c, upwind))
+    dtau = r.reshape(-1, 1) * (alpha_c0 + a_up) * 0.5
+    aw, bw, ew = linear_weights(dtau)
+    s_up = wp * LI(take(S_p, upwind)) + wc * LI(take(S_c, upwind))
+    const = ew * (wp * LI(take(I_p, upwind))) + aw * s_up + bw * S_c0
+    coeff = ew * wc
+    lines = torch.empty_like(const)
+    buf = torch.zeros_like(alpha_c0[0])
+    for _ in range(n_sweeps):
+        for j in range(N):
+            buf = coeff[j] * LI(buf) + const[j]
+            lines[j] = buf
+    lines = torch.index_select(lines, 0, inv)
+    return torch.movedim(lines, 0, ax).contiguous()
+
+
+def _march_inputs(rng, B, nx, ny):
+    """Planes and per-element geometry, float64 tensors; extinction
+    over 7 decades, so dtau crosses every weight branch."""
+    a_p, a_c = (10.0 ** rng.uniform(-5, 2, (B, nx, ny)) for _ in range(2))
+    s_p, s_c, i_p = (rng.uniform(0.1, 1.0, (B, nx, ny)) for _ in range(3))
+    r = 10.0 ** rng.uniform(-1, 1, B)
+    f_line, w_cur = rng.uniform(0, 1, B), rng.uniform(0, 1, B)
+    f_line[0], f_line[1] = 0.0, 1.0
+    c_prev = (np.arange(B) % 2).astype(np.float64)
+    return _t(a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur, c_prev)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 9), (3, 40, 33)])
+@pytest.mark.parametrize("axis", ["x", "y"])
+@pytest.mark.parametrize("sign,s_base", [(1, 0), (1, -1), (-1, 0), (-1, -1)])
+def test_split_march_equals_march_order(shape, axis, sign, s_base):
+    """march_coeffs_plain then march_chain_plain == the march-order
+    formulation, bit for bit, float64, over both axes, signs and stencil
+    shifts, on lines shorter and longer than a warp."""
+    args = _march_inputs(np.random.default_rng(5), *shape)
+    st = dict(march_axis=axis, sign=sign, s_base=s_base)
+    scratch = mp.march_coeffs_plain(*args, **st)
+    line = shape[2] if axis == "x" else shape[1]
+    got = mp.march_chain_plain(scratch, args[6], line, n_sweeps=3, **st)
+    want = _march_plane_by_march_order(*args, n_sweeps=3, **st)
+    assert torch.equal(got, want)
+    assert torch.equal(mp.march_plane(*args, n_sweeps=3, **st), want)
+
+
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_scratch_layout(axis):
+    """The scratch is (B, N, MP, 2), as csrc/march_plane.cu documents:
+    batch element, column along the march, point along the line padded
+    to MP = 32 * PPL with zero pairs, then (coeff, const); coeff is
+    exp(-dtau) w_cur at every point."""
+    B, nx, ny = 3, 40, 33
+    args = _march_inputs(np.random.default_rng(6), B, nx, ny)
+    st = dict(march_axis=axis, sign=-1, s_base=0)
+    scratch = mp.march_coeffs(*args, **st)
+    N, M = (nx, ny) if axis == "x" else (ny, nx)
+    assert mp.line_pad(M) == 64
+    assert [mp.line_pad(m) for m in (1, 32, 33, 256, 257, 2048)] == \
+        [32, 32, 64, 256, 512, 2048]
+    assert tuple(scratch.shape) == (B, N, 64, 2)
+    assert torch.all(scratch[:, :, M:] == 0)
+    coeff = scratch[:, :, :M, 0]
+    assert torch.all((coeff >= 0) & (coeff <= args[7].reshape(-1, 1, 1)))
+    # column c of the scratch is the march's column c, whatever the sign
+    one = mp.march_chain(scratch, args[6], M, n_sweeps=1, **st)
+    col = one[:, -1] if axis == "x" else one[:, :, -1]
+    buf = torch.zeros(B, M, dtype=torch.float64)
+    f = args[6].reshape(-1, 1)
+    want = scratch[:, -1, :M, 0] * mp._line_interp(buf, 0, f) \
+        + scratch[:, -1, :M, 1]
+    assert torch.equal(col, want)
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(4)
     planes = _t(*_planes(rng, 2, 4, 4, np.float64))
     geom = [torch.full((2,), 0.5, dtype=torch.float64) for _ in range(4)]
-    n_xy, n_m = xp.LAUNCHES, mp.LAUNCHES
+    counts = lambda: (xp.LAUNCHES, mp.LAUNCHES, mp.COEFFS_LAUNCHES,
+                      mp.CHAIN_LAUNCHES)
+    before = counts()
     xp.xy_plane(*planes, *geom[:3], 0, -1)
     mp.march_plane(*planes, *geom, march_axis="y", sign=-1, s_base=0,
                    n_sweeps=3)
-    assert (xp.LAUNCHES, mp.LAUNCHES) == (n_xy, n_m)
+    scratch = mp.march_coeffs(*planes, *geom, march_axis="x", sign=1,
+                              s_base=-1)
+    mp.march_chain(scratch, geom[1], 4, march_axis="x", sign=1, s_base=-1,
+                   n_sweeps=2)
+    assert counts() == before
 
 
 def test_wrappers_check_their_inputs():
@@ -160,6 +267,14 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         mp.march_plane(*planes, *geom, march_axis="z", sign=1, s_base=0,
                        n_sweeps=3)
+    scratch = mp.march_coeffs(*planes, *geom, march_axis="x", sign=1,
+                              s_base=0)
+    with pytest.raises(ValueError):     # a line the scratch does not hold
+        mp.march_chain(scratch, geom[1], 40, march_axis="x", sign=1,
+                       s_base=0, n_sweeps=3)
+    with pytest.raises(ValueError):
+        mp.march_chain(scratch[..., 0], geom[1], 4, march_axis="x", sign=1,
+                       s_base=0, n_sweeps=3)
     meta = [p.to("meta") for p in planes]
     with pytest.raises(ValueError):
         xp.xy_plane(*meta, *(g.to("meta") for g in geom[:3]), 0, 0)
@@ -191,10 +306,20 @@ def test_kernels_match_plain_on_card(cuda, dtype, tol):
     for axis in ("x", "y"):
         for sign in (1, -1):
             for s_base in (0, -1):
-                st = dict(march_axis=axis, sign=sign, s_base=s_base,
-                          n_sweeps=3)
+                st = dict(march_axis=axis, sign=sign, s_base=s_base)
+                scratch = mp.march_coeffs(*planes, r, f1, w, c_prev, **st)
                 torch.testing.assert_close(
-                    mp.march_plane(*planes, r, f1, w, c_prev, **st),
-                    mp.march_plane_plain(*planes, r, f1, w, c_prev, **st),
+                    scratch,
+                    mp.march_coeffs_plain(*planes, r, f1, w, c_prev, **st),
                     **tol)
+                line = ny if axis == "x" else nx
+                torch.testing.assert_close(
+                    mp.march_chain(scratch, f1, line, n_sweeps=3, **st),
+                    mp.march_chain_plain(scratch, f1, line, n_sweeps=3,
+                                         **st), **tol)
+                torch.testing.assert_close(
+                    mp.march_plane(*planes, r, f1, w, c_prev, n_sweeps=3,
+                                   **st),
+                    mp.march_plane_plain(*planes, r, f1, w, c_prev,
+                                         n_sweeps=3, **st), **tol)
     torch.cuda.synchronize()

@@ -8,8 +8,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from voronoirt_tpu.quadrature import get_quadrature
 from voronoirt_tpu.solvers import sweep_regular as jsr
+from voronoirt_tpu_torch.quadrature import get_quadrature
 from voronoirt_tpu_torch.solvers import sweep_regular as tsr
 
 FIX = "tests/golden/regular_sweep_fixtures.npz"

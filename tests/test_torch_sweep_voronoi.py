@@ -1,7 +1,8 @@
 """voronoirt_tpu_torch Voronoi sweep against the JAX package, float64 on
 the CPU: the slot-plan copy array for array, the sweep in both orders
 with and without the adaptive relax exit, and the analytic checks of
-tests/test_sweep_voronoi.py through the port."""
+tests/test_sweep_voronoi.py through the port.  Each package sweeps its own
+sites and plans, built from the same positions."""
 
 import warnings
 
@@ -9,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from voronoirt_tpu.grid import build_sites, build_voronoi_plan
-from voronoirt_tpu.quadrature import get_quadrature
+from voronoirt_tpu import grid as jgrid
 from voronoirt_tpu.solvers import sweep_voronoi as jsv
+from voronoirt_tpu_torch.grid import build_sites, build_voronoi_plan
+from voronoirt_tpu_torch.quadrature import get_quadrature
 from voronoirt_tpu_torch.solvers import sweep_voronoi as tsv
 from voronoirt_tpu_torch.solvers.formal import linear_weights
 
@@ -33,23 +35,34 @@ def _fields(n):
 
 
 def _random_sites(n, seed):
+    """The port's sites and the JAX package's, from the same positions."""
     pos = np.random.default_rng(seed).uniform(0, 1, (n, 3))
-    return build_sites(pos, (0, 1, 0, 1, 0, 1), _fields(n)), pos
+    return (build_sites(pos, (0, 1, 0, 1, 0, 1), _fields(n)),
+            jgrid.build_sites(pos.copy(), (0, 1, 0, 1, 0, 1), _fields(n)))
 
 
-def _plan(sites, i, order, compat="reference"):
+def _plans(site_pair, i, order, compat="reference"):
+    """Direction i's plan in each package: (port, JAX)."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # 'layer' at grazing angles
-        return build_voronoi_plan(sites, QUAD.k[i], bool(QUAD.is_up[i]),
-                                  compat=compat, order=order)
+        return tuple(build(s, QUAD.k[i], bool(QUAD.is_up[i]), compat=compat,
+                           order=order)
+                     for build, s in zip((build_voronoi_plan,
+                                          jgrid.build_voronoi_plan),
+                                         site_pair))
+
+
+def _plan(site_pair, i, order, compat="reference"):
+    """Direction i's plan in the port."""
+    return _plans(site_pair[:1], i, order, compat)[0]
 
 
 @pytest.fixture(scope="module")
 def sites():
-    """1,000 random sites.  At this size a wavefront plan is exact-only
-    (the steep directions 2, 3, 4, 6) or relax-only (the rest); plans
-    holding both stages appear at larger site counts."""
-    return _random_sites(1000, 5)[0]
+    """1,000 random sites, (port, JAX).  At this size a wavefront plan is
+    exact-only (the steep directions 2, 3, 4, 6) or relax-only (the
+    rest); plans holding both stages appear at larger site counts."""
+    return _random_sites(1000, 5)
 
 
 def _max_rel(got, want):
@@ -69,9 +82,9 @@ def test_slot_plan_equals_jax(sites, order, compat):
     (the reference's skipped last site), and exact and relax stages."""
     kinds, orphans = set(), 0
     for i in range(QUAD.n_angles):
-        plan = _plan(sites, i, order, compat)
-        a = tsv.build_slot_plan(plan, 3)
-        b = jsv.build_slot_plan(plan, 3, bucket=False)
+        plan_t, plan_j = _plans(sites, i, order, compat)
+        a = tsv.build_slot_plan(plan_t, 3)
+        b = jsv.build_slot_plan(plan_j, 3, bucket=False)
         assert (a.n_slots, a.n_bc) == (b.n_slots, b.n_bc)
         np.testing.assert_array_equal(a.slot_gather, b.slot_gather)
         np.testing.assert_array_equal(a.site_gather, b.site_gather)
@@ -95,14 +108,15 @@ def test_slot_plan_equals_jax(sites, order, compat):
 
 def test_slot_plan_ignores_jax_pad_targets(sites):
     """share_plan_shapes attaches _pad_to targets for the JAX sweep; the
-    port's slot plan stays the unpadded one."""
-    plans = [_plan(sites, i, "wavefront") for i in range(QUAD.n_angles)]
-    raw = [tsv.build_slot_plan(p, 3).n_slots for p in plans]
-    jsv.share_plan_shapes(plans, 3)
-    assert all(getattr(p, "_pad_to", None) is not None for p in plans)
-    for p, n_slots in zip(plans, raw):
-        assert tsv.build_slot_plan(p, 3).n_slots == n_slots
-        assert n_slots == jsv.build_slot_plan(p, 3, bucket=False).n_slots
+    port's plans carry none, and its slot plans stay the unpadded ones."""
+    pairs = [_plans(sites, i, "wavefront") for i in range(QUAD.n_angles)]
+    plans_j = [pj for _, pj in pairs]
+    jsv.share_plan_shapes(plans_j, 3)
+    assert all(getattr(p, "_pad_to", None) is not None for p in plans_j)
+    for pt, pj in pairs:
+        assert getattr(pt, "_pad_to", None) is None
+        assert tsv.build_slot_plan(pt, 3).n_slots == \
+            jsv.build_slot_plan(pj, 3, bucket=False).n_slots
 
 
 def _lap_counter(monkeypatch, module, names):
@@ -136,7 +150,7 @@ def test_sweep_matches_jax(sites, monkeypatch, order, relax_tol, B,
     an extinction log-uniform up to 100 (with the lower bound 0.01,
     dtau crosses the small-dtau branch); with relax_tol 1e-7 both
     packages run the same number of relax laps."""
-    n = sites.n
+    n = sites[0].n
     rng = np.random.default_rng(100 + B)
     S = rng.uniform(0.1, 1.0, (B, n))
     alpha = 10.0 ** rng.uniform(log_alpha_min, 2.0, (B, n))
@@ -146,9 +160,9 @@ def test_sweep_matches_jax(sites, monkeypatch, order, relax_tol, B,
                                              "_run_hoisted_lap_d"))
     worst = 0.0
     for i in DIRECTIONS:
-        plan = _plan(sites, i, order)
+        plan, plan_j = _plans(sites, i, order)
         I0 = rng.uniform(0.0, 1.0, (B, len(plan.bc_sites)))
-        want = np.asarray(jsv.sweep_voronoi(plan, S, alpha, I0,
+        want = np.asarray(jsv.sweep_voronoi(plan_j, S, alpha, I0,
                                             relax_tol=relax_tol))
         got = tsv.sweep_voronoi(plan, torch.from_numpy(S),
                                 torch.from_numpy(alpha),
@@ -166,7 +180,7 @@ def test_relax_exit_stops_early_and_matches_laps(sites, monkeypatch):
     """With relax_tol the repeats end early on real opacity; every
     lap's relative change stays clear of the threshold on these inputs,
     so the lap count cannot hinge on one-ulp differences."""
-    n = sites.n
+    n = sites[0].n
     rng = np.random.default_rng(3)
     S = torch.from_numpy(rng.uniform(0.1, 1.0, (2, n)))
     alpha = torch.from_numpy(10.0 ** rng.uniform(-2.0, 2.0, (2, n)))
@@ -196,7 +210,7 @@ def test_device_layout_drops_padding(sites, order):
     sp = tsv.build_slot_plan(plan, 3)
     stages, site_gather, n_rows = tsv._device_arrays(sp, "cpu",
                                                      torch.float64)
-    real = sp.slot_site < sites.n
+    real = sp.slot_site < sites[0].n
     assert n_rows == int(real.sum())
     if order == "layer":
         assert 2 * n_rows < sp.n_slots
@@ -209,7 +223,7 @@ def test_device_layout_drops_padding(sites, order):
         start += sd.off[-1]
     assert start <= n_rows      # orphan rows follow the stages
     np.testing.assert_array_equal(sp.slot_site[real][site_gather.numpy()],
-                                  np.arange(sites.n))
+                                  np.arange(sites[0].n))
 
 
 def test_level_steps_count(sites):
@@ -217,7 +231,7 @@ def test_level_steps_count(sites):
     each schedule row once."""
     plan = _plan(sites, 2, "layer")
     sp = tsv.build_slot_plan(plan, 3)
-    n = sites.n
+    n = sites[0].n
     tsv.LEVEL_STEPS = 0
     tsv.sweep_voronoi(plan, torch.ones(n, dtype=torch.float64),
                       torch.ones(n, dtype=torch.float64),

@@ -1,7 +1,9 @@
 """voronoirt_tpu_torch Voronoi engine and sampling densities against the
 JAX package, float64 on the CPU: the vor_* NLTE chain goldens through
 VoronoiEngine.run(), compute_J and run() on a sampled grid, and each
-torch density against its JAX counterpart."""
+torch density against its JAX counterpart.  Each package gets its own
+atmosphere, sites, plans and Config, built from the same arguments and
+numpy arrays."""
 
 import warnings
 
@@ -10,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from voronoirt_tpu.atmosphere import synthetic_atmosphere
-from voronoirt_tpu.config import Config
+from voronoirt_tpu import atmosphere as jatmos
+from voronoirt_tpu import grid as jgrid
+from voronoirt_tpu.config import Config as JaxConfig
 from voronoirt_tpu.engine.lambda_iter import VoronoiEngine as JaxVoronoiEngine
 from voronoirt_tpu.grid import sampling as jsamp
-from voronoirt_tpu.grid.voronoi import VoronoiSites
 from voronoirt_tpu.physics import lyman_alpha_line as jax_line
 from voronoirt_tpu.physics.lte import lte_populations as jax_lte
+from voronoirt_tpu_torch import Config, synthetic_atmosphere
 from voronoirt_tpu_torch import grid as tgrid
 from voronoirt_tpu_torch.engine import VoronoiEngine
 from voronoirt_tpu_torch.grid import sampling as tsamp
@@ -48,7 +51,7 @@ def test_nlte_fixture_three_iterations():
     sites, 'layer' order, ul7n12, 3 iterations from the fixture's frozen
     alpha_cont, eps and C; J and S to 1e-8, populations to 1e-7."""
     fx = np.load(FIXTURE)
-    sites = VoronoiSites(
+    sites = tgrid.VoronoiSites(
         **{f: fx[f"vor_sites_{f}"] for f in (
             "positions", "neighbours", "delaunay_lines", "layers_up",
             "layers_down", "temperature", "electron_density",
@@ -73,24 +76,39 @@ def test_nlte_fixture_three_iterations():
 # ------------------------------------------------------ a sampled grid
 
 @pytest.fixture(scope="module")
-def sampled():
+def sampled_pair():
     """800 sites sampled with the production density from a small
-    synthetic atmosphere, through the grid layer the port re-exports."""
+    synthetic atmosphere: the port's, through its grid layer, and the
+    JAX package's from the same positions."""
     atmos = synthetic_atmosphere(nz=10, nx=8, ny=8, seed=7)
     pos = tgrid.sample_sites(atmos, 800, density="invNH_invT", seed=2022)
     bounds = (atmos.z[0], atmos.z[-1], atmos.x[0], atmos.x[-1],
               atmos.y[0], atmos.y[-1])
-    return tgrid.build_sites(pos, bounds, tgrid.initialise_sites(pos, atmos))
+    sites_t = tgrid.build_sites(pos, bounds,
+                                tgrid.initialise_sites(pos, atmos))
+    j_atmos = jatmos.synthetic_atmosphere(nz=10, nx=8, ny=8, seed=7)
+    sites_j = jgrid.build_sites(pos.copy(), bounds,
+                                jgrid.initialise_sites(pos.copy(), j_atmos))
+    return sites_t, sites_j
 
 
-def _engines(sites, **cfg_kw):
-    cfg = Config(quadrature="ul7n12", nlam_bb=5, nlam_bf=3, **cfg_kw)
+@pytest.fixture(scope="module")
+def sampled(sampled_pair):
+    return sampled_pair[0]
+
+
+def _engines(sites_pair, **cfg_kw):
+    """The JAX engine and the port's, each on its own sites, plans and
+    Config."""
+    sites_t, sites_j = sites_pair
+    kw = dict(quadrature="ul7n12", nlam_bb=5, nlam_bf=3, **cfg_kw)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         eng_j = JaxVoronoiEngine(
-            sites, jax_line(5, 3, jnp.asarray(sites.temperature)), cfg)
-    eng_t = VoronoiEngine(sites, _line(5, 3, sites.temperature), cfg,
-                          plans=eng_j.plans)
+            sites_j, jax_line(5, 3, jnp.asarray(sites_j.temperature)),
+            JaxConfig(**kw))
+        eng_t = VoronoiEngine(sites_t, _line(5, 3, sites_t.temperature),
+                              Config(**kw))
     return eng_j, eng_t
 
 
@@ -108,11 +126,13 @@ J_RTOL = 5e-10
 
 
 @pytest.mark.parametrize("order", ["layer", "wavefront"])
-def test_compute_J_matches_jax(sampled, order):
+def test_compute_J_matches_jax(sampled_pair, order):
     """compute_J in lambda chunks of 4 (3 chunks of the 11 wavelengths)
     == the JAX engine's to J_RTOL, from B0 and the LTE populations;
-    the port sweeps the JAX engine's own plans."""
-    eng_j, eng_t = _engines(sampled, voronoi_order=order, lambda_chunk=4)
+    the two engines' plans are equal (tests/test_torch_host_copies.py)."""
+    sampled = sampled_pair[0]
+    eng_j, eng_t = _engines(sampled_pair, voronoi_order=order,
+                            lambda_chunk=4)
     _assert_close(eng_t.B0, np.asarray(eng_j.B0), "B0", 1e-13)
     J_j = np.asarray(eng_j.compute_J(eng_j.B0, eng_j.lte))
     J_t = eng_t.compute_J(eng_t.B0, eng_t.lte)
@@ -125,13 +145,13 @@ def test_compute_J_matches_jax(sampled, order):
 
 
 @pytest.mark.parametrize("order", ["layer", "wavefront"])
-def test_run_matches_jax(sampled, order):
+def test_run_matches_jax(sampled_pair, order):
     """run(): S, populations and the convergence history against the
     JAX engine's after 3 iterations.  A history entry is max |S_new -
     S_old| / |S_new|, a difference of two S that agree to 1e-10 each,
     so it agrees to 2e-10 absolute: relative to an entry of 6e-8 that
     is 3e-3, and no relative bar fits the last entries."""
-    eng_j, eng_t = _engines(sampled, voronoi_order=order, maxiter=3,
+    eng_j, eng_t = _engines(sampled_pair, voronoi_order=order, maxiter=3,
                             eps=1e-30)
     res_j = eng_j.run()
     res_t = eng_t.run()
@@ -143,7 +163,7 @@ def test_run_matches_jax(sampled, order):
 
 
 def test_own_plans_and_state(sampled):
-    """Without plans= the engine builds the JAX package's plans itself;
+    """Without plans= the engine builds its plans itself;
     load_state takes the regular engine's keys; rates_site_chunk is
     refused."""
     cfg = Config(quadrature="ul2n3", nlam_bb=5, nlam_bf=3,
@@ -168,62 +188,65 @@ def test_own_plans_and_state(sampled):
 
 @pytest.fixture(scope="module")
 def atmos_lte():
+    """The port's atmosphere, the JAX package's (the same arrays) and
+    the JAX LTE populations on it."""
     atmos = synthetic_atmosphere(nz=8, nx=6, ny=6, seed=11)
-    T = jnp.asarray(atmos.temperature)
+    j_atmos = jatmos.synthetic_atmosphere(nz=8, nx=6, ny=6, seed=11)
+    T = jnp.asarray(j_atmos.temperature)
     line = jax_line(1, 1, T)
-    lte = np.asarray(jax_lte(line, T, jnp.asarray(atmos.electron_density),
-                             jnp.asarray(atmos.hydrogen_populations)))
-    return atmos, lte
+    lte = np.asarray(jax_lte(line, T, jnp.asarray(j_atmos.electron_density),
+                             jnp.asarray(j_atmos.hydrogen_populations)))
+    return atmos, j_atmos, lte
 
 
 # Each density equals the JAX one to the last few ulps (measured worst
 # 1.7e-15 relative); log10 of a quantity near 1 would cancel digits,
 # but none of these densities comes near 1 on the synthetic atmosphere.
 def test_density_extinction(atmos_lte):
-    atmos, lte = atmos_lte
-    line = jax_line(1, 1, jnp.asarray(atmos.temperature))
+    atmos, j_atmos, lte = atmos_lte
+    line = jax_line(1, 1, jnp.asarray(j_atmos.temperature))
     _assert_close(tsamp.density_extinction(atmos, line.lam0, lte),
-                  jsamp.density_extinction(atmos, line.lam0, lte),
+                  jsamp.density_extinction(j_atmos, line.lam0, lte),
                   "extinction", 1e-12)
 
 
 def test_density_destruction(atmos_lte):
-    atmos, lte = atmos_lte
-    line_j = jax_line(1, 1, jnp.asarray(atmos.temperature))
+    atmos, j_atmos, lte = atmos_lte
+    line_j = jax_line(1, 1, jnp.asarray(j_atmos.temperature))
     line_t = _line(1, 1, atmos.temperature)
     _assert_close(tsamp.density_destruction(atmos, line_t, lte),
-                  jsamp.density_destruction(atmos, line_j, lte),
+                  jsamp.density_destruction(j_atmos, line_j, lte),
                   "destruction", 1e-12)
 
 
 def test_density_total_extinction(atmos_lte):
-    atmos, lte = atmos_lte
+    atmos, j_atmos, lte = atmos_lte
     _assert_close(tsamp.density_total_extinction(atmos),
-                  jsamp.density_total_extinction(atmos),
+                  jsamp.density_total_extinction(j_atmos),
                   "total extinction", 1e-12)
-    line_j = jax_line(1, 1, jnp.asarray(atmos.temperature))
+    line_j = jax_line(1, 1, jnp.asarray(j_atmos.temperature))
     line_t = _line(1, 1, atmos.temperature)
     _assert_close(tsamp.density_total_extinction(atmos, lte, line_t),
-                  jsamp.density_total_extinction(atmos, lte, line_j),
+                  jsamp.density_total_extinction(j_atmos, lte, line_j),
                   "total extinction (given lte, line)", 1e-12)
 
 
 def test_density_avg_extinction(atmos_lte):
-    atmos, lte = atmos_lte
+    atmos, j_atmos, lte = atmos_lte
     pops = lte * np.random.default_rng(2).uniform(0.5, 1.5, lte.shape)
-    line_j = jax_line(5, 3, jnp.asarray(atmos.temperature))
+    line_j = jax_line(5, 3, jnp.asarray(j_atmos.temperature))
     line_t = _line(5, 3, atmos.temperature)
     _assert_close(tsamp.density_avg_extinction(atmos, pops, None, line_t),
-                  jsamp.density_avg_extinction(atmos, pops, None, line_j),
+                  jsamp.density_avg_extinction(j_atmos, pops, None, line_j),
                   "avg extinction", 1e-12)
 
 
 @pytest.mark.parametrize("density", ["invNH_invT", "total_extinction"])
 def test_sample_sites_matches_jax(atmos_lte, density):
     """Same keys as the JAX DENSITIES; the sampled positions agree."""
-    atmos, _ = atmos_lte
+    atmos, j_atmos, _ = atmos_lte
     assert list(tsamp.DENSITIES) == list(jsamp.DENSITIES)
     np.testing.assert_allclose(
         tsamp.sample_sites(atmos, 300, density=density, seed=5),
-        jsamp.sample_sites(atmos, 300, density=density, seed=5),
+        jsamp.sample_sites(j_atmos, 300, density=density, seed=5),
         rtol=1e-14, atol=0)

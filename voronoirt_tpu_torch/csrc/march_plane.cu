@@ -1,4 +1,6 @@
-// One z-plane of the yz / xz in-plane march of the regular sweep.
+// One z-plane of the yz / xz in-plane march of the regular sweep, as two
+// kernels: march_coeffs (the pass-invariant precompute, over the whole
+// card) and march_chain (the sequential column chain, one warp a line).
 //
 // Replaces the Pallas kernel voronoirt_tpu/solvers/pallas_march.py
 // (_march_kernel, reached from march_plane_pallas); the reference loop is
@@ -17,52 +19,88 @@
 // where buf is the previously computed line (zeroed once, kept across the
 // n_sweeps passes) and the centre alpha/S blend the previous plane by the
 // per-element 0/1 c_prev (the xz-down quirk, characteristics.jl:794,804).
+// I_new is affine in buf, I_new = coeff LI(buf) + const (the regrouping
+// of sweep_regular._march_step), so:
 //
-// Formulation: the pass-invariant regrouping of sweep_regular._march_step.
-// I_new is affine in buf, I_new = coeff LI(buf) + const, so phase 1
-// computes coeff = e wc and const (one exp per point) once per plane into
-// a scratch tensor the wrapper allocates, and phase 2 runs the
-// n_sweeps * N sequential column steps on those two arrays alone.
+// march_coeffs computes coeff = e wc and const (one exp per point) for all
+// B planes into the scratch, laid out (B, N, MP, 2): batch element,
+// column along the march, point along the line, then the pair (coeff,
+// const) interleaved, so one 16-byte (f64) or 8-byte (f32) load brings a
+// point's two values.  MP is the line padded to 32 * PPL points, PPL the
+// smallest power of two with 32 * PPL >= M (solvers/march_plane.py
+// line_pad); the padding pairs are zero.  Blocks of 32 x 4 threads own a
+// 32 x 32 tile of the plane, read it in memory order and write it through
+// shared memory along m, so both the reads and the writes are coalesced
+// for either march axis.  Bound on the card: HBM bytes, 5 planes in and
+// 2 out (7 x 27.26 MB at B = 52, 256 x 256, f64: 57 us at 3.35 TB/s).
 //
-// Bound on the card: latency of the sequential column chain, not HBM.
-// Each step depends on the previous line at m + s_base and m + s_base + 1
-// (a +-1 neighbour across the line), so one block owns one batch element:
-// threads over the line, the line buffer in shared memory, double
-// buffered with one __syncthreads() per step so no thread reads a
-// neighbour's half-written value.  The scratch is line-contiguous
-// (B, 2, N, M), so phase 2's loads are coalesced for both march axes; the
-// strided access of the xz case falls on phase 1, which runs once.
-// B blocks only (B = angles x wavelengths of a group) under-fill the 132
-// SMs at production shapes; filling them is later work.
+// march_chain runs the n_sweeps * N dependent column steps.  Its bound is
+// the latency of that chain: each step needs the previous line at
+// m + s_base and m + s_base + 1.  One warp owns one batch element's line
+// (one block of 32 threads; B blocks): lane l holds the points
+// m = 32 j + l, j < PPL, in registers, and each step's neighbours come
+// from the adjacent lane by __shfl_sync (PPL shuffles a step), with the
+// periodic wrap between lane 31 and lane 0 and, on a line shorter than
+// MP, between point M - 1 and point 0.  No barrier runs per step.  The
+// (coeff, const) rows stream through a ring of kStages shared-memory
+// stages with cp.async, kStages rows ahead of use; each lane copies and
+// reads only its own points, so cp.async.wait_group alone orders a row's
+// arrival, and the warp waits once every 4 rows.  The warp's copies, ring
+// reads and yz stores each touch 32 consecutive points.  In the xz case the last pass's lines collect in a
+// shared tile of up to 32 columns, double-buffered: a full tile drains
+// during the next tile's steps, a few rows a step, as runs of consecutive
+// y per x, so no store is strided by ny and none waits on a flush; tile
+// rows are an odd number of words apart, so the drain's reads do not
+// conflict on the banks.  The stencil
+// shift, the march axis and a ragged line are template parameters, and
+// the last pass, which writes the output, is a loop of its own, so the
+// other passes compile alike for both axes.
+// Lines of up to kMaxLine = 2048 points run in the same kernel with PPL
+// up to 64.
+//
+// Why points are strided over the lanes, not contiguous runs of PPL with
+// one shuffle a step: the contiguous layout's per-lane copies touch 32
+// lines an instruction, and with coalesced copies into a permuted ring
+// plus one __syncwarp a step it measured no faster on the H100 than this
+// layout.  At one point a lane a step still costs over a third of what
+// it costs at eight, and float32 saves a third at eight points and little
+// below (tools/profile_march.py --lines): most of a step is its latency,
+// not its arithmetic or its bytes.  B warps under-fill the 132 SMs at production (B = 52); filling
+// them means launching several groups' planes together, later work.
+//
+// Rounding: op for op the plain version's order, built with -fmad=false:
+// (1 - f) lo + f hi, then coeff * LI + const as a multiply and an add.
 #include "formal.cuh"
 
-constexpr int kMaxLine = 2048;     // line length bound: 2 points a thread
+constexpr int kMaxLine = 2048;
+constexpr int kTile = 32;        // march_coeffs: a 32 x 32 tile a block
+constexpr int kTileRows = 4;     // of 32 x 4 threads, 8 points a thread
+constexpr int kRingBytes = 131072;   // march_chain: row ring budget
+
+template <typename T> struct PairOf;
+template <> struct PairOf<double> { using type = double2; };
+template <> struct PairOf<float> { using type = float2; };
+
+// ------------------------------------------------------------ march_coeffs
 
 template <typename T>
-__global__ void march_plane_kernel(const T* __restrict__ a_p,
-                                   const T* __restrict__ a_c,
-                                   const T* __restrict__ s_p,
-                                   const T* __restrict__ s_c,
-                                   const T* __restrict__ i_p,
-                                   const T* __restrict__ r,
-                                   const T* __restrict__ f_line,
-                                   const T* __restrict__ w_cur,
-                                   const T* __restrict__ c_prev,
-                                   T* __restrict__ out,
-                                   T* scratch,
-                                   int nx, int ny, int march_x, int sign,
-                                   int s_base, int n_sweeps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cur = reinterpret_cast<T*>(smem_raw);
+__global__ void __launch_bounds__(kTile * kTileRows)
+march_coeffs_kernel(const T* __restrict__ a_p, const T* __restrict__ a_c,
+                    const T* __restrict__ s_p, const T* __restrict__ s_c,
+                    const T* __restrict__ i_p, const T* __restrict__ r,
+                    const T* __restrict__ f_line,
+                    const T* __restrict__ w_cur,
+                    const T* __restrict__ c_prev, T* __restrict__ scratch,
+                    int nx, int ny, int mp, int march_x, int sign,
+                    int s_base) {
+  using P = typename PairOf<T>::type;
+  __shared__ P tile[kTile][kTile + 1];
 
-  const int b = blockIdx.x;
+  const int b = blockIdx.z;
+  const int x0 = blockIdx.y * kTile, y0 = blockIdx.x * kTile;
   const int N = march_x ? nx : ny;     // columns along the march
   const int M = march_x ? ny : nx;     // points along a line
-  const long long plane = (long long)nx * ny;
-  const long long base = (long long)b * plane;
-  T* coeff = scratch + 2 * base;       // (N, M), line-contiguous
-  T* cnst = coeff + plane;
-
+  const long long base = (long long)b * nx * ny;
   const T rb = r[b], f = f_line[b], wc = w_cur[b], cp = c_prev[b];
   const T wp = T(1) - wc;
 
@@ -71,89 +109,386 @@ __global__ void march_plane_kernel(const T* __restrict__ a_p,
     return base + (march_x ? (long long)c * ny + m : (long long)m * ny + c);
   };
 
-  // ---- phase 1: pass-invariant coeff / const, threads in memory order
-  for (long long p = threadIdx.x; p < plane; p += blockDim.x) {
-    const int x = (int)(p / ny);
-    const int y = (int)(p - (long long)x * ny);
-    const int c = march_x ? x : y;
-    const int m = march_x ? y : x;
-    const int cw = wrap(c + sign, N);
-    const long long u0 = at(cw, wrap(m + s_base, M));
-    const long long u1 = at(cw, wrap(m + s_base + 1, M));
-    auto LI = [&](const T* A) { return (T(1) - f) * A[u0] + f * A[u1]; };
-    const long long ctr = base + p;
-    const T a_up = wp * LI(a_p) + wc * LI(a_c);
-    const T a_c0 = cp * a_p[ctr] + (T(1) - cp) * a_c[ctr];
-    const T dtau = rb * (a_c0 + a_up) * T(0.5);
-    T aw, bw, ew;
-    linear_weights(dtau, aw, bw, ew);
-    const T s_up = wp * LI(s_p) + wc * LI(s_c);
-    const T s_c0 = cp * s_p[ctr] + (T(1) - cp) * s_c[ctr];
-    const long long q = (long long)c * M + m;
-    cnst[q] = ew * (wp * LI(i_p)) + aw * s_up + bw * s_c0;
-    coeff[q] = ew * wc;
-  }
-
-  // ---- phase 2: the sequential column chain on the line buffer
-  T* nxt = cur + M;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) cur[m] = T(0);
-  __syncthreads();   // also publishes phase 1's scratch to the block
-
-  const int steps = n_sweeps * N;
-  for (int n = 0; n < steps; ++n) {
-    const int i = n % N;
-    const int c = sign > 0 ? i : N - 1 - i;
-    const bool last = n >= steps - N;
-    const T* crow = coeff + (long long)c * M;
-    const T* krow = cnst + (long long)c * M;
-    for (int m = threadIdx.x; m < M; m += blockDim.x) {
-      const T li = (T(1) - f) * cur[wrap(m + s_base, M)]
-                 + f * cur[wrap(m + s_base + 1, M)];
-      const T v = crow[m] * li + krow[m];
-      nxt[m] = v;
-      if (last) out[at(c, m)] = v;
+  // compute in memory order (x rows, threadIdx.x along y); points
+  // outside the plane are the line's zero padding
+#pragma unroll
+  for (int i = threadIdx.y; i < kTile; i += kTileRows) {
+    const int x = x0 + i, y = y0 + threadIdx.x;
+    P v;
+    v.x = T(0);
+    v.y = T(0);
+    if (x < nx && y < ny) {
+      const int c = march_x ? x : y;
+      const int m = march_x ? y : x;
+      const int cw = wrap(c + sign, N);
+      const long long u0 = at(cw, wrap(m + s_base, M));
+      const long long u1 = at(cw, wrap(m + s_base + 1, M));
+      auto LI = [&](const T* A) { return (T(1) - f) * A[u0] + f * A[u1]; };
+      const long long ctr = base + (long long)x * ny + y;
+      const T a_up = wp * LI(a_p) + wc * LI(a_c);
+      const T a_c0 = cp * a_p[ctr] + (T(1) - cp) * a_c[ctr];
+      const T dtau = rb * (a_c0 + a_up) * T(0.5);
+      T aw, bw, ew;
+      linear_weights(dtau, aw, bw, ew);
+      const T s_up = wp * LI(s_p) + wc * LI(s_c);
+      const T s_c0 = cp * s_p[ctr] + (T(1) - cp) * s_c[ctr];
+      v.x = ew * wc;
+      v.y = ew * (wp * LI(i_p)) + aw * s_up + bw * s_c0;
     }
-    __syncthreads();
-    T* t = cur; cur = nxt; nxt = t;
+    tile[i][threadIdx.x] = v;
+  }
+  __syncthreads();
+
+  // store along m: (c, m) = (x, y) in the yz case, (y, x) in the xz case
+  P* out = reinterpret_cast<P*>(scratch);
+  for (int i = threadIdx.y; i < kTile; i += kTileRows) {
+    const int c = (march_x ? x0 : y0) + i;
+    const int m = (march_x ? y0 : x0) + threadIdx.x;
+    if (c < N && m < mp)
+      out[((long long)b * N + c) * mp + m] =
+          march_x ? tile[i][threadIdx.x] : tile[threadIdx.x][i];
   }
 }
 
+// ------------------------------------------------------------- march_chain
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// asynchronous global -> shared copy of one (coeff, const) pair
+template <int BYTES>
+__device__ __forceinline__ void cp_async_pair(void* dst, const void* src) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+                 "r"(smem_addr(dst)), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::
+                 "r"(smem_addr(dst)), "l"(src), "n"(BYTES) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// no barrier follows the wait: its "memory" clobber alone keeps the
+// compiler from hoisting the ring's shared loads above it
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+template <typename T, int PPL>
+struct ChainShape {
+  using P = typename PairOf<T>::type;
+  static constexpr int kMP = 32 * PPL;                    // padded line
+  static constexpr int kRowBytes = kMP * (int)sizeof(P);
+  static constexpr int kStagesRaw = kRingBytes / kRowBytes;
+  static constexpr int kStages =
+      kStagesRaw > 16 ? 16 : (kStagesRaw < 2 ? 2 : kStagesRaw);
+  // xz last pass: two tiles of kTileCols columns, one row of kMP points
+  // a column, rows an odd number of T apart; 66 KB a tile up to 256
+  // points a line, 32.5 KB above, so ring and tiles fit in 227 KB
+  static constexpr int kTileStride = kMP + 1;
+  static constexpr int kTileBytes = PPL <= 8 ? 67584 : 33280;
+  static constexpr int kTileColsRaw =
+      kTileBytes / (kTileStride * (int)sizeof(T));
+  static constexpr int kTileCols =
+      kTileColsRaw > 32 ? 32 : (kTileColsRaw < 1 ? 1 : kTileColsRaw);
+  // rows drained a step: a tile drains in kTileCols steps up to 256
+  // points a line (at most 16 rows a step, held in registers)
+  static constexpr int kDrainRaw = (kMP + kTileCols - 1) / kTileCols;
+  static constexpr int kDrainRows = kDrainRaw > 16 ? 16 : kDrainRaw;
+  static constexpr size_t kSmem = (size_t)kStages * kRowBytes +
+      2 * (size_t)kTileCols * kTileStride * sizeof(T);
+};
+
+template <typename T, int PPL, bool RAGGED, int S_BASE, bool MARCH_X>
+__global__ void __launch_bounds__(32)
+march_chain_kernel(const T* __restrict__ scratch,
+                   const T* __restrict__ f_line, T* __restrict__ out,
+                   int nx, int ny, int sign, int n_sweeps) {
+  using Shape = ChainShape<T, PPL>;
+  using P = typename Shape::P;
+  constexpr int MP = Shape::kMP;
+  constexpr int S = Shape::kStages;
+  constexpr int TS = Shape::kTileStride;
+  constexpr int TW = Shape::kTileCols;
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  P* ring = reinterpret_cast<P*>(smem_raw);                // [S][MP]
+  T* tiles = reinterpret_cast<T*>(ring + (size_t)S * MP);  // [2][TW][TS]
+
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const int N = MARCH_X ? nx : ny;
+  const int M = MARCH_X ? ny : nx;
+  const long long base = (long long)b * nx * ny;
+  // this lane's points of a row: m = j * 32 + lane, j < PPL
+  const P* rows = reinterpret_cast<const P*>(scratch) +
+                  (long long)b * N * MP + lane;
+  const T f = f_line[b];
+  const T omf = T(1) - f;
+  const int steps = n_sweeps * N;
+  const int first_last = steps - N;          // first step of the last pass
+
+  // point M - 1, where the line wraps to point 0: lane 31's last slot
+  // unless the line is RAGGED (shorter than MP)
+  const int wrap_lane = (M - 1) % 32, wrap_slot = (M - 1) / 32;
+  const int src_next = (lane + 1) & 31, src_prev = (lane + 31) & 31;
+
+  // issue the next row into its ring stage (an empty group past the end)
+  int n_issue = 0, i_issue = 0;              // i_issue = n_issue % N
+  auto issue = [&]() {
+    if (n_issue < steps) {
+      const int c = sign > 0 ? i_issue : N - 1 - i_issue;
+      const P* src = rows + (long long)c * MP;
+      P* dst = ring + (n_issue % S) * MP + lane;
+#pragma unroll
+      for (int j = 0; j < PPL; ++j)
+        cp_async_pair<sizeof(P)>(dst + j * 32, src + j * 32);
+    }
+    cp_async_commit();
+    ++n_issue;
+    if (++i_issue == N) i_issue = 0;
+  };
+
+  // xz case: the last pass's lines collect in tile g % 2 for the columns
+  // of tile group g, and the full tile g - 1 drains during group g, a
+  // few rows a step: lane cc writes column clo + cc, so every store is a
+  // run of w consecutive y at one x
+  constexpr int R = Shape::kDrainRows;
+  const T* d_tile = tiles;                   // the tile draining
+  int d_m = M, d_clo = 0, d_w = 0;           // its next row, columns
+  auto drain = [&]() {                       // its next R rows: all loads
+    if (lane < d_w) {                        // first, then all stores
+      const T* trow = d_tile + (sign > 0 ? lane : d_w - 1 - lane) * TS;
+      T* ocol = out + base + d_clo + lane + (long long)d_m * ny;
+      T vals[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        vals[r] = d_m + r < M ? trow[d_m + r] : T(0);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (d_m + r < M) ocol[(long long)r * ny] = vals[r];
+    }
+    d_m = d_m + R < M ? d_m + R : M;
+  };
+  // start draining tile group g (its first step g0, its w columns)
+  auto start_drain = [&](int g0, int w) {
+    d_tile = tiles + ((g0 / TW) & 1) * TW * TS;
+    d_clo = sign > 0 ? g0 : N - g0 - w;
+    d_w = w;
+    d_m = 0;
+  };
+
+  for (int k = 0; k < S; ++k) issue();
+
+  T v[PPL];
+#pragma unroll
+  for (int j = 0; j < PPL; ++j) v[j] = T(0);
+
+  // one column step: the line buffer v from row n of the ring
+  auto step = [&](int n) {
+    const P* st = ring + (n % S) * MP + lane;
+    if (S_BASE == 0) {
+      // point m + 1: lane + 1's same slot; lane 31 takes lane 0's next
+      // slot; point M - 1 takes point 0.  Ascending j, so every value
+      // sent is still the previous line's (v[0] kept for the last slot)
+      const T p0 = RAGGED ? __shfl_sync(kFull, v[0], 0) : T(0);
+      const T v0 = v[0];
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) {
+        T hi = __shfl_sync(
+            kFull, lane == 0 ? (j + 1 < PPL ? v[j + 1] : v0) : v[j],
+            src_next);
+        if (RAGGED && lane == wrap_lane && j == wrap_slot) hi = p0;
+        const P ck = st[j * 32];
+        const T li = omf * v[j] + f * hi;
+        v[j] = ck.x * li + ck.y;
+      }
+    } else {
+      // point m - 1: lane - 1's same slot; lane 0 takes lane 31's
+      // previous slot; point 0 takes point M - 1.  Descending j, so
+      // every value sent is still the previous line's
+      T pm = v[0];
+      if (RAGGED) {
+#pragma unroll
+        for (int j = 1; j < PPL; ++j)
+          if (j == wrap_slot) pm = v[j];
+        pm = __shfl_sync(kFull, pm, wrap_lane);
+      }
+      const T vl = v[PPL - 1];
+#pragma unroll
+      for (int j = PPL - 1; j >= 0; --j) {
+        T lo = __shfl_sync(
+            kFull, lane == 31 ? (j > 0 ? v[j - 1] : vl) : v[j], src_prev);
+        if (RAGGED && lane == 0 && j == 0) lo = pm;
+        const P ck = st[j * 32];
+        const T li = omf * lo + f * v[j];
+        v[j] = ck.x * li + ck.y;
+      }
+    }
+  };
+
+  // the ring is waited on once every K steps: rows n .. n + K - 1 have
+  // landed when the wait returns
+  constexpr int K = S >= 8 ? 4 : 1;
+  int n = 0;
+  for (; n < first_last; ++n) {              // every pass but the last
+    if (n % K == 0) cp_async_wait<S - K>();
+    step(n);
+    issue();
+  }
+  for (int i = 0; i < N; ++i, ++n) {         // the last pass, with output
+    if (n % K == 0) cp_async_wait<S - K>();
+    step(n);
+    if (MARCH_X) {                           // yz: the line is a row of y
+      const int c = sign > 0 ? i : N - 1 - i;
+      T* orow = out + base + (long long)c * ny;
+#pragma unroll
+      for (int j = 0; j < PPL; ++j)
+        if (j * 32 + lane < M) orow[j * 32 + lane] = v[j];
+    } else {                                 // xz: collect, and drain
+      const int slot = i % TW;               // step in its tile group
+      if (slot == 0 && i > 0) {              // the group before is full
+        while (d_m < M) drain();             // (the one before drains)
+        __syncwarp();
+        start_drain(i - TW, TW);
+      }
+      T* trow = tiles + ((i / TW) & 1) * TW * TS + slot * TS + lane;
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) trow[j * 32] = v[j];
+      if (d_m < M) drain();
+    }
+    issue();
+  }
+  cp_async_wait<0>();
+  if (!MARCH_X) {                            // the last group, and the one
+    while (d_m < M) drain();                 // before if it was short
+    __syncwarp();
+    const int g_last = (N - 1) - (N - 1) % TW;
+    start_drain(g_last, N - g_last);
+    while (d_m < M) drain();
+  }
+}
+
+// ---------------------------------------------------------------- launches
+
 template <typename T>
-static int launch_march(const T* a_p, const T* a_c, const T* s_p,
-                        const T* s_c, const T* i_p, const T* r,
-                        const T* f_line, const T* w_cur, const T* c_prev,
-                        T* out, T* scratch, int B, int nx, int ny,
-                        int march_x, int sign, int s_base, int n_sweeps,
-                        void* stream) {
+static int launch_coeffs(const T* a_p, const T* a_c, const T* s_p,
+                         const T* s_c, const T* i_p, const T* r,
+                         const T* f_line, const T* w_cur, const T* c_prev,
+                         T* scratch, int B, int nx, int ny, int mp,
+                         int march_x, int sign, int s_base, void* stream) {
   if (B == 0 || nx == 0 || ny == 0) return 0;
-  const int M = march_x ? ny : nx;
-  if (M > kMaxLine) return (int)cudaErrorInvalidValue;
-  const int threads = M > 1024 ? 1024 : ((M + 31) / 32) * 32;
-  const size_t smem = 2 * (size_t)M * sizeof(T);
-  march_plane_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
-      a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur, c_prev, out, scratch, nx,
-      ny, march_x, sign, s_base, n_sweeps);
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  // the tile grid covers the plane, and the padded line along m
+  const int ext_x = march_x ? nx : mp, ext_y = march_x ? mp : ny;
+  const dim3 grid((ext_y + kTile - 1) / kTile, (ext_x + kTile - 1) / kTile,
+                  B);
+  march_coeffs_kernel<T><<<grid, dim3(kTile, kTileRows), 0,
+                           (cudaStream_t)stream>>>(
+      a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur, c_prev, scratch, nx, ny,
+      mp, march_x, sign, s_base);
   return (int)cudaGetLastError();
 }
 
-extern "C" int vrt_march_plane_f64(
+template <typename T, int PPL, bool RAGGED, int S_BASE, bool MARCH_X>
+static int launch_chain_cfg(const T* scratch, const T* f_line, T* out, int B,
+                            int nx, int ny, int sign, int n_sweeps,
+                            void* stream) {
+  const size_t smem = ChainShape<T, PPL>::kSmem;
+  auto kernel = march_chain_kernel<T, PPL, RAGGED, S_BASE, MARCH_X>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, 32, smem, (cudaStream_t)stream>>>(scratch, f_line, out, nx, ny,
+                                                 sign, n_sweeps);
+  return (int)cudaGetLastError();
+}
+
+// the stencil shift, the march axis and a line shorter than MP are
+// compile-time: as runtime branches they cost the chain 10 % a step
+template <typename T, int PPL>
+static int launch_chain_ppl(const T* scratch, const T* f_line, T* out, int B,
+                            int nx, int ny, bool ragged, int march_x,
+                            int sign, int s_base, int n_sweeps,
+                            void* stream) {
+  using Launch = int (*)(const T*, const T*, T*, int, int, int, int, int,
+                         void*);
+  static constexpr Launch table[2][2][2] = {
+      {{launch_chain_cfg<T, PPL, false, 0, false>,
+        launch_chain_cfg<T, PPL, false, 0, true>},
+       {launch_chain_cfg<T, PPL, false, -1, false>,
+        launch_chain_cfg<T, PPL, false, -1, true>}},
+      {{launch_chain_cfg<T, PPL, true, 0, false>,
+        launch_chain_cfg<T, PPL, true, 0, true>},
+       {launch_chain_cfg<T, PPL, true, -1, false>,
+        launch_chain_cfg<T, PPL, true, -1, true>}}};
+  return table[ragged][s_base != 0][march_x != 0](scratch, f_line, out, B,
+                                                  nx, ny, sign, n_sweeps,
+                                                  stream);
+}
+
+template <typename T>
+static int launch_chain(const T* scratch, const T* f_line, T* out, int B,
+                        int nx, int ny, int mp, int march_x, int sign,
+                        int s_base, int n_sweeps, void* stream) {
+  if (B == 0 || nx == 0 || ny == 0) return 0;
+  const int M = march_x ? ny : nx;
+  if (M > kMaxLine || mp < M || mp > 32 * 64 || mp % 32 != 0 ||
+      (s_base != 0 && s_base != -1))
+    return (int)cudaErrorInvalidValue;
+  const bool ragged = M != mp;
+#define VRT_CHAIN(PPL)                                                     \
+  case PPL:                                                                \
+    return launch_chain_ppl<T, PPL>(scratch, f_line, out, B, nx, ny,       \
+                                    ragged, march_x, sign, s_base,         \
+                                    n_sweeps, stream);
+  switch (mp / 32) {
+    VRT_CHAIN(1) VRT_CHAIN(2) VRT_CHAIN(4) VRT_CHAIN(8) VRT_CHAIN(16)
+    VRT_CHAIN(32) VRT_CHAIN(64)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VRT_CHAIN
+}
+
+extern "C" int vrt_march_coeffs_f64(
     const double* a_p, const double* a_c, const double* s_p,
     const double* s_c, const double* i_p, const double* r,
     const double* f_line, const double* w_cur, const double* c_prev,
-    double* out, double* scratch, int B, int nx, int ny, int march_x,
-    int sign, int s_base, int n_sweeps, void* stream) {
-  return launch_march<double>(a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur,
-                              c_prev, out, scratch, B, nx, ny, march_x, sign,
-                              s_base, n_sweeps, stream);
+    double* scratch, int B, int nx, int ny, int mp, int march_x, int sign,
+    int s_base, void* stream) {
+  return launch_coeffs<double>(a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur,
+                               c_prev, scratch, B, nx, ny, mp, march_x, sign,
+                               s_base, stream);
 }
 
-extern "C" int vrt_march_plane_f32(
+extern "C" int vrt_march_coeffs_f32(
     const float* a_p, const float* a_c, const float* s_p, const float* s_c,
     const float* i_p, const float* r, const float* f_line,
-    const float* w_cur, const float* c_prev, float* out, float* scratch,
-    int B, int nx, int ny, int march_x, int sign, int s_base, int n_sweeps,
-    void* stream) {
-  return launch_march<float>(a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur,
-                             c_prev, out, scratch, B, nx, ny, march_x, sign,
-                             s_base, n_sweeps, stream);
+    const float* w_cur, const float* c_prev, float* scratch, int B, int nx,
+    int ny, int mp, int march_x, int sign, int s_base, void* stream) {
+  return launch_coeffs<float>(a_p, a_c, s_p, s_c, i_p, r, f_line, w_cur,
+                              c_prev, scratch, B, nx, ny, mp, march_x, sign,
+                              s_base, stream);
+}
+
+extern "C" int vrt_march_chain_f64(const double* scratch,
+                                   const double* f_line, double* out, int B,
+                                   int nx, int ny, int mp, int march_x,
+                                   int sign, int s_base, int n_sweeps,
+                                   void* stream) {
+  return launch_chain<double>(scratch, f_line, out, B, nx, ny, mp, march_x,
+                              sign, s_base, n_sweeps, stream);
+}
+
+extern "C" int vrt_march_chain_f32(const float* scratch, const float* f_line,
+                                   float* out, int B, int nx, int ny, int mp,
+                                   int march_x, int sign, int s_base,
+                                   int n_sweeps, void* stream) {
+  return launch_chain<float>(scratch, f_line, out, B, nx, ny, mp, march_x,
+                             sign, s_base, n_sweeps, stream);
 }

@@ -33,11 +33,9 @@ import time
 import numpy as np
 import torch
 
-from voronoirt_tpu.config import Config
-from voronoirt_tpu.grid.voronoi import build_voronoi_plan
-from voronoirt_tpu.quadrature import get_quadrature
-
+from ..config import Config
 from ..device import torch_dtype
+from ..grid.voronoi import build_voronoi_plan
 from ..physics.atom import (alpha_line, compute_profile, destruction,
                             line_of_sight_velocity)
 from ..physics.broadening import damping, gamma_constant
@@ -47,6 +45,7 @@ from ..physics.opacity import (alpha_absorption, alpha_scattering,
 from ..physics.planck import B_lambda
 from ..physics.rates import calculate_C, calculate_R, calculate_R_chunk
 from ..physics.stateq import get_revised_populations
+from ..quadrature import get_quadrature
 from ..solvers.sweep_regular import (build_plan, group_plans, sweep,
                                      sweep_group_J)
 from ..solvers.sweep_voronoi import device_plan, sweep_voronoi_t

@@ -6,23 +6,30 @@ populations) is one full Lambda-iteration update on the regular grid --
 damping -> per-angle Voigt + extinction -> formal solution for every
 quadrature direction, batched over wavelengths -> J -> S update ->
 radiative rates -> statistical-equilibrium populations.
+
+Both functions run on the CUDA card unless the caller asks for another
+device (device="cpu", as the CPU tests do); with no card visible and no
+device given they raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from voronoirt_tpu.atmosphere import synthetic_atmosphere
-from voronoirt_tpu.config import Config
-
+from .atmosphere import synthetic_atmosphere
+from .config import Config
+from .device import require_cuda
 from .engine.lambda_iter import (RegularEngine, _rates_and_populations,
                                  _update_S)
 from .physics.atom import lyman_alpha_line
 
 
 def small_problem(nz=12, nx=8, ny=8, nlam_bb=5, nlam_bf=3,
-                  quadrature="ul2n3", device="cpu"):
-    """(cfg, atmos, line, engine) of the small test problem on device."""
+                  quadrature="ul2n3", device=None):
+    """(cfg, atmos, line, engine) of the small test problem on device
+    (default: the CUDA card)."""
+    if device is None:
+        device = require_cuda()
     cfg = Config(nlam_bb=nlam_bb, nlam_bf=nlam_bf, quadrature=quadrature)
     atmos = synthetic_atmosphere(nz=nz, nx=nx, ny=ny, seed=7)
     T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
@@ -31,9 +38,10 @@ def small_problem(nz=12, nx=8, ny=8, nlam_bb=5, nlam_bf=3,
     return cfg, atmos, line, RegularEngine(atmos, line, cfg, device=device)
 
 
-def entry(device="cpu"):
+def entry(device=None):
     """(step, example_args): one Lambda-iteration update of the small
-    problem on `device`; example_args = (B0, LTE populations)."""
+    problem on `device` (default: the CUDA card); example_args = (B0,
+    LTE populations)."""
     cfg, atmos, line, eng = small_problem(device=device)
 
     def step(S, populations):

@@ -1,11 +1,13 @@
-"""Voronoi site sampling densities on the port's physics.
+"""Voronoi site sampling: rejection sampling and the densities.
 
-Port of the four physics densities of voronoirt_tpu/grid/sampling.py
-(reference src/sample_grids.jl): `density_extinction`,
-`density_destruction`, `density_total_extinction` and
-`density_avg_extinction`, which the JAX module evaluates with jnp.  The
-numpy densities (the paper's production `density_invNH_invT` among
-them) and `rejection_sampling` are the JAX module's own, imported.
+Port of voronoirt_tpu/grid/sampling.py (reference src/sample_grids.jl
+and src/functions.jl:79-197 `rejection_sampling`).  The numpy half --
+`rejection_sampling` and the four numpy densities, the paper's
+production `density_invNH_invT` among them -- is copied from the JAX
+module (tests/test_torch_host_copies.py holds the copies equal).  The
+four physics densities (`density_extinction`, `density_destruction`,
+`density_total_extinction`, `density_avg_extinction`), which the JAX
+module evaluates with jnp, run on the port's torch physics.
 
 Densities are set-up code: they run in float64 on the CPU and return
 numpy arrays shaped like the atmosphere, as the JAX ones do.
@@ -16,21 +18,84 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import c_0
-from voronoirt_tpu.grid.sampling import (density_invNH_invT,
-                                         density_logNH_invT,
-                                         density_logNH_invT_rootv,
-                                         density_temp_gradient,
-                                         rejection_sampling)
-from voronoirt_tpu.quadrature import get_quadrature
-
+from ..constants import c_0
 from ..physics.atom import (alpha_line, destruction, line_of_sight_velocity,
                             lyman_alpha_line)
 from ..physics.broadening import damping, gamma_constant
 from ..physics.lte import lte_populations
 from ..physics.opacity import alpha_absorption, alpha_scattering
 from ..physics.voigt import voigt_profile
+from ..quadrature import get_quadrature
+from .interpolate import trilinear
 
+
+def rejection_sampling(n_sites, atmos, quantity, seed=2022, batch=None):
+    """Accept-reject sample of site positions with density ~ quantity.
+
+    quantity: (nz, nx, ny) non-negative-ish field (compared against a
+    uniform reference scaled to [q_min, q_max], functions.jl:90-117).
+    Returns (n_sites, 3) positions ordered (z, x, y).
+    """
+    rng = np.random.default_rng(seed)
+    q = np.asarray(quantity, dtype=np.float64)
+    q_min, q_max = q.min(), q.max()
+    dq = q_max - q_min
+
+    z0, z1 = atmos.z[0], atmos.z[-1]
+    x0, x1 = atmos.x[0], atmos.x[-1]
+    y0, y1 = atmos.y[0], atmos.y[-1]
+
+    if batch is None:
+        batch = max(4 * n_sites, 1024)
+    out = np.empty((n_sites, 3))
+    got = 0
+    while got < n_sites:
+        zq = rng.uniform(z0, z1, batch)
+        xq = rng.uniform(x0, x1, batch)
+        yq = rng.uniform(y0, y1, batch)
+        dens = trilinear(zq, xq, yq, atmos.z, atmos.x, atmos.y, q)
+        accept = dens > rng.uniform(0.0, 1.0, batch) * dq + q_min
+        sel = np.nonzero(accept)[0][: n_sites - got]
+        take = len(sel)
+        out[got:got + take, 0] = zq[sel]
+        out[got:got + take, 1] = xq[sel]
+        out[got:got + take, 2] = yq[sel]
+        got += take
+    return out
+
+
+# ----------------------------------------------------- sampling densities
+
+def density_invNH_invT(atmos):
+    """log10(N_H)^-2 * T^(-2/5) (sample_grids.jl:223-230; the paper's
+    production density)."""
+    return (np.log10(atmos.hydrogen_populations) ** -2.0
+            * atmos.temperature ** (-2.0 / 5.0))
+
+
+def density_logNH_invT(atmos):
+    """log10(N_H) * T^(-2/5) (sample_grids.jl:198-205)."""
+    return np.log10(atmos.hydrogen_populations) * atmos.temperature ** (-0.4)
+
+
+def density_logNH_invT_rootv(atmos):
+    """log10(N_H) T^(-2/5) (v^2)^(1/3) (sample_grids.jl:208-221)."""
+    v2 = (atmos.velocity_x ** 2 + atmos.velocity_y ** 2
+          + atmos.velocity_z ** 2)
+    return (np.log10(atmos.hydrogen_populations)
+            * atmos.temperature ** (-0.4) * v2 ** (1.0 / 3.0))
+
+
+def density_temp_gradient(atmos):
+    """|dT/dz| forward differences (sample_grids.jl:97-120)."""
+    T, z = atmos.temperature, atmos.z
+    g = np.empty_like(T)
+    g[:-1] = (T[1:] - T[:-1]) / (z[1:] - z[:-1])[:, None, None]
+    g[-1] = (T[-1] - T[-2]) / (z[-1] - z[-2])
+    return np.abs(g)
+
+
+# ---------------------------------------------- physics densities (torch)
 
 def _t(a):
     """A float64 CPU tensor of a numpy array (or tensor)."""

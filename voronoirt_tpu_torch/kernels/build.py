@@ -34,7 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (name, argtypes) of every exported launch function
 _SIGNATURES = {
     "vrt_xy_plane": [_P] * 9 + [_I] * 5 + [_P],
-    "vrt_march_plane": [_P] * 11 + [_I] * 7 + [_P],
+    "vrt_march_coeffs": [_P] * 10 + [_I] * 7 + [_P],
+    "vrt_march_chain": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 

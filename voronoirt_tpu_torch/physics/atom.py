@@ -15,9 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import (h, c_0, k_B, e, eps_0, m_e, hc, mass_H,
-                                     IUNIT_SI)
-
+from ..constants import (h, c_0, k_B, e, eps_0, m_e, hc, mass_H, IUNIT_SI)
+from ..device import require_cuda
 from .planck import B_lambda
 from .voigt import voigt_profile
 
@@ -125,7 +124,8 @@ def doppler_width(lam0, atom_weight, temperature):
 
 def lyman_alpha_line(nlam_bb, nlam_bf, temperature):
     """H Ly-alpha test atom (src/line.jl:232-247) bound to a temperature
-    tensor (for the Doppler-width field)."""
+    tensor (for the Doppler-width field); a temperature that is not a
+    tensor goes to the CUDA card."""
     chi_l = wavenumber_to_energy(0.0)
     chi_u = wavenumber_to_energy(82258.211)
     chi_inf = wavenumber_to_energy(109677.617)
@@ -157,7 +157,9 @@ def make_line(chi_u, chi_l, chi_inf, nlam_bb, nlam_bf, g_u, g_l, f_value,
     Aul = calc_Aji(lam0, g_l / g_u, f_value)
     Bul = calc_Bji(lam0, Aul)
     Blu = g_u / g_l * Bul
-    dlamD = doppler_width(lam0, atom_weight, torch.as_tensor(temperature))
+    if not isinstance(temperature, torch.Tensor):
+        temperature = torch.as_tensor(temperature, device=require_cuda())
+    dlamD = doppler_width(lam0, atom_weight, temperature)
 
     return HydrogenicLine(
         Aji=float(Aul), Bji=float(Bul), Bij=float(Blu), lam0=float(lam0),

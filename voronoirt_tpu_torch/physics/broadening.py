@@ -7,9 +7,8 @@ atmosphere-independent constants stay numpy host code.
 
 import numpy as np
 
-from voronoirt_tpu.constants import (h, k_B, e, a_0, m_e, m_u, Ry, E_inf,
-                                     alpha_p, inv_4pi_eps0, mass_H, mass_He,
-                                     abund_He, c_0)
+from ..constants import (h, k_B, e, a_0, m_e, m_u, Ry, E_inf, alpha_p,
+                         inv_4pi_eps0, mass_H, mass_He, abund_He, c_0)
 
 
 def n_eff(chi_inf, chi, Z):

@@ -9,7 +9,7 @@ rational approximations.
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import k_B, m_e, a_0, E_inf
+from ..constants import k_B, m_e, a_0, E_inf
 
 _SQRT8_PI = float(np.sqrt(8.0 / np.pi))
 _PI_A0_SQ = float(np.pi * a_0**2)

@@ -7,7 +7,7 @@ Port of voronoirt_tpu/physics/lte.py (reference src/populations.jl:
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import h, k_B, m_e
+from ..constants import h, k_B, m_e
 
 
 def lte_populations(line, temperature, electron_density, hydrogen_density):

@@ -13,7 +13,7 @@ import warnings
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import h, c_0, k_B, m_e, sigma_T
+from ..constants import h, c_0, k_B, m_e, sigma_T
 
 from . import tensors
 

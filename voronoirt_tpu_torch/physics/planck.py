@@ -9,7 +9,7 @@ stay finite at the 22.8 nm bound-free wavelengths.
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import h, c_0, k_B, IUNIT_SI
+from ..constants import h, c_0, k_B, IUNIT_SI
 
 from . import tensors
 

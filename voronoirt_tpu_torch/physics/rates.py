@@ -13,8 +13,8 @@ compat == 'fixed' uses 0.5x trapezoids and per-level n_eff.
 import numpy as np
 import torch
 
-from voronoirt_tpu.constants import (h, c_0, e, eps_0, m_e, hc, R_inf,
-                                     E_inf, IUNIT_SI, k_B)
+from ..constants import (h, c_0, e, eps_0, m_e, hc, R_inf, E_inf, IUNIT_SI,
+                         k_B)
 
 from .voigt import voigt_profile
 from .broadening import damping
