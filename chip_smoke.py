@@ -7,15 +7,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. the card's name and power limit (nvidia-smi); build the kernels;
   2. each hand-written kernel against its plain PyTorch version on the
      card, float64 and float32, at the production plane shape
-     (52, 256, 256), at (16, 256, 256) and at a ragged (5, 37, 29),
-     over every stencil-shift / march-direction combination with mixed
-     per-element geometry: xy_plane (K1), and K2 as march_coeffs,
-     march_chain and their composition march_plane; then all timed at
-     the production shape beside their bounds, K2 per march axis;
+     (52, 256, 256), at (16, 256, 256), at a ragged (5, 37, 29), at the
+     per-angle plane of the Bezier iteration, (13, 256, 256), and at the
+     continuum iteration's batch of one, (1, 256, 256), over every
+     stencil-shift / march-direction combination with mixed per-element
+     geometry: xy_plane (K1), and K2 as march_coeffs, march_chain and
+     their composition march_plane; then all timed at the production
+     shape beside their bounds, K2 per march axis, and at (1, 256, 256);
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
-  5. two Lambda iterations of the production configuration
+  5. one Lambda iteration of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
      through RegularEngine.run(), with every kernel's launch count;
   6. the Voronoi NLTE chain goldens (tests/golden/nlte_fixtures.npz
@@ -24,15 +26,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ul7n12 direction with the adaptive relax exit, card against CPU;
   7. two Voronoi Lambda iterations ('layer' order) at the reference's
      quarter-resolution production count, 442,368 sites sampled from the
-     phase-5 atmosphere, 91 wavelengths, ul7n12, float64, then one
-     'wavefront' J pass on the same sites; set-up and iteration seconds,
-     per-direction seconds, level steps and peak memory.
+     phase-5 atmosphere, 91 wavelengths, ul7n12, float64; set-up and
+     iteration seconds, per-direction seconds, level steps and peak
+     memory (the 'wavefront' order runs in phase 6 only);
+  8. the Bezier formal solution: Bezier (and linear) sweeps of every
+     ul7n12 direction at a small size, card against CPU; then one full
+     Lambda iteration at the phase-5 grid through RegularEngine.run()
+     with formal_interpolation='bezier', lambda_chunk 13 and the rates
+     in slabs of z-planes (the standard loop: S_old, S_new, J and B0
+     resident), with seconds, the J-pass share, the kernels' launch
+     counts and peak memory; one march_plane call of that iteration, on
+     its own inputs, against the plain version; a Bezier xy plane step's
+     time beside K1's, K1 held against its plain version there too;
+  9. angle distribution: compute_J serial against
+     distribute_angles(engine, [cuda:0, cuda:0]), regular (linear and
+     Bezier) and Voronoi, at a small size;
+ 10. the continuum scattering iteration (a batch of ONE wavelength
+     through every sweep): card against CPU at a small size, then
+     lambda_continuum_regular at the phase-5 grid, 3 iterations, with
+     the kernels' launch counts, and lambda_continuum_voronoi on phase
+     7's sites, 2 iterations;
+ 11. checkpoint and resume on the card: a small run killed after its
+     second write_state and resumed equals the uninterrupted run,
+     through a store that keeps the arrays in memory and, where h5py
+     imports, through the HDF5 file; one small J pass under
+     observability.device_trace; then the searchlight driver (flux kept
+     for all 12 directions) and the line_nlte driver with
+     --interpolation bezier, as a user calls them.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is visible or the package is not beside it, and fails if
 jax or any module of the JAX package (voronoirt_tpu) was imported.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -125,9 +152,12 @@ def check_kernels():
     worst = dict.fromkeys(KERNELS, 0.0)
     gen = torch.Generator().manual_seed(2024)
     # the production group-plane shape (4 angles x lambda_chunk), a
-    # smaller full plane and a ragged one
+    # smaller full plane, a ragged one, the per-angle plane of the Bezier
+    # iteration (lambda_chunk) and the continuum iteration's (one)
     shapes = ((4 * PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
-              (16, 256, 256), (5, 37, 29))
+              (16, 256, 256), (5, 37, 29),
+              (PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
+              (1, PROD["nx"], PROD["ny"]))
     for dtype_name, dtype in (("float64", torch.float64),
                               ("float32", torch.float32)):
         for (B, nx, ny) in shapes:
@@ -213,16 +243,15 @@ def _bounds(B, nx, ny, n_sweeps=3):
     return out
 
 
-def time_kernels():
-    """Kernel and plain times at the production group-plane shape
-    (B = 4 angles x lambda_chunk wavelengths, 256x256, float64), beside
-    each kernel's bound.  K2 per march axis, and split into its two
-    kernels."""
+def time_kernels(B):
+    """Kernel and plain times at (B, 256, 256), float64, beside each
+    kernel's bound: B = 4 angles x lambda_chunk wavelengths is the
+    production group plane, B = 1 the continuum iteration's.  K2 per
+    march axis, and split into its two kernels."""
     import torch
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
-    B = 4 * PROD["lambda_chunk"]
     nx, ny = PROD["nx"], PROD["ny"]
     bound = _bounds(B, nx, ny)
     gen = torch.Generator().manual_seed(7)
@@ -322,21 +351,31 @@ def check_entry():
 
 # ------------------------------------------------------------ phase 5
 
+def _launch_counts(reset=False):
+    """The kernel wrappers' launch counters; reset=True sets them to 0."""
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+    if reset:
+        xp.LAUNCHES = 0
+        mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
+    return {"xy_plane": xp.LAUNCHES, "march_plane": mp.LAUNCHES,
+            "march_coeffs": mp.COEFFS_LAUNCHES,
+            "march_chain": mp.CHAIN_LAUNCHES}
+
+
 def run_production(atmos):
-    """Two lambda-streamed iterations at the production configuration."""
+    """One lambda-streamed iteration at the production configuration."""
     import torch
     from voronoirt_tpu_torch import Config
     from voronoirt_tpu_torch.engine import RegularEngine
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
-    from voronoirt_tpu_torch.solvers import march_plane as mp
-    from voronoirt_tpu_torch.solvers import xy_plane as xp
 
     p = PROD
     t0 = time.perf_counter()
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
                  quadrature=p["quadrature"], stream_rates=True,
                  lambda_chunk=p["lambda_chunk"],
-                 group_max_angles=p["group_max_angles"], maxiter=2, eps=0.0)
+                 group_max_angles=p["group_max_angles"], maxiter=1, eps=0.0)
     T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
                         device="cuda")
     line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
@@ -363,18 +402,14 @@ def run_production(atmos):
 
     eng._J_chunk_grouped = timed_J
     torch.cuda.reset_peak_memory_stats()
-    xp.LAUNCHES = 0
-    mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
+    _launch_counts(reset=True)
     res = eng.run()
-    launches = {"xy_plane": xp.LAUNCHES, "march_plane": mp.LAUNCHES,
-                "march_coeffs": mp.COEFFS_LAUNCHES,
-                "march_chain": mp.CHAIN_LAUNCHES}
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    require(res.iterations == 2 and len(res.timings) == 2,
-            f"expected 2 iterations, ran {res.iterations}")
-    n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
-    it2, j2 = res.timings[1], sum(j_times[-n_chunks:])
+    require(res.iterations == 1 and len(res.timings) == 1,
+            f"expected 1 iteration, ran {res.iterations}")
+    it, j = res.timings[0], sum(j_times)
     shape = (line.n_lambda, p["nz"], p["nx"], p["ny"])
     require(tuple(res.S.shape) == shape, f"S shape {tuple(res.S.shape)}")
     require(tuple(res.populations.shape) == shape[1:] + (3,),
@@ -385,16 +420,15 @@ def run_production(atmos):
     mass = _max_rel(res.populations.sum(-1), eng.nH)
     require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
     rate = (p["nz"] * p["nx"] * p["ny"] * line.n_lambda
-            * eng.quad.n_angles) / j2
-    print(f"  iteration seconds {[round(t, 4) for t in res.timings]}; "
-          f"second iteration {it2:.4f} s, J pass {j2:.4f} s "
-          f"({100 * j2 / it2:.1f}%), {rate:.4e} grid-points*rays/s",
+            * eng.quad.n_angles) / j
+    print(f"  the iteration {it:.4f} s, J pass {j:.4f} s "
+          f"({100 * j / it:.1f}%), {rate:.4e} grid-points*rays/s",
           flush=True)
     print(f"  peak device memory {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated); criterion {res.convergence}; "
           f"S, populations finite: {finite}; sum(populations)/n_H - 1 "
           f"max {mass:.3e}", flush=True)
-    print(f"  launches during the two iterations: {launches}", flush=True)
+    print(f"  launches during the iteration: {launches}", flush=True)
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the main path")
     return launches
@@ -548,8 +582,8 @@ def _timed_J(eng, lambda_iter, sv):
 
 
 def run_voronoi_production(atmos):
-    """Phase 7: two 'layer' iterations and one 'wavefront' J pass at
-    VOR_SITES sites, 91 wavelengths, ul7n12, float64."""
+    """Phase 7: two 'layer' iterations at VOR_SITES sites, 91
+    wavelengths, ul7n12, float64."""
     import torch
     from voronoirt_tpu_torch import Config, get_quadrature, grid
     from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter
@@ -569,17 +603,12 @@ def run_voronoi_production(atmos):
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
                  quadrature=p["quadrature"], voronoi_order="layer",
                  maxiter=2, eps=0.0)
-    cfg_w = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
-                   quadrature=p["quadrature"], voronoi_order="wavefront")
     quad = get_quadrature(cfg.quadrature)
     t = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # 'layer' at grazing angles
         plans = VoronoiEngine.build_plans(sites, quad, cfg)
     setup["plans (layer, 12 directions)"] = time.perf_counter() - t
-    t = time.perf_counter()
-    plans_w = VoronoiEngine.build_plans(sites, quad, cfg_w)
-    setup["plans (wavefront, 12 directions)"] = time.perf_counter() - t
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -624,25 +653,500 @@ def run_voronoi_production(atmos):
           flush=True)
     print(f"  criterion {res.convergence}; sum(populations)/n_H - 1 max "
           f"{mass:.3e}", flush=True)
-    pops, S = res.populations, res.S
-    del res, eng
-
-    eng_w = VoronoiEngine(sites, line, cfg_w, plans=plans_w, device="cuda")
-    with _timed_J(eng_w, lambda_iter, sv) as rec_w:
-        J_w = eng_w.compute_J(S, pops)
-    require(J_w.is_cuda and bool(torch.isfinite(J_w).all()),
-            "wavefront J not finite or not on the card")
-    jw = rec_w["J"][0]
-    sweep_w = sum(rec_w["sweep"])
-    print(f"  wavefront (relax_tol {cfg_w.voronoi_relax_tol:g}): J pass "
-          f"{jw:.4f} s, {rays / jw:.4e} sites*wavelengths*rays/s; level "
-          f"steps {rec_w['steps'][0]}, {1e6 * sweep_w / rec_w['steps'][0]:.2f}"
-          f" us of sweep per level step; by direction: extinction s "
-          f"{[round(x, 4) for x in rec_w['ext']]}, sweep s "
-          f"{[round(x, 4) for x in rec_w['sweep']]}",
-          flush=True)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
           f" GiB (max_memory_allocated, phase 7)", flush=True)
+    return sites
+
+
+# ------------------------------------------------------------ phase 8-11
+
+def _card_timer():
+    """A PhaseTimer whose phases end with the card synchronised; the
+    card is synchronised here too, so the first phase starts idle."""
+    import torch
+    from voronoirt_tpu_torch.observability import PhaseTimer
+    torch.cuda.synchronize()
+    return PhaseTimer(device="cuda")
+
+
+def _small_line_engine(atmos, device, nlam=(5, 3), **cfg_kw):
+    import torch
+    from voronoirt_tpu_torch import Config
+    from voronoirt_tpu_torch.engine import RegularEngine
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    cfg = Config(nlam_bb=nlam[0], nlam_bf=nlam[1], **cfg_kw)
+    T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
+                        device=device)
+    return RegularEngine(atmos, lyman_alpha_line(*nlam, T), cfg,
+                         device=device)
+
+
+def check_bezier_sweeps():
+    """Phase 8a: interpolation='bezier' (and 'linear') sweeps of every
+    ul7n12 direction on a stretched z axis, card against CPU.  The linear
+    bar is 1e-12; the Bezier one 1e-10, because the Bezier weights
+    cancel digits near their dtau = 0.05 branch, where one-ulp exp
+    differences between the devices' libraries grow (ROADMAP C3)."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch import get_quadrature
+    from voronoirt_tpu_torch.solvers import sweep_regular as sr
+
+    quad = get_quadrature("ul7n12")
+    gen = np.random.default_rng(8)
+    nz, nx, ny, B = 24, 32, 32, 5
+    # steps from 0.2 to 3 cells: the oblique directions change plane-cut
+    # case from plane to plane
+    z = np.concatenate([[0.0], np.cumsum(gen.uniform(0.2, 3.0, nz - 1))]) / nx
+    S = gen.uniform(0.1, 1.0, (nz, B, nx, ny))
+    # every dtau stays above 0.03, clear of the linear weights'
+    # cancellation near their 5e-4 guard (as in phase 6), and crosses
+    # the Bezier weights' 0.05 branch and the large-dtau one
+    alpha = 10.0 ** gen.uniform(0.7, 2.5, (nz, B, nx, ny))
+    I0 = gen.uniform(0.5, 1.0, (B, nx, ny))
+    worst = {"linear": 0.0, "bezier": 0.0}
+    cases, differs = set(), 0.0
+    _launch_counts(reset=True)
+    for i in range(quad.n_angles):
+        plan = sr.build_plan(quad.k[i], z, 1.0 / nx, 1.0 / ny,
+                             bool(quad.is_up[i]))
+        cases |= {s.case for s in plan.segments}
+        out = {}
+        for interp in worst:
+            for dev in ("cuda", "cpu"):
+                t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                              device=dev)
+                out[interp, dev] = sr.sweep(
+                    plan, t(S), t(alpha), t(I0 if plan.up else 0.0 * I0),
+                    n_sweeps=3, interpolation=interp).cpu()
+            worst[interp] = max(worst[interp],
+                                _rel_err(out[interp, "cuda"],
+                                         out[interp, "cpu"]))
+        differs = max(differs, _rel_err(out["bezier", "cuda"],
+                                        out["linear", "cuda"]))
+    launches = _launch_counts()
+    print(f"  sweeps of 12 directions ({nz}x{nx}x{ny}, B={B}, cases "
+          f"{sorted(cases)}): card vs CPU max rel diff linear "
+          f"{worst['linear']:.3e} (<= 1e-12), bezier {worst['bezier']:.3e} "
+          f"(<= 1e-10); bezier vs linear on the card {differs:.3e}; "
+          f"launches {launches}", flush=True)
+    require(cases == {"xy", "yz", "xz"}, f"plane-cut cases {cases}")
+    require(worst["linear"] <= 1e-12 and worst["bezier"] <= 1e-10,
+            f"sweeps card vs CPU: {worst}")
+    require(differs > 1e-3, "the Bezier sweep equals the linear one")
+    # the Bezier xy step bypasses K1 (only the linear sweeps launch it);
+    # the marching segments of both go through K2
+    require(launches["march_plane"] > 0 and launches["xy_plane"] > 0,
+            f"launches {launches}")
+
+
+def _time_bezier_step(B):
+    """ms of one Bezier xy plane step (plain torch) and of K1 at
+    (B, 256, 256), float64, CUDA events; K1 is held against its plain
+    version on the same planes first."""
+    import torch
+    from voronoirt_tpu_torch import get_quadrature
+    from voronoirt_tpu_torch.solvers import sweep_regular as sr
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+
+    nx, ny = PROD["nx"], PROD["ny"]
+    gen = torch.Generator().manual_seed(9)
+    a_p, a_c, s_p, s_c, i_p = _planes(gen, B, nx, ny, torch.float64)
+    a_pp, _, s_pp, _, _ = _planes(gen, B, nx, ny, torch.float64)
+    quad = get_quadrature(PROD["quadrature"])
+    plan = sr.build_plan(quad.k[0], [0.0, 1.0], 1.0, 1.0, True)
+    bez = _time_ms(lambda: sr._xy_step_bezier(
+        plan, i_p, a_c, a_p, s_c, s_p, a_pp, s_pp, 0.7, 0.3, 0.6, 0.8, 0.2,
+        0.5, 0.0), 20)
+    r = torch.full((B,), 0.7, dtype=torch.float64, device="cuda")
+    fx, fy = 0.3 * torch.ones_like(r), 0.6 * torch.ones_like(r)
+    k1_args = (a_p, a_c, s_p, s_c, i_p, r, fx, fy, plan.sxs, plan.sys)
+    _compare("xy_plane", xp.xy_plane(*k1_args), xp.xy_plane_plain(*k1_args),
+             "float64")
+    k1 = _time_ms(lambda: xp.xy_plane(*k1_args), 50)
+    return bez, k1
+
+
+# z-planes per slab of the rates in the Bezier production iteration
+BEZIER_RATES_PLANES = 8
+# which march_plane call of that iteration is held against the plain one
+K2_CALL = 1000
+
+
+def run_bezier_production(atmos):
+    """Phase 8b: one Lambda iteration of the production configuration
+    with formal_interpolation='bezier' through RegularEngine.run(), the
+    standard (not lambda-streamed) loop: S_old, S_new, J and B0 are
+    resident, the rates run in slabs of z-planes."""
+    import torch
+    from voronoirt_tpu_torch import Config
+    from voronoirt_tpu_torch.engine import RegularEngine
+    from voronoirt_tpu_torch.observability import nan_guard, throughput
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import sweep_regular as sr
+
+    p = PROD
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], formal_interpolation="bezier",
+                 lambda_chunk=p["lambda_chunk"],
+                 rates_site_chunk=BEZIER_RATES_PLANES, maxiter=1, eps=0.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
+                        device="cuda")
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    timer = _card_timer()
+    with timer.phase("set-up"):
+        eng = RegularEngine(atmos, line, cfg, device="cuda")
+    cases = [sorted({s.case for s in pl.segments}) for pl in eng.plans]
+    n_xy = sum(len(s.steps) for pl in eng.plans for s in pl.segments
+               if s.case == "xy")
+    compute_J = eng.compute_J
+
+    def timed_J(*args, **kwargs):
+        torch.cuda.synchronize()
+        with timer.phase("J pass"):
+            return compute_J(*args, **kwargs)
+
+    # keep the arguments and the result of one march_plane call of the
+    # iteration (the K2_CALL-th: mid-sweep, the carried intensity no
+    # longer the boundary's) to hold against the plain version below
+    march, seen, kept = sr.march_plane, [0], {}
+
+    def keeping_march(*args, **kwargs):
+        seen[0] += 1
+        if seen[0] != K2_CALL:
+            return march(*args, **kwargs)
+        kept["args"] = tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args)
+        kept["statics"] = kwargs
+        kept["out"] = march(*args, **kwargs)
+        return kept["out"]
+
+    eng.compute_J = timed_J
+    sr.march_plane = keeping_march
+    _launch_counts(reset=True)
+    try:
+        with timer.phase("run"):
+            res = eng.run()
+    finally:
+        sr.march_plane = march
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    t_setup, wall = timer.totals["set-up"], timer.totals["run"]
+
+    require(res.iterations == 1 and len(res.timings) == 1
+            and timer.counts["J pass"] == 1,
+            f"ran {res.iterations} iterations")
+    shape = (line.n_lambda, p["nz"], p["nx"], p["ny"])
+    require(tuple(res.S.shape) == shape and tuple(res.J.shape) == shape,
+            f"S shape {tuple(res.S.shape)}")
+    require(tuple(res.populations.shape) == shape[1:] + (3,),
+            f"populations shape {tuple(res.populations.shape)}")
+    nan_guard("Bezier iteration: S, J, populations", res.S, res.J,
+              res.populations)
+    mass = _max_rel(res.populations.sum(-1), eng.nH)
+    require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
+    it, j = res.timings[0], timer.totals["J pass"]
+    n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
+    rate = throughput(p["nz"] * p["nx"] * p["ny"], eng.quad.n_angles,
+                      line.n_lambda, 1, j)
+    print(f"  Bezier iteration at {p['nz']}x{p['nx']}x{p['ny']}, "
+          f"{line.n_lambda} wavelengths, {eng.quad.n_angles} directions "
+          f"(cases {cases}), lambda_chunk {cfg.lambda_chunk}, rates in slabs "
+          f"of {BEZIER_RATES_PLANES} z-planes, float64: set-up "
+          f"{t_setup:.2f} s, run() {wall:.4f} s, the iteration {it:.4f} s, "
+          f"J pass {j:.4f} s ({100 * j / it:.1f}%), {rate:.4e} "
+          f"grid-points*rays/s", flush=True)
+    print(f"  Bezier xy plane steps in the iteration: {n_xy * n_chunks} "
+          f"({n_xy} a chunk, plain torch, no K1 launch); launches "
+          f"{launches}; criterion {res.convergence}; peak device memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated); "
+          f"sum(populations)/n_H - 1 max {mass:.3e}", flush=True)
+    require(launches["xy_plane"] == 0,
+            "the Bezier iteration launched the linear xy kernel")
+    for name in ("march_plane", "march_coeffs", "march_chain"):
+        require(launches[name] > 0, f"{name}: no launch in the Bezier "
+                                    f"iteration")
+    del res, eng
+    torch.cuda.empty_cache()
+    B = cfg.lambda_chunk
+    require("out" in kept, f"the iteration made {seen[0]} march_plane calls, "
+                           f"fewer than {K2_CALL}")
+    require(tuple(kept["out"].shape) == (B, p["nx"], p["ny"]),
+            f"march_plane plane {tuple(kept['out'].shape)} in the iteration")
+    e_abs, e_rel = _compare(
+        "march_plane", kept["out"],
+        mp.march_plane_plain(*kept["args"], **kept["statics"]), "float64")
+    print(f"  march_plane call {K2_CALL} of the iteration, "
+          f"{tuple(kept['out'].shape)}, {kept['statics']}: against the plain "
+          f"version on the same inputs max abs err {e_abs:.3e} (rel "
+          f"{e_rel:.3e}, rtol 1e-12)", flush=True)
+    bez, k1 = _time_bezier_step(B)
+    print(f"  one xy plane step at (B={B}, {p['nx']}x{p['ny']}, float64): "
+          f"Bezier (plain torch) {bez:.4f} ms, K1 (linear) {k1:.4f} ms, "
+          f"ratio {bez / k1:.1f}", flush=True)
+    return launches
+
+
+def check_angle_distribution():
+    """Phase 9: compute_J serial against the same engine with its angles
+    dealt over two slots of the card, [cuda:0, cuda:0].  Bezier and
+    Voronoi sweep angle by angle on both sides: 1e-12.  The serial
+    linear J is the grouped one, which z-flips the down sweeps onto an
+    axis whose steps round differently (ROADMAP C3): 1e-11."""
+    import torch
+    from voronoirt_tpu_torch import Config, grid, synthetic_atmosphere
+    from voronoirt_tpu_torch.engine import VoronoiEngine
+    from voronoirt_tpu_torch.parallel import distribute_angles
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+
+    two = [torch.device("cuda", 0)] * 2
+    atmos = synthetic_atmosphere(nz=24, nx=32, ny=32)
+    for interp, bar in (("linear", 1e-11), ("bezier", 1e-12)):
+        kw = dict(quadrature="ul7n12", lambda_chunk=4,
+                  formal_interpolation=interp)
+        serial = _small_line_engine(atmos, "cuda", **kw)
+        J0 = serial.compute_J(serial.B0, serial.lte)
+        eng = distribute_angles(_small_line_engine(atmos, "cuda", **kw), two)
+        J1 = eng.compute_J(eng.B0, eng.lte)
+        err = _rel_err(J1, J0)
+        print(f"  regular {interp}: distributed vs serial J max rel diff "
+              f"{err:.3e} (<= {bar:g})", flush=True)
+        require(J1.is_cuda and err <= bar,
+                f"regular {interp} distributed J: {err:.3e}")
+
+    pos, bounds = _sample(atmos, 5000)
+    sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
+    cfg = Config(nlam_bb=5, nlam_bf=3, quadrature="ul7n12", lambda_chunk=4)
+    T = torch.as_tensor(sites.temperature, dtype=torch.float64,
+                        device="cuda")
+    line = lyman_alpha_line(5, 3, T)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # 'layer' at grazing angles
+        serial = VoronoiEngine(sites, line, cfg, device="cuda")
+    J0 = serial.compute_J(serial.B0, serial.lte)
+    eng = distribute_angles(
+        VoronoiEngine(sites, line, cfg, plans=serial.plans, device="cuda"),
+        two)
+    J1 = eng.compute_J(eng.B0, eng.lte)
+    err = _rel_err(J1, J0)
+    print(f"  Voronoi ({sites.n} sites): distributed vs serial J max rel "
+          f"diff {err:.3e} (<= 1e-12)", flush=True)
+    require(J1.is_cuda and err <= 1e-12, f"Voronoi distributed J: {err:.3e}")
+
+
+def run_continuum(atmos, sites):
+    """Phase 10: the 500 nm scattering iteration, a batch of ONE
+    wavelength through K1 and K2: card against CPU at a small size, then
+    3 iterations at the production grid, then 2 on phase 7's sites (its
+    12 plans and slot plans are built inside, most of its time)."""
+    import torch
+    from voronoirt_tpu_torch import Config, synthetic_atmosphere
+    from voronoirt_tpu_torch.engine.continuum import (
+        lambda_continuum_regular, lambda_continuum_voronoi)
+    from voronoirt_tpu_torch.observability import nan_guard
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
+
+    def line_for(temperature, device):
+        return lyman_alpha_line(1, 1, torch.as_tensor(
+            temperature, dtype=torch.float64, device=device))
+
+    small = synthetic_atmosphere(nz=24, nx=32, ny=32)
+    cfg_s = Config(quadrature="ul7n12", maxiter=4, eps=0.0)
+    out = {dev: lambda_continuum_regular(small, line_for(small.temperature,
+                                                         dev), cfg_s,
+                                         device=dev)
+           for dev in ("cuda", "cpu")}
+    eS = _rel_err(out["cuda"][0].cpu(), out["cpu"][0])
+    eJ = _rel_err(out["cuda"][1].cpu(), out["cpu"][1])
+    # 5e-10: the physical extinction puts some dtau just above the
+    # linear weights' 5e-4 guard, where one-ulp exp differences between
+    # the devices' libraries grow (ROADMAP C3)
+    print(f"  continuum, {small.shape}, 4 iterations, card vs CPU: S max rel "
+          f"diff {eS:.3e}, J {eJ:.3e} (<= 5e-10); history "
+          f"{out['cuda'][2]}", flush=True)
+    require(eS <= 5e-10 and eJ <= 5e-10, "continuum: card disagrees with CPU")
+
+    p = PROD
+    cfg = Config(quadrature=p["quadrature"], maxiter=3, eps=0.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    line = line_for(atmos.temperature, "cuda")
+    timer = _card_timer()
+    _launch_counts(reset=True)
+    with timer.phase("regular"):
+        S, J, hist = lambda_continuum_regular(atmos, line, cfg)
+    launches = _launch_counts()
+    wall = timer.totals["regular"]
+    require(S.is_cuda and tuple(S.shape) == atmos.shape == tuple(J.shape),
+            f"continuum S {tuple(S.shape)} on {S.device}")
+    nan_guard("continuum S, J", S, J)
+    require(bool((S > 0).all()), "continuum S not positive")
+    require(len(hist) == 3, f"continuum ran {len(hist)} iterations")
+    print(f"  lambda_continuum_regular at {p['nz']}x{p['nx']}x{p['ny']}, "
+          f"500 nm, {p['quadrature']}, B=1, float64: {wall:.4f} s for 3 "
+          f"iterations and the set-up, {wall / 3:.4f} s an iteration; "
+          f"history {hist}; launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch in the continuum iteration")
+    del S, J
+
+    line_v = line_for(sites.temperature, "cuda")
+    cfg_v = Config(quadrature=p["quadrature"], maxiter=2, eps=0.0)
+    sv.LEVEL_STEPS = 0
+    with warnings.catch_warnings(), timer.phase("voronoi"):
+        warnings.simplefilter("ignore")     # 'layer' at grazing angles
+        S, J, hist = lambda_continuum_voronoi(sites, line_v, cfg_v)
+    wall = timer.totals["voronoi"]
+    require(S.is_cuda and tuple(S.shape) == (sites.n,),
+            f"continuum Voronoi S {tuple(S.shape)} on {S.device}")
+    nan_guard("continuum Voronoi S, J", S, J)
+    require(bool((S > 0).all()) and len(hist) == 2,
+            f"continuum Voronoi S not positive, or {len(hist)} iterations")
+    print(f"  lambda_continuum_voronoi at {sites.n} sites, 'layer' plans "
+          f"built inside, B=1: {wall:.4f} s for the 12 plans, their slot "
+          f"plans and 2 iterations; {sv.LEVEL_STEPS} level steps; history "
+          f"{hist}",
+          flush=True)
+    return launches
+
+
+def _memory_store():
+    """A checkpoint store that keeps the arrays in memory behind
+    CheckpointFile's four write/read methods."""
+    import numpy as np
+    from voronoirt_tpu_torch.engine.checkpoint import CheckpointFile
+
+    class MemoryStore(CheckpointFile):
+        def __init__(self, maxiter):
+            super().__init__(path=None)
+            self.conv = np.zeros(maxiter + 1)
+            self.pops = self.S = None
+            self.seconds = 0.0
+
+        def write_state(self, populations, S):
+            self.pops = populations.detach().cpu().numpy().copy()
+            self.S = S.detach().cpu().numpy().copy()
+
+        def write_convergence(self, iteration, diff):
+            if iteration < len(self.conv):
+                self.conv[iteration] = diff
+
+        def write_time(self, seconds):
+            self.seconds = seconds
+
+        def read_state(self):
+            return self.pops, self.S, self.conv
+
+    return MemoryStore
+
+
+class _StopAfter:
+    """Passes writes on to a store and raises after the n-th
+    write_state: a killed run."""
+
+    def __init__(self, inner, n):
+        self.inner, self.n, self.count = inner, n, 0
+
+    def write_convergence(self, i, d):
+        self.inner.write_convergence(i, d)
+
+    def write_state(self, p, s):
+        self.inner.write_state(p, s)
+        self.count += 1
+        if self.count >= self.n:
+            raise KeyboardInterrupt
+
+
+def check_checkpoint_resume():
+    """Phase 11a: on the card, a small run killed after its second
+    write_state and resumed equals the uninterrupted run (rtol 1e-8, the
+    bar of tests/test_checkpoint.py)."""
+    import importlib.util
+    import tempfile
+    import torch
+    from voronoirt_tpu_torch import synthetic_atmosphere
+    from voronoirt_tpu_torch.engine.checkpoint import CheckpointFile, recover
+    from voronoirt_tpu_torch.engine.lambda_iter import _run_iteration
+
+    atmos = synthetic_atmosphere(nz=16, nx=12, ny=12, seed=2)
+    kw = dict(quadrature="n2", maxiter=4, eps=1e-3)
+    make = lambda: _small_line_engine(atmos, "cuda", **kw)
+    full = make().run()
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    print(f"  import h5py works here: {have_h5py}", flush=True)
+
+    def crash_and_resume(store, what):
+        try:
+            _run_iteration(make(), checkpoint=_StopAfter(store, 2))
+            require(False, "the killed run ran to its end")
+        except KeyboardInterrupt:
+            pass
+        it = store.resume_iteration()
+        res = recover(make(), store)
+        eS, eP = _max_rel(res.S, full.S), _max_rel(res.populations,
+                                                   full.populations)
+        print(f"  {what}: killed after 2 write_state, resumed at iteration "
+              f"{it}, ran to {res.iterations} (uninterrupted "
+              f"{full.iterations}); S max rel diff {eS:.3e}, populations "
+              f"{eP:.3e} (< 1e-8)", flush=True)
+        require(it >= 1 and res.S.is_cuda, f"{what}: resume at {it}")
+        require(eS < 1e-8 and eP < 1e-8,
+                f"{what}: the resumed run differs from the uninterrupted")
+
+    crash_and_resume(_memory_store()(kw["maxiter"]), "memory store")
+    if have_h5py:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = CheckpointFile(os.path.join(tmp, "crash.h5"))
+            ckpt.create_regular(make().line, atmos, kw["maxiter"])
+            crash_and_resume(ckpt, "HDF5 file")
+
+
+def check_device_trace():
+    """Phase 11b: observability.device_trace around one small J pass on
+    the card writes a Chrome trace; the hand-written kernels it names
+    are printed (none, where the profiler cannot trace the card)."""
+    import tempfile
+    from voronoirt_tpu_torch import synthetic_atmosphere
+    from voronoirt_tpu_torch.observability import device_trace, nan_guard
+
+    eng = _small_line_engine(synthetic_atmosphere(nz=16, nx=12, ny=12, seed=2),
+                             "cuda", quadrature="n2")
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            J = eng.compute_J(eng.B0, eng.lte)
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    nan_guard("traced J", J)
+    events = prof.key_averages()
+    ours = sorted(e.key for e in events
+                  if "xy_plane" in e.key or "march_" in e.key)
+    print(f"  device_trace over one J pass at {tuple(J.shape)}: trace.json "
+          f"{trace_bytes} bytes, {len(events)} kinds of event; hand-written "
+          f"kernels among them: {ours}", flush=True)
+    require(trace_bytes > 0 and len(events) > 0,
+            "device_trace recorded nothing")
+
+
+def run_drivers():
+    """Phase 11c: the drivers as a user calls them, on the card."""
+    import math
+    from voronoirt_tpu_torch.drivers import line_nlte, searchlight
+
+    res = searchlight.main(["--n", "51"])
+    worst = max(abs(r["flux_out"] / r["flux_in"] - 1.0) for r in res)
+    print(f"  searchlight --n 51: {len(res)} directions, flux out / flux in "
+          f"- 1 max {worst:.3e} (<= 1e-4)", flush=True)
+    require(len(res) == 12 and worst <= 1e-4, "searchlight: flux not kept")
+    summary = line_nlte.main(["--interpolation", "bezier", "--maxiter", "3"])
+    print(f"  line_nlte --interpolation bezier --maxiter 3: {summary}",
+          flush=True)
+    require(summary["grid"] == "regular" and 1 <= summary["iterations"] <= 3
+            and math.isfinite(summary["final_diff"]),
+            f"line_nlte summary {summary}")
 
 
 def main():
@@ -664,22 +1168,39 @@ def main():
     from voronoirt_tpu_torch import synthetic_atmosphere
 
     def phase(title):
+        # the timing hooks tie each engine into a reference cycle: free
+        # the last phase's cubes before the next one reads its peak
+        gc.collect()
         print(f"{title} (at {time.perf_counter() - t0:.1f} s)", flush=True)
 
     phase("phase 2: kernels vs plain versions on the card")
     errs = check_kernels()
-    times, bounds = time_kernels()
+    times, bounds = time_kernels(4 * PROD["lambda_chunk"])
+    times_b1, bounds_b1 = time_kernels(1)
     phase("phase 3: regular-sweep goldens on the card")
     check_goldens()
     phase("phase 4: small entry step, card vs CPU")
     check_entry()
-    phase("phase 5: production iterations")
+    phase("phase 5: production iteration")
     atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
     launches = run_production(atmos)
     phase("phase 6: Voronoi goldens on the card, wavefront sweeps card vs CPU")
     check_voronoi_goldens()
     phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
-    run_voronoi_production(atmos)
+    sites = run_voronoi_production(atmos)
+    phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
+          "iteration")
+    check_bezier_sweeps()
+    launches_bezier = run_bezier_production(atmos)
+    phase("phase 9: angle distribution, serial vs two slots on the card")
+    check_angle_distribution()
+    phase("phase 10: continuum scattering iteration")
+    launches_continuum = run_continuum(atmos, sites)
+    del sites
+    phase("phase 11: checkpoint/resume on the card, the drivers")
+    check_checkpoint_resume()
+    check_device_trace()
+    run_drivers()
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
@@ -697,7 +1218,11 @@ def main():
                 "plain_ms": times[name][1], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 "pct_of_bound": 100 * bounds[name][0] / times[name][0],
-                "library_ms": None} for name in KERNELS]
+                "library_ms": None,
+                "launches_bezier_iteration": launches_bezier[name],
+                "launches_continuum": launches_continuum[name],
+                "ms_b1": times_b1[name][0], "plain_ms_b1": times_b1[name][1],
+                "bound_ms_b1": bounds_b1[name][0]} for name in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -139,7 +139,6 @@ def test_per_angle_J_equals_grouped():
     np.testing.assert_allclose(J[1], J[None], rtol=1e-11, atol=0)
 
 
-
 def test_one_working_dtype():
     """A transport dtype other than the working dtype is refused (the
     float32 linear weights cancel near their 5e-4 guard, ROADMAP C3)."""
@@ -149,9 +148,20 @@ def test_one_working_dtype():
 
 
 def test_linear_formal_solution_only():
-    """The Bezier formal solution is not ported: the engine refuses it
-    rather than run the linear one in its place."""
+    """The grouped sweeps are the linear formal solution only:
+    formal_interpolation='bezier' sends compute_J through the per-angle
+    sweeps instead, never through the linear ones in its place; with the
+    Bezier xy step its J differs from the linear one (held against the
+    JAX package in tests/test_torch_bezier.py)."""
     atmos = synthetic_atmosphere(nz=6, nx=4, ny=4, seed=7)
-    with pytest.raises(NotImplementedError):
-        _engine(atmos, 5, 3, quadrature="ul2n3",
-                formal_interpolation="bezier")
+    eng = _engine(atmos, 5, 3, quadrature="ul2n3",
+                  formal_interpolation="bezier")
+    calls = []
+    grouped = eng._J_chunk_grouped
+    eng._J_chunk_grouped = lambda *a, **k: calls.append(1) or grouped(*a, **k)
+    J_bez = eng.compute_J(eng.B0, eng.lte)
+    assert not calls
+    lin = _engine(atmos, 5, 3, quadrature="ul2n3")
+    J_lin = lin.compute_J(lin.B0, lin.lte)
+    assert J_bez.shape == J_lin.shape and J_bez.is_contiguous()
+    assert float((J_bez / J_lin - 1.0).abs().max()) > 1e-4

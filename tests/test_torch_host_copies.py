@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's host modules equal their
 originals: config, constants, quadrature, atmosphere, the Voronoi grid's
 host half (sites, plans, native tessellation, interpolation, the numpy
-sampling densities) and the disk cache.  Each case builds one object in
+sampling densities), the disk cache and utils.  Each case builds one object in
 each package from the same arguments and numpy arrays and compares them
 array for array."""
 
@@ -16,6 +16,7 @@ from voronoirt_tpu import atmosphere as j_atmos
 from voronoirt_tpu import config as j_config
 from voronoirt_tpu import constants as j_const
 from voronoirt_tpu import quadrature as j_quad
+from voronoirt_tpu import utils as j_utils
 from voronoirt_tpu.grid import cache as j_cache
 from voronoirt_tpu.grid import interpolate as j_interp
 from voronoirt_tpu.grid import neighbors as j_nb
@@ -25,6 +26,7 @@ from voronoirt_tpu_torch import atmosphere as t_atmos
 from voronoirt_tpu_torch import config as t_config
 from voronoirt_tpu_torch import constants as t_const
 from voronoirt_tpu_torch import quadrature as t_quad
+from voronoirt_tpu_torch import utils as t_utils
 from voronoirt_tpu_torch.grid import cache as t_cache
 from voronoirt_tpu_torch.grid import interpolate as t_interp
 from voronoirt_tpu_torch.grid import neighbors as t_nb
@@ -229,3 +231,52 @@ def test_cache_round_trip(sites_pair, tmp_path):
     plan2 = t_vor.build_voronoi_plan(ts, k, True, order="wavefront",
                                      cache_dir=str(tmp_path))
     _equal(plan2, plan, "plan from the cache")
+
+
+# ------------------------------------------------------------- utils
+
+@pytest.mark.parametrize("descending", [False, True])
+def test_utils_cumtrapz(descending):
+    rng = np.random.default_rng(5)
+    x = np.sort(rng.uniform(0.0, 2.0, 17))
+    if descending:
+        x = x[::-1]
+    y = rng.uniform(-1.0, 1.0, 17)
+    _equal(t_utils.cumtrapz(x, y), j_utils.cumtrapz(x, y), "cumtrapz")
+    assert t_utils.cumtrapz(x, y)[0] == 0.0
+
+
+def test_utils_text_writers(tmp_path):
+    rng = np.random.default_rng(6)
+    x, y, z = rng.uniform(0.0, 1.0, (3, 40))
+    files = {}
+    for tag, mod in (("t", t_utils), ("j", j_utils)):
+        sites, bounds = tmp_path / f"{tag}_sites.txt", tmp_path / f"{tag}_b.txt"
+        mod.write_sites_text(x, y, z, str(sites))
+        mod.write_boundaries_text(0.0, 1.0, -2.5, 2.5, 3, 4.0, str(bounds))
+        files[tag] = (sites.read_text(), bounds.read_text())
+    assert files["t"] == files["j"]
+    assert files["t"][0].splitlines()[0].split("\t")[0] == "1"
+    with pytest.raises(AssertionError):
+        t_utils.write_sites_text(x, y[:-1], z, str(tmp_path / "bad.txt"))
+
+
+def test_utils_read_neighbours_round_trip(tmp_path):
+    """A neighbour file in the CLI's '%i %n' format (1-based ids, walls
+    negative) parses into the same fixed-stride matrix in both packages,
+    and back into the lists it was written from."""
+    rng = np.random.default_rng(7)
+    n = 25
+    lists = [sorted(rng.choice(np.arange(-6, n + 1)[np.arange(-6, n + 1) != 0],
+                               size=rng.integers(4, 12), replace=False))
+             for _ in range(n)]
+    path = tmp_path / "nb.txt"
+    order = rng.permutation(n)
+    path.write_text("".join(
+        f"{i + 1} " + " ".join(str(v) for v in lists[i]) + "\n\n"
+        for i in order))
+    got = t_utils.read_neighbours_text(str(path), n)
+    _equal(got, j_utils.read_neighbours_text(str(path), n), "neighbours")
+    for i in range(n):
+        back = [v + 1 if v >= 0 else v for v in got[i, 1:1 + got[i, 0]]]
+        assert back == [int(v) for v in lists[i]]

@@ -2,6 +2,7 @@
 oracle fixtures, float64 on the CPU (plain kernel versions)."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -148,8 +149,24 @@ def test_grouped_equals_per_angle(theta_pair, phi):
 
 
 def test_bezier_not_ported():
+    """What of Bezier the port leaves out is what the JAX package leaves
+    out: the batched group sweeps take no interpolation.  The single-
+    direction sweep takes interpolation='bezier': on the up_xy fixture's
+    fields it agrees with the JAX package's Bezier sweep (rtol 2e-12:
+    the Bezier weights near dtau = 0.05, ROADMAP C3; more cases in
+    tests/test_torch_bezier.py)."""
+    for batched in (tsr.sweep_batched, tsr.sweep_batched_J,
+                    tsr.sweep_group_J):
+        assert "interpolation" not in inspect.signature(batched).parameters
     fx = np.load(FIX)
-    plan = tsr.build_plan(fx["up_xy_k"], fx["up_xy_z"], 0.125, 0.125, True)
-    S = torch.from_numpy(fx["up_xy_S"])[:, None]
-    with pytest.raises(NotImplementedError):
-        tsr.sweep(plan, S, S, S[0], interpolation="bezier")
+    S, alpha, I0 = fx["up_xy_S"], fx["up_xy_alpha"], fx["up_xy_I0"]
+    dx = 1.0 / S.shape[1]
+    args = (fx["up_xy_k"], fx["up_xy_z"], dx, dx, True)
+    got = tsr.sweep(tsr.build_plan(*args), torch.from_numpy(S)[:, None],
+                    torch.from_numpy(alpha)[:, None],
+                    torch.from_numpy(I0)[None], interpolation="bezier")
+    want = jsr.sweep(jsr.build_plan(*args), jnp.asarray(S)[:, None],
+                     jnp.asarray(alpha)[:, None], jnp.asarray(I0)[None],
+                     interpolation="bezier")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-12,
+                               atol=0)

@@ -5,6 +5,7 @@ torch density against its JAX counterpart.  Each package gets its own
 atmosphere, sites, plans and Config, built from the same arguments and
 numpy arrays."""
 
+import dataclasses
 import warnings
 
 import jax.numpy as jnp
@@ -164,8 +165,9 @@ def test_run_matches_jax(sampled_pair, order):
 
 def test_own_plans_and_state(sampled):
     """Without plans= the engine builds its plans itself;
-    load_state takes the regular engine's keys; rates_site_chunk is
-    refused."""
+    load_state takes the regular engine's keys; rates_site_chunk runs
+    the rates in slabs of sites, equal to the whole-array rates to 1e-13
+    relative (a vectorised exp may round a slab's tail differently)."""
     cfg = Config(quadrature="ul2n3", nlam_bb=5, nlam_bf=3,
                  voronoi_order="wavefront")
     eng = VoronoiEngine(sampled, _line(5, 3, sampled.temperature), cfg)
@@ -179,9 +181,12 @@ def test_own_plans_and_state(sampled):
     np.testing.assert_array_equal(eng.C[(2, 1)].numpy(), state["C_21"])
     with pytest.raises(KeyError):
         eng.load_state({"J": state["S"]})
-    eng.cfg = Config(quadrature="ul2n3", rates_site_chunk=100)
-    with pytest.raises(NotImplementedError):
-        eng.run()
+    res = {}
+    for chunk in (None, 100):
+        eng.cfg = dataclasses.replace(cfg, maxiter=1, rates_site_chunk=chunk)
+        res[chunk] = eng.run()
+    _assert_close(res[100].populations, res[None].populations.numpy(),
+                  "slabbed pops", 1e-13)
 
 
 # ------------------------------------------------------------ densities

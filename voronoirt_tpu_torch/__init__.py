@@ -5,7 +5,11 @@ voronoirt_tpu's `__graft_entry__.entry()`): frozen physics set-up,
 per-angle Voigt extinction, the short-characteristics formal solution
 for every quadrature direction batched over wavelength, J, the S update,
 radiative rates and the 2x2 statistical equilibrium; and the Voronoi
-Lambda iteration on the same physics.
+Lambda iteration on the same physics.  Around the engines: the Bezier
+formal solution, angle distribution over devices (parallel/), the
+continuum scattering iteration and the checkpoint store (engine/),
+timers and traces (observability/) and the command-line drivers
+(drivers/).
 
 The package imports torch and never jax, and nothing of the JAX
 package: the host layer (config, constants, quadrature, atmosphere, the

@@ -18,11 +18,13 @@ mirror-quadrant angles ride it too, one batched sweep per plan group.
 PyTorch runs eagerly, so the JAX package's dispatch backpressure and
 buffer-donation tricks have no counterpart here: where JAX donated a
 buffer, this module updates in place (the J accumulation and the S chunk
-write of the streamed update) and says so at each site.  The angle-
-distributed (MPMD) path and the site-slabbed rates are not ported.
+write of the streamed update) and says so at each site.  With
+parallel.distribute_angles applied, compute_J deals the quadrature
+angles over the engine's angle_devices (parallel/angles.py).
 RegularEngine and VoronoiEngine share the frozen set-up, the per-cell
 fields and load_state through one base class, and run() through one
-outer loop.
+outer loop, which writes to a checkpoint store when given one
+(engine/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from ..config import Config
 from ..device import torch_dtype
 from ..grid.voronoi import build_voronoi_plan
+from ..parallel import angles as _ang
 from ..physics.atom import (alpha_line, compute_profile, destruction,
                             line_of_sight_velocity)
 from ..physics.broadening import damping, gamma_constant
@@ -100,7 +103,10 @@ def _lambda_chunks(n_lambda, chunk):
 
 
 def _update_S(line, eps, J, B0):
-    return (1.0 - eps)[None] * J + eps[None] * B0
+    S = (1.0 - eps)[None] * J
+    # the second product is added in place: one cube-sized temporary
+    # less than the plain expression, the same arithmetic
+    return S.add_(eps[None] * B0)
 
 
 def _s_update_stream(line, S, Jc, eps, T, lam_c, start):
@@ -133,12 +139,52 @@ def _rates_and_populations(line, J, damping_lam, lte, C, temperature,
     return get_revised_populations(R, C, hydrogen_density)
 
 
+def _rates_slab(line, J_sl, g_sl, lte_sl, C_sl, T_sl, nH_sl, compat):
+    """One slab of rates + statistical equilibrium with the damping
+    recomputed from the slab's per-cell gamma, so the (nlam, slab) Voigt,
+    cross-section and integrand temporaries stay bounded."""
+    lam = line.lam_tensor().reshape((-1,) + (1,) * T_sl.dim())
+    damp = damping(g_sl[None], lam, line.dlamD[None])
+    R = calculate_R(line, J_sl, damp, lte_sl, T_sl, compat=compat)
+    return get_revised_populations(R, C_sl, nH_sl)
+
+
+def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
+                                   hydrogen_density, compat, site_chunk):
+    """The rates / statistical-equilibrium update streamed over slabs of
+    site_chunk entries of the first spatial axis (sites, or z-planes of
+    the regular grid): the full damping cube and the rates' temporaries
+    never sit next to J.  Pointwise in space; each slab is written into
+    the result in place."""
+    n = temperature.shape[0]
+    out = torch.empty_like(lte)
+    for s0 in range(0, n, site_chunk):
+        sl = slice(s0, min(s0 + site_chunk, n))
+        line_s = dataclasses.replace(line, dlamD=line.dlamD[sl])
+        out[sl] = _rates_slab(
+            line_s, J[:, sl], g_cell[sl], lte[sl],
+            {k: v[sl] for k, v in C.items()}, temperature[sl],
+            hydrogen_density[sl], compat)
+    return out
+
+
+# elements per block of the criterion: its temporaries stay this size
+# beside the two S cubes
+_CRIT_POINTS = 1 << 27
+
+
 def _criterion(S_new, S_old):
     """max over lam of max |1 - S_old/S_new| (lambda_iteration.jl:
     299-349); cells where S_new is exactly 0 compare by absolute
-    difference."""
-    denom = torch.where(S_new != 0.0, S_new, 1.0)
-    return float(torch.max(torch.abs(S_new - S_old) / torch.abs(denom)))
+    difference.  Taken in blocks along the wavelength axis and reduced
+    on the device: one scalar is read back."""
+    rows = max(1, _CRIT_POINTS // max(S_new[0].numel(), 1))
+    diff = None
+    for new, old in zip(S_new.split(rows), S_old.split(rows)):
+        denom = torch.where(new != 0.0, new, 1.0)
+        m = torch.max(torch.abs(new - old) / torch.abs(denom))
+        diff = m if diff is None else torch.maximum(diff, m)
+    return float(diff)
 
 
 def _sync(t):
@@ -172,6 +218,20 @@ class _Engine:
         self.line = dataclasses.replace(
             line, dlamD=line.dlamD.to(self.device, self.dtype))
         self.quad = get_quadrature(quadrature or cfg.quadrature)
+        # set by parallel.distribute_angles
+        self.angle_devices = None
+        self._angle_static = None
+
+    def _slots(self, **state):
+        """The per-angle loops' view of where each angle runs: (state,
+        static), one entry per slot of angle_devices -- the per-iteration
+        tensors broadcast to the slot's device, and the slot's static
+        copies.  Undistributed, the one slot is the engine's own tensors
+        (static None)."""
+        if not self.angle_devices:
+            return [state], [None]
+        return (_ang.broadcast_state(self.angle_devices, **state),
+                self._angle_static)
 
     def _frozen_setup(self, fields):
         """The per-cell fields of `fields` (an Atmosphere or
@@ -187,6 +247,10 @@ class _Engine:
         self.populations_start = None
 
     def _field(self, a):
+        """A numpy array, or a tensor on any device, as a tensor of the
+        working dtype on the engine's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, self.dtype)
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                device=self.device)
 
@@ -235,18 +299,18 @@ class RegularEngine(_Engine):
     """Lambda iteration on the regular grid.
 
     Field layout: (nlam, nz, nx, ny); sweeps run on (nz, nlam, nx, ny).
-    Besides the _Engine rules: any cfg.formal_interpolation but 'linear'
-    is refused; cfg.group_max_angles caps the angles per batched group
-    sweep when set, and unset, groups are not capped.
+    cfg.group_max_angles caps the angles per batched group sweep when
+    set, and unset, groups are not capped.  cfg.formal_interpolation =
+    'bezier' and angle distribution both sweep angle by angle; the
+    lambda-streamed iteration is linear and undistributed only.
     """
 
     def __init__(self, atmos, line, cfg: Config, quadrature=None,
                  device=None):
         super().__init__(line, cfg, quadrature, device)
-        if cfg.formal_interpolation != "linear":
-            raise NotImplementedError(
-                f"formal_interpolation={cfg.formal_interpolation!r}: only "
-                f"the linear formal solution is ported")
+        if cfg.formal_interpolation not in ("linear", "bezier"):
+            raise ValueError(
+                f"unknown formal_interpolation {cfg.formal_interpolation!r}")
         self.atmos = atmos
         z = np.asarray(atmos.z)
         self.plans = [build_plan(self.quad.k[i], z, atmos.dx, atmos.dy,
@@ -260,20 +324,25 @@ class RegularEngine(_Engine):
 
     # ---- extinction
 
-    def _alpha_tot_t(self, k, lam_c, populations, damp_c=None, g_cell=None):
+    def _alpha_tot_t(self, k, lam_c, populations, damp_c=None, g_cell=None,
+                     static=None):
         """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c, in
         the z-major sweep layout (nz, nlam, nx, ny).
 
         One wavelength at a time: the values are those of the whole-chunk
         expression (every op is pointwise), while the Voigt temporaries
         stay one wavelength plane in size.  damp_c: the chunk's damping
-        rows, or None to compute them from the per-cell g_cell.
+        rows, or None to compute them from the per-cell g_cell.  static:
+        an angle slot's copies of the velocity, the continuum extinction
+        and the line (parallel/angles.py), else the engine's own.
         """
-        line = self.line
-        v_los = line_of_sight_velocity(self.v, -np.asarray(k))
+        v, a_cont, line = (
+            (static["v"], static["a_cont"], static["line"]) if static
+            else (self.v, self.a_cont, self.line))
+        v_los = line_of_sight_velocity(v, -np.asarray(k))
         nz, nx, ny = self.T.shape
         out = torch.empty((nz, lam_c.shape[0], nx, ny), dtype=self.dtype,
-                          device=self.device)
+                          device=v.device)
         n_i, n_j = populations[..., 0], populations[..., 1]
         for j in range(lam_c.shape[0]):
             lam_j = lam_c[j:j + 1]
@@ -283,17 +352,18 @@ class RegularEngine(_Engine):
                 damp = damping(g_cell[None], lam_j.reshape(-1, 1, 1, 1),
                                line.dlamD[None])
             profile = compute_profile(line, lam_j, damp, v_los)
-            out[:, j] = alpha_line(line, profile, n_j, n_i)[0] + self.a_cont
+            out[:, j] = alpha_line(line, profile, n_j, n_i)[0] + a_cont
         return out
 
-    def _I0(self, lam_c, up):
+    def _I0(self, lam_c, up, static=None):
         """Boundary plane: hot bottom B(T_bottom) for up sweeps, dark top
         for down sweeps (lambda_iteration.jl:38-52)."""
         if up:
-            return B_lambda(lam_c[:, None, None], self.T[0][None])
+            T_bottom = static["T_bottom"] if static else self.T[0]
+            return B_lambda(lam_c[:, None, None], T_bottom[None])
         nx, ny = self.T.shape[1:]
         return torch.zeros((lam_c.shape[0], nx, ny), dtype=self.dtype,
-                           device=self.device)
+                           device=lam_c.device)
 
     # ---- J
 
@@ -301,25 +371,58 @@ class RegularEngine(_Engine):
         """J accumulation over the quadrature (J_lambda_regular).
 
         Wavelengths stream in blocks of cfg.lambda_chunk; each mirror-
-        quadrant angle group runs as one batched sweep.  damping_lam=None
-        computes the damping per chunk from the per-cell gamma.
+        quadrant angle group runs as one batched sweep, unless Bezier
+        interpolation or angle distribution (parallel/angles.py) asks
+        for per-angle sweeps.  damping_lam=None computes the damping per
+        chunk from the per-cell gamma; angle distribution broadcasts the
+        materialised cube instead.
         """
         lam = self.line.lam_tensor()
         chunks = _lambda_chunks(self.line.n_lambda, self.cfg.lambda_chunk)
+        if damping_lam is None and self.angle_devices:
+            damping_lam = self.damping_lam(populations)
         g_cell = self._gamma_cell(populations) if damping_lam is None \
             else None
+        per_angle = (self.cfg.formal_interpolation != "linear"
+                     or bool(self.angle_devices))
+        J_chunk = self._J_chunk_per_angle if per_angle \
+            else self._J_chunk_grouped
         J = None
         if len(chunks) > 1:
             J = torch.empty((self.line.n_lambda,) + tuple(S.shape[1:]),
                             dtype=S.dtype, device=S.device)
         for sl in chunks:
             damp_sl = damping_lam[sl] if damping_lam is not None else None
-            Jc = self._J_chunk_grouped(S[sl], populations, damp_sl, lam[sl],
-                                       g_cell=g_cell)
+            Jc = J_chunk(S[sl], populations, damp_sl, lam[sl], g_cell=g_cell)
             if J is None:
                 return Jc
             J[sl] = Jc
         return J
+
+    def _J_chunk_per_angle(self, S_c, populations, damp_c, lam_c,
+                           g_cell=None):
+        """One lambda chunk of J, one single-direction sweep per angle
+        (the only sweep that takes cfg.formal_interpolation), each on the
+        slot that owns the angle; the slots' partial sums are reduced on
+        S's device."""
+        quad, cfg = self.quad, self.cfg
+        state, static = self._slots(S_t=S_c.transpose(0, 1), damping=damp_c,
+                                    populations=populations, lam=lam_c)
+        partials = {}
+        for i, plan in enumerate(self.plans):
+            slot = _ang.angle_device(self, i) if self.angle_devices else 0
+            st, dst = state[slot], static[slot]
+            a_t = self._alpha_tot_t(quad.k[i], st["lam"], st["populations"],
+                                    st["damping"], g_cell, static=dst)
+            I = sweep(plan, st["S_t"], a_t, self._I0(st["lam"], plan.up, dst),
+                      n_sweeps=cfg.n_sweeps,
+                      interpolation=cfg.formal_interpolation)
+            del a_t
+            # the partial sums stay in the sweep's z-major layout
+            _ang.partial_accumulate(partials, slot,
+                                    I.mul_(float(quad.weights[i])))
+        J_t = _ang.reduce_partials(partials, _ang.target_device(S_c))
+        return J_t.transpose(0, 1).contiguous()
 
     def _J_chunk_grouped(self, S_c, populations, damp_c, lam_c,
                          g_cell=None):
@@ -366,8 +469,11 @@ class RegularEngine(_Engine):
         """One Lambda iteration, lambda-streamed: each chunk flows J ->
         rate-integral accumulation -> S update written into S in place,
         so no full J cube, second S buffer or Planck cube exists.  S is
-        overwritten.  Returns (S_new, pops_new, criterion_diff)."""
+        overwritten.  Returns (S_new, pops_new, criterion_diff).  The
+        angle-distributed path and the Bezier formal solution are not
+        supported here (use the standard loop), as in the JAX package."""
         line, cfg = self.line, self.cfg
+        _refuse_streamed(self)
         lam = line.lam_tensor()
         g_cell = self._gamma_cell(populations)
         acc = carry = None
@@ -387,10 +493,10 @@ class RegularEngine(_Engine):
         pops = get_revised_populations(acc, self.C, self.nH)
         return S, pops, float(diff)
 
-    def run(self):
+    def run(self, checkpoint=None):
         if self.cfg.stream_rates:
-            return _run_iteration_streamed(self)
-        return _run_iteration(self)
+            return _run_iteration_streamed(self, checkpoint)
+        return _run_iteration(self, checkpoint)
 
 
 # --------------------------------------------------------- voronoi grid
@@ -439,17 +545,21 @@ class VoronoiEngine(_Engine):
             for i in range(quad.n_angles)]
 
     def _alpha_tot_T(self, k, lam_c, populations, damp_c=None,
-                     g_cell=None):
+                     g_cell=None, static=None):
         """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c,
         site-major (n, B): the counterpart of the JAX package's
         _alpha_tot_g_T.  Computed in blocks of wavelengths of about
         _EXT_POINTS points (every op is pointwise, so the values are
         those of the whole-chunk expression); damp_c: the chunk's damping
-        rows, or None to compute them from the per-site g_cell."""
-        line = self.line
-        v_los = line_of_sight_velocity(self.v, -np.asarray(k))
+        rows, or None to compute them from the per-site g_cell; static:
+        an angle slot's copies (parallel/angles.py), else the engine's
+        own."""
+        v, a_cont, line = (
+            (static["v"], static["a_cont"], static["line"]) if static
+            else (self.v, self.a_cont, self.line))
+        v_los = line_of_sight_velocity(v, -np.asarray(k))
         n, nlam = self.T.shape[0], lam_c.shape[0]
-        out = torch.empty((n, nlam), dtype=self.dtype, device=self.device)
+        out = torch.empty((n, nlam), dtype=self.dtype, device=v.device)
         n_i, n_j = populations[..., 0], populations[..., 1]
         step = max(1, _EXT_POINTS // max(n, 1))
         for j0 in range(0, nlam, step):
@@ -462,18 +572,19 @@ class VoronoiEngine(_Engine):
                                line.dlamD[None])
             profile = compute_profile(line, lam_j, damp, v_los)
             out[:, j0:j1] = (alpha_line(line, profile, n_j, n_i)
-                             + self.a_cont).T
+                             + a_cont).T
         return out
 
-    def _I0(self, i, lam_c):
+    def _I0(self, i, lam_c, static=None):
         """Boundary intensity on plan i's bc sites: B(T) at the bottom
         layer for up sweeps, dark for down sweeps
         (lambda_iteration.jl:99-102)."""
-        bc = self._bc_sites[i]
+        bc = self._bc_sites[i].to(lam_c.device)
         if self.plans[i].up:
-            return B_lambda(lam_c[:, None], self.T[bc][None])
+            T = static["T"] if static else self.T
+            return B_lambda(lam_c[:, None], T[bc][None])
         return torch.zeros((lam_c.shape[0], bc.shape[0]), dtype=self.dtype,
-                           device=self.device)
+                           device=lam_c.device)
 
     def compute_J(self, S, populations, damping_lam=None):
         """J accumulation over the quadrature (J_lambda_voronoi).
@@ -481,11 +592,15 @@ class VoronoiEngine(_Engine):
         Wavelengths stream in blocks of cfg.lambda_chunk; within a chunk
         everything is site-major: S is transposed once, each direction's
         extinction is made as (n, B), and the quadrature-weighted J
-        accumulates into one (n, B) buffer.  damping_lam=None computes
-        the damping per chunk from the per-site gamma.
+        accumulates into one (n, B) buffer per angle slot.
+        damping_lam=None computes the damping per chunk from the per-site
+        gamma; angle distribution (parallel/angles.py) broadcasts the
+        materialised cube instead.
         """
         lam = self.line.lam_tensor()
         chunks = _lambda_chunks(self.line.n_lambda, self.cfg.lambda_chunk)
+        if damping_lam is None and self.angle_devices:
+            damping_lam = self.damping_lam(populations)
         g_cell = self._gamma_cell(populations) if damping_lam is None \
             else None
         J = None
@@ -501,44 +616,76 @@ class VoronoiEngine(_Engine):
         return J
 
     def _J_chunk_T(self, S_c, populations, damp_c, lam_c, g_cell):
-        """One lambda chunk of J, site-major (n, B)."""
+        """One lambda chunk of J, site-major (n, B): each angle on the
+        slot that owns it, the slots' partial sums reduced on S's
+        device (undistributed: one slot, the engine's own tensors)."""
         quad, cfg = self.quad, self.cfg
-        S_T = S_c.T.contiguous()
-        Jc_T = torch.zeros_like(S_T)
+        state, static = self._slots(S_T=S_c.T.contiguous(), damping=damp_c,
+                                    populations=populations, lam=lam_c)
+        partials = {}
         for i, plan in enumerate(self.plans):
-            a_T = self._alpha_tot_T(quad.k[i], lam_c, populations, damp_c,
-                                    g_cell)
-            I_T = sweep_voronoi_t(plan, S_T, a_T, self._I0(i, lam_c),
+            slot = _ang.angle_device(self, i) if self.angle_devices else 0
+            st, dst = state[slot], static[slot]
+            a_T = self._alpha_tot_T(quad.k[i], st["lam"], st["populations"],
+                                    st["damping"], g_cell, static=dst)
+            I_T = sweep_voronoi_t(plan, st["S_T"], a_T,
+                                  self._I0(i, st["lam"], dst),
                                   n_sweeps=cfg.n_sweeps,
                                   relax_tol=cfg.voronoi_relax_tol)
             del a_T
             # in-place J accumulation (the JAX package donates J to a
             # fused J + w * I)
-            Jc_T.add_(I_T.mul_(float(quad.weights[i])))
-        return Jc_T
+            _ang.partial_accumulate(partials, slot,
+                                    I_T.mul_(float(quad.weights[i])))
+        return _ang.reduce_partials(partials, _ang.target_device(S_c))
 
-    def run(self):
-        return _run_iteration(self)
+    def run(self, checkpoint=None):
+        return _run_iteration(self, checkpoint)
 
 
 # --------------------------------------------------------- outer loop
 
 
-def _run_iteration(engine, start_iteration=0, S_init=None,
+def _refuse_streamed(engine):
+    """The lambda-streamed iteration sweeps in batched groups, which are
+    linear and undistributed only (the JAX package asserts the first
+    and runs a distributed engine's streamed iteration undistributed
+    without a word)."""
+    if engine.cfg.formal_interpolation != "linear":
+        raise NotImplementedError(
+            "stream_rates supports the linear formal solution only")
+    if engine.angle_devices:
+        raise ValueError(
+            "stream_rates does not take an engine with angle distribution")
+
+
+def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
                    populations_init=None):
     """Host-side while loop: iterate until converged (Lambda_regular and
-    Lambda_voronoi, lambda_iteration.jl:116-297).  Starts from S_init /
-    populations_init, else the engine's loaded state, else B0 / LTE."""
+    Lambda_voronoi, lambda_iteration.jl:116-297), checkpointing like the
+    reference (lambda_iteration.jl:188-189,280-281): the criterion of
+    every loop head goes to checkpoint.write_convergence, the state to
+    checkpoint.write_state every cfg.checkpoint_every iterations (the
+    only iterations that copy S to the host).  Starts from S_init /
+    populations_init (numpy arrays or tensors, placed on the engine's
+    device), else the engine's loaded state, else B0 / LTE.  On a resume
+    (start_iteration > 0) the first criterion compares against zeros and
+    records a spurious 1.0, as the JAX package does."""
     cfg = engine.cfg
     line = engine.line
-    if cfg.rates_site_chunk:
-        raise NotImplementedError("rates_site_chunk is not ported")
 
-    populations = populations_init if populations_init is not None else (
-        engine.populations_start if engine.populations_start is not None
-        else engine.lte)
-    S_new = S_init if S_init is not None else (
-        engine.S_start if engine.S_start is not None else engine.B0)
+    if populations_init is not None:
+        populations = engine._field(populations_init)
+    elif engine.populations_start is not None:
+        populations = engine.populations_start
+    else:
+        populations = engine.lte
+    if S_init is not None:
+        S_new = engine._field(S_init)
+    elif engine.S_start is not None:
+        S_new = engine.S_start
+    else:
+        S_new = engine.B0
     S_old = torch.zeros_like(S_new)
 
     convergence = []
@@ -548,6 +695,8 @@ def _run_iteration(engine, start_iteration=0, S_init=None,
     while True:
         diff = _criterion(S_new, S_old)
         convergence.append(diff)
+        if checkpoint is not None:
+            checkpoint.write_convergence(i + 1, diff)
         if np.isnan(diff):
             print(f"NaN convergence at iteration {i}")
         if i > 0:
@@ -559,14 +708,30 @@ def _run_iteration(engine, start_iteration=0, S_init=None,
         t0 = time.perf_counter()
         S_old = S_new
         J = None    # drop the previous J before the new J pass
-        damping_lam = engine.damping_lam(populations)
-        J = engine.compute_J(S_old, populations, damping_lam)
-        S_new = _update_S(line, engine.eps, J, engine.B0)
-        populations = _rates_and_populations(
-            line, J, damping_lam, engine.lte, engine.C, engine.T,
-            engine.nH, cfg.compat)
+        if cfg.rates_site_chunk:
+            # production-memory path: damping per lambda chunk inside
+            # compute_J, rates streamed over slabs -- the full damping
+            # cube never sits next to J
+            g_cell = engine._gamma_cell(populations)
+            J = engine.compute_J(S_old, populations, None)
+            S_new = _update_S(line, engine.eps, J, engine.B0)
+            populations = _rates_and_populations_slabbed(
+                line, J, g_cell, engine.lte, engine.C, engine.T,
+                engine.nH, cfg.compat, cfg.rates_site_chunk)
+            del g_cell
+        else:
+            damping_lam = engine.damping_lam(populations)
+            J = engine.compute_J(S_old, populations, damping_lam)
+            S_new = _update_S(line, engine.eps, J, engine.B0)
+            populations = _rates_and_populations(
+                line, J, damping_lam, engine.lte, engine.C, engine.T,
+                engine.nH, cfg.compat)
+            del damping_lam
         _sync(populations)
         timings.append(time.perf_counter() - t0)
+
+        if checkpoint is not None and i % cfg.checkpoint_every == 0:
+            checkpoint.write_state(populations, S_new)
         i += 1
 
     converged = convergence[-1] <= cfg.eps
@@ -577,20 +742,24 @@ def _run_iteration(engine, start_iteration=0, S_init=None,
                       iterations=i, converged=converged, timings=timings)
 
 
-def _run_iteration_streamed(engine):
+def _run_iteration_streamed(engine, checkpoint=None):
     """The host loop for cfg.stream_rates: the iteration state is ONE
     full S buffer, updated in place, plus the populations.  The first
     convergence entry of the standard loop, criterion(B0, 0), is
     identically 1.0 and recorded as such.  The engine's B0 (or loaded
     S) is CONSUMED as the initial S: engine.B0 is set to None, so no
-    Planck cube sits next to the iteration state."""
+    Planck cube sits next to the iteration state.  Writes to
+    `checkpoint` as _run_iteration does."""
     cfg = engine.cfg
+    _refuse_streamed(engine)
     populations = (engine.populations_start
                    if engine.populations_start is not None else engine.lte)
     S = engine.S_start if engine.S_start is not None else engine.B0
     engine.B0 = engine.S_start = None
     convergence = [1.0]
     timings = []
+    if checkpoint is not None:
+        checkpoint.write_convergence(1, 1.0)
     print("Iteration 1...")
     i = 0
     diff = float("inf")
@@ -604,6 +773,10 @@ def _run_iteration_streamed(engine):
         if np.isnan(diff):
             print(f"NaN convergence at iteration {i}")
         print(f"   Rel. diff.: {diff}")
+        if checkpoint is not None:
+            checkpoint.write_convergence(i + 1, diff)
+            if (i - 1) % cfg.checkpoint_every == 0:
+                checkpoint.write_state(populations, S)
         if diff > cfg.eps and i < cfg.maxiter:
             print(f"Iteration {i + 1}...")
     converged = convergence[-1] <= cfg.eps

@@ -209,3 +209,15 @@ def destruction(lte_pops, electron_density, temperature, line, boost=2.0e9):
     C21 = C12 * lte_pops[..., 0] / lte_pops[..., 1] * boost
     B_lam0 = B_lambda(line.lam0, temperature)
     return C21 / (C21 + A21 + B21_iunit * B_lam0)
+
+
+def source_line(line, populations):
+    """Line source function from level populations (src/line.jl:383-395).
+
+    Returns S in IUNIT; populations[..., 0] = n_l, [..., 1] = n_u.
+    """
+    gl, gu = 2.0, 8.0
+    nl = populations[..., 0]
+    nu = populations[..., 1]
+    ratio = gu * nl / (gl * nu)
+    return 2.0 * h * c_0**2 / line.lam0**5 / (ratio - 1.0) / IUNIT_SI

@@ -22,7 +22,11 @@ column is at ix + sign while the line buffer holds the previous line;
 the buffer starts at zero once and persists across passes; xz_down
 reads its centre alpha/S from the upper plane.
 
-Only linear interpolation is ported; interpolation='bezier' raises.
+interpolation='bezier' (the single-direction `sweep` only, as in the JAX
+package) runs each xy segment with the quadratic-Bezier update,
+_xy_step_bezier, in plain torch on every device: the JAX package runs it
+as plain XLA outside any Pallas kernel.  The marching segments stay
+linear and go through march_plane as ever.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .formal import bezier_control, bezier_weights
 from .march_plane import march_plane
-from .xy_plane import xy_plane
+from .xy_plane import stencil_xy, xy_plane
 
 
 # --------------------------------------------------------------- planning
@@ -203,11 +208,59 @@ def _per_element(vals, B_lam, ref):
                            device=ref.device)
 
 
-def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit):
+def _xy_step_bezier(plan, I_p, alpha_c, alpha_p, S_c, S_p, alpha_pp, S_pp,
+                    r, fx, fy, r_prev, fx_prev, fy_prev, first):
+    """xy plane update with quadratic-Bezier source integration
+    (sweep_regular._xy_step_bezier of the JAX package).
+
+    The control point needs the source and extinction one more interval
+    upstream along the ray: the second-upwind point, on the plane two
+    z-steps back, is sampled by composing the previous step's stencil
+    (inside) with this step's (outside).  r, fx, fy and their _prev
+    counterparts are Python floats; first is 1.0 where there is no
+    upstream sample (a segment's first step) and the control point falls
+    back to the secant slope.
+    """
+    def st(A, f, g):
+        return stencil_xy(A, plan.sxs, plan.sys, f, g)
+
+    a_up = st(alpha_p, fx, fy)
+    S_up = st(S_p, fx, fy)
+    I_up = st(I_p, fx, fy)
+    a_uu = st(st(alpha_pp, fx_prev, fy_prev), fx, fy)
+    S_uu = st(st(S_pp, fx_prev, fy_prev), fx, fy)
+    dtau = r * (alpha_c + a_up) * 0.5
+    dtau_uu = r_prev * (a_up + a_uu) * 0.5
+    C = bezier_control(S_uu, S_up, S_c, dtau_uu, dtau, first)
+    wu, wc, wk, ew = bezier_weights(dtau)
+    return ew * I_up + wu * S_up + wc * S_c + wk * C
+
+
+def _xy_segment_bezier(plan, seg, S, alpha, carry, emit):
+    """One xy segment of a single-direction sweep, Bezier update.  The
+    second-upwind plane index is clamped at the boundary; at the
+    segment's first step the previous step's ray geometry repeats this
+    step's and `first` selects the secant slope."""
+    nz = S.shape[0]
+    dirn = 1 if plan.up else -1
+    for j, t in enumerate(seg.steps):
+        jp = max(j - 1, 0)
+        t2 = min(max(t - 2 * dirn, 0), nz - 1)
+        carry = _xy_step_bezier(
+            plan, carry, alpha[t], alpha[t - dirn], S[t], S[t - dirn],
+            alpha[t2], S[t2], seg.r[j], seg.fx[j], seg.fy[j],
+            seg.r[jp], seg.fx[jp], seg.fy[jp], 1.0 if j == 0 else 0.0)
+        emit(t, carry)
+    return carry
+
+
+def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
+                        interpolation="linear"):
     """Shared body of sweep / sweep_batched / sweep_batched_J.
 
     Runs the batched multi-angle sweep and calls emit(t, plane) on every
     computed (P*B, Nx, Ny) intensity plane t and on the boundary plane.
+    interpolation='bezier' is for one plan only (`sweep`).
     """
     lead = plans[0]
     nz = S.shape[0]
@@ -221,6 +274,9 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit):
 
     for si, seg in enumerate(lead.segments):
         segs_p = [p.segments[si] for p in plans]
+        if seg.case == "xy" and interpolation == "bezier":
+            carry = _xy_segment_bezier(lead, seg, S, alpha, carry, emit)
+            continue
         if seg.case == "xy":
             r = _per_element([s.r for s in segs_p], B_lam, S)
             fx = _per_element([s.fx for s in segs_p], B_lam, S)
@@ -265,14 +321,17 @@ def sweep(plan: RegularPlan, S, alpha, I0, n_sweeps=3,
 
     S, alpha: (nz, B, Nx, Ny); I0: (B, Nx, Ny) boundary intensity
     (bottom plane for up sweeps, top for down; lambda_iteration.jl:38-52).
-    Returns I: (nz, B, Nx, Ny).  Equivalent of short_characteristics_up/
-    _down (characteristics.jl:19,110).
+    interpolation: 'linear' (reference parity) or 'bezier' (quadratic
+    DELO-Bezier source integration in the xy segments; the marching
+    segments stay linear, their one-line buffer has no second-upwind
+    sample).  Returns I: (nz, B, Nx, Ny).  Equivalent of
+    short_characteristics_up/_down (characteristics.jl:19,110).
     """
-    if interpolation != "linear":
-        raise NotImplementedError(
-            f"interpolation={interpolation!r}: only 'linear' is ported")
+    if interpolation not in ("linear", "bezier"):
+        raise ValueError(f"unknown interpolation {interpolation!r}")
     out = torch.empty(S.shape, dtype=S.dtype, device=S.device)
-    _sweep_batched_impl((plan,), S, alpha, I0, n_sweeps, None, _stacker(out))
+    _sweep_batched_impl((plan,), S, alpha, I0, n_sweeps, None, _stacker(out),
+                        interpolation)
     return out
 
 
