@@ -52,7 +52,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      imports, through the HDF5 file; one small J pass under
      observability.device_trace; then the searchlight driver (flux kept
      for all 12 directions) and the line_nlte driver with
-     --interpolation bezier, as a user calls them.
+     --interpolation bezier, as a user calls them;
+ 12. the last two drivers at full width: synthesize() on phase 5's
+     populations through the synthesize driver's _load_regular
+     (215x256x256, 91 wavelengths, float64), disk centre (theta 180)
+     and slanted (theta 135), with seconds, peak memory, launch counts,
+     finite non-negative intensities, a line centre brighter than the
+     far wing and its brightness temperature; one xy_plane call of the
+     first and one march_plane call of the second held against the
+     plain versions on their own inputs; then the continuum_study
+     driver on the production atmosphere (skips 1-4, STUDY_SITES
+     sites);
+ 13. the lambda-split regular iteration at the production width: two
+     spawned ranks (NCCL on two cards where two are visible, else gloo,
+     both on cuda:0) each run one streamed iteration of phase 5's
+     configuration on its block of the 91 wavelengths padded to 92,
+     with seconds, collective seconds, peak memory and launch counts a
+     rank; one march_plane call of a rank held against the plain
+     version; the S rows at the block edges and the populations
+     against phase 5's; then dryrun_multichip(2) on the card, and
+     with one card also dryrun_multichip(1) over NCCL.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is visible or the package is not beside it, and fails if
@@ -75,6 +94,17 @@ PROD = dict(nz=215, nx=256, ny=256, nlam_bb=51, nlam_bf=20,
 # the reference's quarter-resolution Voronoi production count
 # (compare_line.jl:64-68)
 VOR_SITES = 442_368
+# phase 12: site counts of the continuum study (each pays a tessellation
+# and six inverse-distance resamplings onto the 14M-point grid, on the
+# host); which xy_plane / march_plane call of a synthesis is held
+# against the plain version
+STUDY_SITES = "1e5"
+SYNTH_CALL = 100
+# phase 13: ranks, and which march_plane call of a rank's iteration is
+# held against the plain version (past the third lambda chunk: the
+# block's last chunk of 7 wavelengths, a batch of 28 planes)
+LAM_RANKS = 2
+LAM_CALL = 1500
 TOL = {"float64": dict(rtol=1e-12, atol=0.0),
        "float32": dict(rtol=2e-5, atol=1e-6)}
 # the hand-written kernels of the regular path; march_plane is K2 as the
@@ -363,8 +393,20 @@ def _launch_counts(reset=False):
             "march_chain": mp.CHAIN_LAUNCHES}
 
 
-def run_production(atmos):
-    """One lambda-streamed iteration at the production configuration."""
+def _edge_rows(n_lambda, n_ranks):
+    """The first and last row of each rank's block of n_lambda
+    wavelengths padded to a multiple of n_ranks, as rows of the
+    unpadded grid (a padded row repeats the last wavelength)."""
+    n = -(-n_lambda // n_ranks)
+    rows = {r * n + d for r in range(n_ranks) for d in (0, n - 1)}
+    return {row: min(row, n_lambda - 1) for row in sorted(rows)}
+
+
+def run_production(atmos, n_ranks=LAM_RANKS):
+    """One lambda-streamed iteration at the production configuration.
+    Returns the launch counts and, on the host, what phases 12-13 hold
+    against: the populations, the wavelengths and the S rows at the
+    edges of n_ranks' lambda blocks."""
     import torch
     from voronoirt_tpu_torch import Config
     from voronoirt_tpu_torch.engine import RegularEngine
@@ -431,7 +473,10 @@ def run_production(atmos):
     print(f"  launches during the iteration: {launches}", flush=True)
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the main path")
-    return launches
+    ref = {"populations": res.populations.cpu().numpy(), "lam": line.lam,
+           "S_rows": {row: res.S[row].cpu().numpy() for row in set(
+               _edge_rows(line.n_lambda, n_ranks).values())}}
+    return launches, ref
 
 
 # ------------------------------------------------------------ phase 6-7
@@ -773,6 +818,51 @@ BEZIER_RATES_PLANES = 8
 K2_CALL = 1000
 
 
+@contextmanager
+def _keep_call(name, n):
+    """Keep the arguments and result of the n-th call that the regular
+    sweep makes of the kernel wrapper `name` ('xy_plane' or
+    'march_plane'), to hold against the plain version afterwards."""
+    import torch
+    from voronoirt_tpu_torch.solvers import sweep_regular as sr
+    fn, kept = getattr(sr, name), {"seen": 0}
+
+    def keeping(*args, **kwargs):
+        kept["seen"] += 1
+        if kept["seen"] != n:
+            return fn(*args, **kwargs)
+        kept["args"] = tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args)
+        kept["statics"] = kwargs
+        kept["out"] = fn(*args, **kwargs)
+        return kept["out"]
+
+    setattr(sr, name, keeping)
+    try:
+        yield kept
+    finally:
+        setattr(sr, name, fn)
+
+
+def _hold_kept(name, kept, n, what):
+    """The kept n-th call of `name` against its plain version on the
+    same inputs, float64 (rtol 1e-12); returns the max abs error."""
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+    plain = {"xy_plane": xp.xy_plane_plain,
+             "march_plane": mp.march_plane_plain}[name]
+    require("out" in kept, f"{what} made {kept['seen']} {name} calls, "
+                           f"fewer than {n}")
+    e_abs, e_rel = _compare(name, kept["out"],
+                            plain(*kept["args"], **kept["statics"]),
+                            "float64")
+    print(f"  {name} call {n} of {what}, {tuple(kept['out'].shape)}, "
+          f"{kept['statics']}: against the plain version on the same inputs"
+          f" max abs err {e_abs:.3e} (rel {e_rel:.3e}, rtol 1e-12)",
+          flush=True)
+    return e_abs
+
+
 def run_bezier_production(atmos):
     """Phase 8b: one Lambda iteration of the production configuration
     with formal_interpolation='bezier' through RegularEngine.run(), the
@@ -783,8 +873,6 @@ def run_bezier_production(atmos):
     from voronoirt_tpu_torch.engine import RegularEngine
     from voronoirt_tpu_torch.observability import nan_guard, throughput
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
-    from voronoirt_tpu_torch.solvers import march_plane as mp
-    from voronoirt_tpu_torch.solvers import sweep_regular as sr
 
     p = PROD
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
@@ -809,29 +897,12 @@ def run_bezier_production(atmos):
         with timer.phase("J pass"):
             return compute_J(*args, **kwargs)
 
-    # keep the arguments and the result of one march_plane call of the
-    # iteration (the K2_CALL-th: mid-sweep, the carried intensity no
-    # longer the boundary's) to hold against the plain version below
-    march, seen, kept = sr.march_plane, [0], {}
-
-    def keeping_march(*args, **kwargs):
-        seen[0] += 1
-        if seen[0] != K2_CALL:
-            return march(*args, **kwargs)
-        kept["args"] = tuple(a.clone() if torch.is_tensor(a) else a
-                             for a in args)
-        kept["statics"] = kwargs
-        kept["out"] = march(*args, **kwargs)
-        return kept["out"]
-
     eng.compute_J = timed_J
-    sr.march_plane = keeping_march
     _launch_counts(reset=True)
-    try:
-        with timer.phase("run"):
-            res = eng.run()
-    finally:
-        sr.march_plane = march
+    # keep one march_plane call of the iteration (the K2_CALL-th:
+    # mid-sweep, the carried intensity no longer the boundary's)
+    with _keep_call("march_plane", K2_CALL) as kept, timer.phase("run"):
+        res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     t_setup, wall = timer.totals["set-up"], timer.totals["run"]
@@ -872,17 +943,9 @@ def run_bezier_production(atmos):
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
-    require("out" in kept, f"the iteration made {seen[0]} march_plane calls, "
-                           f"fewer than {K2_CALL}")
+    _hold_kept("march_plane", kept, K2_CALL, "the Bezier iteration")
     require(tuple(kept["out"].shape) == (B, p["nx"], p["ny"]),
             f"march_plane plane {tuple(kept['out'].shape)} in the iteration")
-    e_abs, e_rel = _compare(
-        "march_plane", kept["out"],
-        mp.march_plane_plain(*kept["args"], **kept["statics"]), "float64")
-    print(f"  march_plane call {K2_CALL} of the iteration, "
-          f"{tuple(kept['out'].shape)}, {kept['statics']}: against the plain "
-          f"version on the same inputs max abs err {e_abs:.3e} (rel "
-          f"{e_rel:.3e}, rtol 1e-12)", flush=True)
     bez, k1 = _time_bezier_step(B)
     print(f"  one xy plane step at (B={B}, {p['nx']}x{p['ny']}, float64): "
           f"Bezier (plain torch) {bez:.4f} ms, K1 (linear) {k1:.4f} ms, "
@@ -1149,6 +1212,219 @@ def run_drivers():
             f"line_nlte summary {summary}")
 
 
+# ------------------------------------------------------------ phase 12-13
+
+def run_synthesis(atmos, ref):
+    """Phase 12a: the synthesize driver's synthesize() on phase 5's
+    populations at the production grid, read through its _load_regular
+    from an in-memory store of the checkpoint's datasets: disk centre
+    (theta 180, xy segments: K1) and slanted (theta 135: K2 too).
+    Returns {theta: launches}."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch.drivers import synthesize as syn
+
+    store = {"z": atmos.z, "x": atmos.x, "y": atmos.y, **atmos.fields(),
+             "populations": ref["populations"],
+             "wavelength": np.asarray(ref["lam"]) * 1e9}
+    atmos_s, pops, lam = syn._load_regular(store)
+    out = {}
+    for theta, name in ((180.0, "xy_plane"), (135.0, "march_plane")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timer = _card_timer()
+        _launch_counts(reset=True)
+        with _keep_call(name, SYNTH_CALL) as kept, timer.phase("synth"):
+            I, line = syn.synthesize(atmos_s, pops, lam, theta=theta,
+                                     n_bb=PROD["nlam_bb"],
+                                     n_bf=PROD["nlam_bf"])
+        out[theta] = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(I.shape == (len(lam), PROD["nx"], PROD["ny"]),
+                f"synthesis image {I.shape}")
+        i_centre = int(np.argmin(np.abs(lam - line.lam0)))
+        require(bool(np.isfinite(I).all()) and I.min() >= 0.0,
+                f"theta {theta}: intensities not finite and >= 0")
+        centre, wing = float(I[i_centre].mean()), float(I[0].mean())
+        Tb = float(np.nanmean(syn.brightness_temperature(
+            I[i_centre], float(lam[i_centre]))))
+        print(f"  synthesize theta={theta:g} at {PROD['nz']}x{PROD['nx']}x"
+              f"{PROD['ny']}, {len(lam)} wavelengths in blocks of "
+              f"{syn.LAMBDA_BLOCK}, float64: {timer.totals['synth']:.4f} s, "
+              f"peak device memory {peak / 2**30:.3f} GiB; launches "
+              f"{out[theta]}; I min {I.min():.4e}; mean I centre "
+              f"{centre:.6e}, far wing {wing:.6e}; T_b centre mean "
+              f"{Tb:.2f} K", flush=True)
+        require(centre > wing, f"theta {theta}: line centre not brighter "
+                               f"than the far wing")
+        if theta == 180.0:
+            require(3000.0 < Tb < 50000.0, f"T_b centre {Tb:.1f} K")
+        require(out[theta][name] > 0, f"{name}: no launch in the synthesis")
+        _hold_kept(name, kept, SYNTH_CALL, f"the synthesis at theta {theta:g}")
+    return out
+
+
+def run_study():
+    """Phase 12b: the continuum_study driver on the production
+    atmosphere (phase 5's seed), regular skips 1-4 and STUDY_SITES
+    sites, as a user calls it; the bars of
+    tests/test_drivers.py::test_continuum_study_harness."""
+    import math
+    import tempfile
+    from voronoirt_tpu_torch.drivers import continuum_study
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _launch_counts(reset=True)
+        t = time.perf_counter()
+        res = continuum_study.main(
+            ["--atmos", str(PROD["nz"]), str(PROD["nx"]), str(PROD["ny"]),
+             "--skips", "1,2,3,4", "--n-sites", STUDY_SITES, "--no-plots",
+             "--out", tmp])
+        wall = time.perf_counter() - t
+        launches = _launch_counts()
+    rows = [(f"regular {k}", r) for k, r in res["regular"].items()] + [
+        (f"{k} sites", r) for k, r in res["voronoi"].items()]
+    print(f"  continuum_study --atmos {PROD['nz']} {PROD['nx']} {PROD['ny']}"
+          f" --skips 1,2,3,4 --n-sites {STUDY_SITES}: {wall:.2f} s; "
+          + "; ".join(f"{k}: {r['seconds']:.2f} s, rel_l1 "
+                      f"{r['rel_l1_vs_full']:.6e}" for k, r in rows)
+          + f"; launches {launches}", flush=True)
+    require(all(math.isfinite(r["rel_l1_vs_full"]) for _, r in rows),
+            "continuum study: rel_l1 not finite")
+    require(res["regular"]["half"]["rel_l1_vs_full"] < 0.5
+            and all(r["rel_l1_vs_full"] < 0.5
+                    for r in res["voronoi"].values()),
+            "continuum study: an image is 50 % off the full regular one")
+    require(launches["xy_plane"] > 0, "xy_plane: no launch in the study")
+    return launches
+
+
+def _phase13_rank(group, call_n):
+    """One rank of phase 13: one streamed iteration of phase 5's
+    configuration on the rank's lambda block.  Module level: the
+    spawned ranks unpickle it by name, and import this file as their
+    main module."""
+    import torch
+    from voronoirt_tpu_torch import Config, synthetic_atmosphere
+    from voronoirt_tpu_torch.engine import RegularEngine
+    from voronoirt_tpu_torch.kernels import build
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line, pad_line
+
+    require(build.library_path().exists(),
+            "the kernels' library that phase 1 built is not there")
+    p = PROD
+    atmos = synthetic_atmosphere(nz=p["nz"], nx=p["nx"], ny=p["ny"])
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], stream_rates=True,
+                 lambda_chunk=p["lambda_chunk"],
+                 group_max_angles=p["group_max_angles"], maxiter=1, eps=0.0)
+    dev = group.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    T = torch.as_tensor(atmos.temperature, dtype=torch.float64, device=dev)
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    line = pad_line(line, -(-line.n_lambda // group.size) * group.size)
+    eng = RegularEngine(atmos, line, cfg, device=dev, lam_group=group)
+    torch.cuda.synchronize(dev)
+    setup = time.perf_counter() - t
+    b0_rows = eng.B0.shape[0]
+    _launch_counts(reset=True)
+    with _keep_call("march_plane", call_n) as kept:
+        res = eng.run()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    err = _hold_kept("march_plane", kept, call_n,
+                     f"rank {group.rank}'s iteration")
+    lo, hi = eng.lam_block.start, eng.lam_block.stop
+    return {"rank": group.rank, "device": str(dev),
+            "name": torch.cuda.get_device_name(dev), "block": (lo, hi),
+            "n_lambda": line.n_lambda, "b0_rows": b0_rows, "setup_s": setup,
+            "iteration_s": res.timings[0], "collective_s": group.seconds,
+            "collectives": group.calls, "peak_gib": peak / 2**30,
+            "launches": launches, "k2_err": err,
+            "k2_shape": tuple(kept["out"].shape),
+            "convergence": res.convergence,
+            "S_edges": {lo: res.S[0].cpu().numpy(),
+                        hi - 1: res.S[-1].cpu().numpy()},
+            "populations": res.populations.cpu().numpy()}
+
+
+def _rel_np(got, want):
+    import numpy as np
+    return float(np.max(np.abs(got / want - 1.0)))
+
+
+def run_lam_production(ref, n_ranks=LAM_RANKS):
+    """Phase 13: the lambda-split streamed iteration at the production
+    width on n_ranks spawned ranks, held against phase 5's (whose S
+    rows `ref` holds for n_ranks' block edges); then dryrun_multichip
+    on the card.  Returns each rank's record, without its arrays."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch.entry import dryrun_multichip
+    from voronoirt_tpu_torch.parallel import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
+    # the parent's cached blocks would compete with the ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {n_ranks} ranks over {backend} "
+          f"({'one card a rank' if backend == 'nccl' else 'all on cuda:0'});"
+          f" the parent holds {torch.cuda.memory_allocated() / 2**30:.3f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+          f"reserved", flush=True)
+    t = time.perf_counter()
+    outs = spawn(_phase13_rank, n_ranks, args=(LAM_CALL,), device="cuda",
+                 backend=backend, timeout=900.0)
+    wall = time.perf_counter() - t
+    rows = _edge_rows(PROD["nlam_bb"] + 2 * PROD["nlam_bf"], n_ranks)
+    P_ref = ref["populations"]
+    n_H = P_ref.sum(-1, keepdims=True)
+    for o in outs:
+        errS = max(_rel_np(o["S_edges"][r], ref["S_rows"][rows[r]])
+                   for r in o["S_edges"])
+        # the split sums the rate integrals' pairs in another order; the
+        # ground level, n_H - n2 - n3, is a 2e-7 sliver of n_H in the
+        # hottest cells, so a last-digit change of n3 moves it ~1e-10
+        # relative: populations are held per n_H (1e-10), and per entry
+        # to the packages' bar (1e-8)
+        errP = float(np.max(np.abs(o["populations"] - P_ref) / n_H))
+        relP = _rel_np(o["populations"], P_ref)
+        print(f"  rank {o['rank']} on {o['device']} ({o['name']}), rows "
+              f"{o['block'][0]}-{o['block'][1] - 1} of {o['n_lambda']} (B0 "
+              f"{o['b0_rows']} rows): set-up {o['setup_s']:.2f} s, the "
+              f"iteration {o['iteration_s']:.4f} s, {o['collectives']} "
+              f"collectives {o['collective_s']:.4f} s, peak "
+              f"{o['peak_gib']:.3f} GiB; launches {o['launches']}; S at the "
+              f"block edges vs phase 5 max rel diff {errS:.3e} (<= 1e-12), "
+              f"populations max |diff| / n_H {errP:.3e} (<= 1e-10), max rel "
+              f"diff {relP:.3e} (<= 1e-8); march_plane call {LAM_CALL} "
+              f"{o['k2_shape']}: max abs err {o['k2_err']:.3e}", flush=True)
+        require(errS <= 1e-12 and errP <= 1e-10 and relP <= 1e-8,
+                f"rank {o['rank']} differs from the unsplit iteration")
+        require(np.array_equal(o["populations"], outs[0]["populations"])
+                and o["convergence"] == outs[0]["convergence"],
+                "the ranks' populations or criteria differ")
+        for name, n in o["launches"].items():
+            require(n > 0, f"{name}: no launch on rank {o['rank']}")
+    print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
+          f"{outs[0]['convergence']}", flush=True)
+    t = time.perf_counter()
+    dryrun_multichip(n_ranks, backend=backend)
+    print(f"  dryrun_multichip({n_ranks}, backend={backend!r}) on the "
+          f"card: {time.perf_counter() - t:.2f} s", flush=True)
+    if backend == "gloo":
+        # one card: NCCL, the default on cards, still joins and runs its
+        # collectives with a single rank
+        t = time.perf_counter()
+        dryrun_multichip(1, backend="nccl")
+        print(f"  dryrun_multichip(1, backend='nccl') on the card: "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+    return [{k: v for k, v in o.items()
+             if k not in ("S_edges", "populations")} for o in outs]
+
+
 def main():
     import torch
     sys.path.insert(0, HERE)
@@ -1183,7 +1459,7 @@ def main():
     check_entry()
     phase("phase 5: production iteration")
     atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
-    launches = run_production(atmos)
+    launches, ref = run_production(atmos)
     phase("phase 6: Voronoi goldens on the card, wavefront sweeps card vs CPU")
     check_voronoi_goldens()
     phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
@@ -1201,6 +1477,13 @@ def main():
     check_checkpoint_resume()
     check_device_trace()
     run_drivers()
+    phase("phase 12: the synthesize and continuum_study drivers at full "
+          "width")
+    launches_synth = run_synthesis(atmos, ref)
+    launches_study = run_study()
+    phase(f"phase 13: the lambda-split production iteration, {LAM_RANKS} "
+          f"ranks")
+    launches_lam = [o["launches"] for o in run_lam_production(ref)]
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
@@ -1222,7 +1505,12 @@ def main():
                 "launches_bezier_iteration": launches_bezier[name],
                 "launches_continuum": launches_continuum[name],
                 "ms_b1": times_b1[name][0], "plain_ms_b1": times_b1[name][1],
-                "bound_ms_b1": bounds_b1[name][0]} for name in KERNELS]
+                "bound_ms_b1": bounds_b1[name][0],
+                "launches_synthesize": {f"theta_{t:g}": n[name] for t, n in
+                                        launches_synth.items()},
+                "launches_continuum_study": launches_study[name],
+                "launches_lam_ranks": [n[name] for n in launches_lam]}
+               for name in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from voronoirt_tpu_torch.drivers import continuum as t_continuum
+from voronoirt_tpu_torch.drivers import continuum_study as t_study
 from voronoirt_tpu_torch.drivers import line_nlte as t_line_nlte
 from voronoirt_tpu_torch.drivers import recover as t_recover
 from voronoirt_tpu_torch.drivers import searchlight as t_searchlight
+from voronoirt_tpu_torch.drivers import synthesize as t_synth
 from voronoirt_tpu_torch.engine import RegularEngine, VoronoiEngine
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -196,11 +198,127 @@ def test_recover_loads_a_regular_engine(tmp_path):
     assert isinstance(eng, RegularEngine) and eng.T.shape == (8, 5, 5)
 
 
+@pytest.mark.parametrize("grid,extra", [
+    ("regular", []), ("voronoi", ["--raster", "8", "6", "6"])])
+def test_synthesize_matches_jax(tmp_path, monkeypatch, capsys, grid, extra):
+    """The synthesize driver on a small line_nlte output (the run of
+    tests/test_drivers.py::test_synthesize_driver) against the JAX
+    driver on the same file: every .npy to rtol 1e-10, since the linear
+    weights cancel digits above their 5e-4 guard where XLA's exp is one
+    ulp off PyTorch's (ROADMAP C3; measured 2.4e-11 on the regular
+    image); the printed keys equal.  Then that test's bars."""
+    run = str(tmp_path / f"{grid}.h5")
+    t_line_nlte.main(["--grid", grid, "--eps", "5e-2", "--maxiter", "2",
+                      "--nlam-bb", "5", "--nlam-bf", "3", "--quadrature",
+                      "n2", "--out", run, "--device", "cpu"]
+                     + (["--n-sites", "800", "--no-cache"]
+                        if grid == "voronoi" else []))
+    capsys.readouterr()
+    out, jout = str(tmp_path / "t"), str(tmp_path / "j")
+    summary = t_synth.main([run, "--out", out, "--no-plots", "--device",
+                            "cpu"] + extra)
+    assert _printed(capsys) == summary
+    want = _jax_main("synthesize", [run, "--out", jout, "--no-plots"] + extra,
+                     monkeypatch, capsys)
+    assert sorted(summary) == sorted(want)
+    assert sorted(os.listdir(out)) == sorted(os.listdir(jout))
+    for name in os.listdir(jout):
+        np.testing.assert_allclose(np.load(os.path.join(out, name)),
+                                   np.load(os.path.join(jout, name)),
+                                   rtol=1e-10, atol=0, err_msg=name)
+    for key, value in want.items():
+        assert summary[key] == pytest.approx(value, rel=1e-10), key
+    assert summary["kind"] == grid
+    I = np.load(os.path.join(out, f"{grid}.npy"))
+    lam = np.load(os.path.join(out, f"{grid}_wavelength.npy"))
+    assert I.shape[0] == len(lam) == summary["n_lambda"]
+    assert np.all(np.isfinite(I)) and I.min() >= 0
+    # line centre must be brighter than the far wing for Ly-alpha
+    assert summary["I_centre_mean"] > summary["I_wing_mean"]
+    assert 3000.0 < summary["Tb_centre_mean"] < 50000.0
+
+
+def test_synthesize_streams_lambda_blocks(monkeypatch):
+    """synthesize() in blocks of one wavelength equals it in blocks of
+    LAMBDA_BLOCK, bit for bit: every operation is pointwise in
+    wavelength, and the slanted direction marches (yz/xz segments)."""
+    from voronoirt_tpu_torch import synthetic_atmosphere
+    atmos = synthetic_atmosphere(nz=10, nx=6, ny=6, seed=4)
+    T = atmos.temperature
+    pops = np.stack([0.6 * atmos.hydrogen_populations,
+                     1e-6 * atmos.hydrogen_populations * T / T.max(),
+                     0.4 * atmos.hydrogen_populations], axis=-1)
+    lam = t_synth.lyman_alpha_line(5, 3, torch.as_tensor(T)).lam
+    args = (atmos, pops, lam, 135.0, 30.0)
+    kw = dict(n_bb=5, n_bf=3, device="cpu")
+    I_all, _ = t_synth.synthesize(*args, **kw)
+    monkeypatch.setattr(t_synth, "LAMBDA_BLOCK", 1)
+    I_one, _ = t_synth.synthesize(*args, **kw)
+    np.testing.assert_array_equal(I_one, I_all)
+    assert I_all.shape == (11, 6, 6) and np.isfinite(I_all).all()
+
+
+def test_continuum_study_matches_jax(tmp_path, monkeypatch, capsys):
+    """continuum_study --n-sites 2e3,5e3 --skips 1,2 against the JAX
+    driver: the images to rtol 1e-10 (the continuum driver's bar), every
+    rel_l1 to 1e-8 absolute (a mean of differences of images that agree
+    to 1e-10), the same keys and shapes; then the bars of
+    tests/test_drivers.py::test_continuum_study_harness."""
+    argv = ["--n-sites", "2e3,5e3", "--skips", "1,2", "--no-plots"]
+    out, jout = str(tmp_path / "t"), str(tmp_path / "j")
+    res = t_study.main(argv + ["--out", out, "--device", "cpu"])
+    assert _printed(capsys) == res
+    want = _jax_main("continuum_study", argv + ["--out", jout], monkeypatch,
+                     capsys)
+    assert sorted(os.listdir(out)) == sorted(os.listdir(jout))
+    for name in os.listdir(jout):
+        if name.endswith(".npy"):
+            np.testing.assert_allclose(np.load(os.path.join(out, name)),
+                                       np.load(os.path.join(jout, name)),
+                                       rtol=1e-10, atol=0, err_msg=name)
+    assert sorted(res) == sorted(want) == ["regular", "voronoi"]
+    for kind in want:
+        assert sorted(res[kind]) == sorted(want[kind])
+        for entry, rec in want[kind].items():
+            assert sorted(res[kind][entry]) == sorted(rec)
+            assert res[kind][entry]["rel_l1_vs_full"] == pytest.approx(
+                rec["rel_l1_vs_full"], abs=1e-8)
+            for key in ("skip", "shape", "n_points", "n_sites"):
+                assert res[kind][entry].get(key) == rec.get(key)
+    with open(os.path.join(out, "study.json")) as f:
+        assert json.load(f) == res
+    e_lo = res["voronoi"]["2000"]["rel_l1_vs_full"]
+    e_hi = res["voronoi"]["5000"]["rel_l1_vs_full"]
+    assert np.isfinite(e_lo) and np.isfinite(e_hi)
+    assert e_hi < max(1.2 * e_lo, 1.0) and e_hi < 0.5
+    assert res["regular"]["half"]["rel_l1_vs_full"] < 0.5
+
+
+def test_continuum_study_helpers_match_jax():
+    from voronoirt_tpu_torch import synthetic_atmosphere
+    j = _jax_driver("continuum_study")
+    atmos = synthetic_atmosphere(nz=9, nx=7, ny=5, seed=2)
+    for skip in (1, 2, 3):
+        got, want = (t_study.strided_atmosphere(atmos, skip),
+                     j.strided_atmosphere(atmos, skip))
+        assert got.shape == want.shape
+        for name, v in want.fields().items():
+            np.testing.assert_array_equal(got.fields()[name], v)
+    a, b = atmos.temperature, atmos.temperature[::-1]
+    assert t_study.rel_l1(a, b) == j.rel_l1(a, b)
+    k = t_synth._direction(135.0, 30.0)
+    np.testing.assert_array_equal(k, _jax_driver("synthesize")._direction(
+        135.0, 30.0))
+
+
 @pytest.mark.parametrize("main,argv", [
     (t_searchlight.main, ["--n", "11"]),
     (t_line_nlte.main, SMALL),
     (t_continuum.main, ["--atmos", "6", "4", "4"]),
-], ids=["searchlight", "line_nlte", "continuum"])
+    (t_synth.main, ["run.h5", "--out", "synth"]),
+    (t_study.main, ["--atmos", "6", "4", "4", "--out", "study"]),
+], ids=["searchlight", "line_nlte", "continuum", "synthesize",
+        "continuum_study"])
 def test_drivers_default_to_the_card(monkeypatch, main, argv):
     """Without --device the drivers run on the CUDA card, and raise
     where none is visible rather than carry on on the CPU."""

@@ -20,10 +20,14 @@ buffer-donation tricks have no counterpart here: where JAX donated a
 buffer, this module updates in place (the J accumulation and the S chunk
 write of the streamed update) and says so at each site.  With
 parallel.distribute_angles applied, compute_J deals the quadrature
-angles over the engine's angle_devices (parallel/angles.py).
-RegularEngine and VoronoiEngine share the frozen set-up, the per-cell
-fields and load_state through one base class, and run() through one
-outer loop, which writes to a checkpoint store when given one
+angles over the engine's angle_devices (parallel/angles.py).  With a
+lambda group (parallel/lam.py; JAX: a "lam" mesh axis) the engine holds
+one block of the line's wavelengths: its frozen B0, S and J are the
+block's rows, its chunks run over the block, and the rate integrals and
+the criterion are reduced over the group's ranks.  RegularEngine and
+VoronoiEngine share the frozen set-up, the per-cell fields and
+load_state through one base class, and run() through one outer loop,
+which writes to a checkpoint store when given one
 (engine/checkpoint.py).
 """
 
@@ -39,6 +43,7 @@ from ..config import Config
 from ..device import torch_dtype
 from ..grid.voronoi import build_voronoi_plan
 from ..parallel import angles as _ang
+from ..parallel import lam as _lam
 from ..physics.atom import (alpha_line, compute_profile, destruction,
                             line_of_sight_velocity)
 from ..physics.broadening import damping, gamma_constant
@@ -59,7 +64,10 @@ _C_KEYS = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
 @dataclasses.dataclass
 class NLTEResult:
     """Outcome of a Lambda iteration; fields are tensors on the engine's
-    device (J is None for the streamed loop)."""
+    device (J is None for the streamed loop).  With a lambda group, S
+    and J are the rank's block of wavelengths (parallel/lam.gather_lambda
+    assembles them); convergence and populations are the same on every
+    rank."""
     J: torch.Tensor
     S: torch.Tensor
     alpha_cont: torch.Tensor
@@ -74,9 +82,10 @@ class NLTEResult:
 
 
 def frozen_setup(line, temperature, electron_density, hydrogen_density,
-                 cfg: Config):
+                 cfg: Config, block=slice(None)):
     """LTE pops, alpha_cont(lam0), eps(lam0), C, B_0 -- all frozen
-    (lambda_iteration.jl:124-154)."""
+    (lambda_iteration.jl:124-154); B_0 over the wavelength rows `block`
+    only."""
     warn_charge_inconsistency(temperature, electron_density,
                               hydrogen_density)
     lte = lte_populations(line, temperature, electron_density,
@@ -88,7 +97,7 @@ def frozen_setup(line, temperature, electron_density, hydrogen_density,
     eps = destruction(lte, electron_density, temperature, line,
                       boost=cfg.boost)
     C = calculate_C(electron_density, temperature, lte, boost=cfg.boost)
-    lam = line.lam_tensor()
+    lam = line.lam_tensor()[block]
     B0 = B_lambda(lam.reshape((-1,) + (1,) * temperature.dim()),
                   temperature[None])
     return lte, a_cont, eps, C, B0
@@ -133,6 +142,47 @@ def _rates_accum(line, acc, carry, Jc, r0, g_cell, lte, T, compat):
                              compat=compat)
 
 
+def _edge_pair(engine, acc, prev, first, g_cell, cells=slice(None)):
+    """Add to acc the trapezoid pair across a lambda block's lower edge,
+    rows (lo - 1, lo), for the cells `cells`: prev is row lo - 1 (from
+    the rank before, parallel/lam.previous_row; None on rank 0), first
+    the block's row lo."""
+    if prev is None:
+        return acc
+    line = dataclasses.replace(engine.line, dlamD=engine.line.dlamD[cells])
+    return calculate_R_chunk(
+        line, acc, torch.cat([prev[:, cells], first[:, cells]]),
+        engine.lam_block.start - 1, g_cell[cells], engine.lte[cells],
+        engine.T[cells], compat=engine.cfg.compat)
+
+
+def _rates_and_populations_lam(engine, J, g_cell, site_chunk):
+    """The standard loop's rates / statistical equilibrium on a lambda
+    block: the rate integrals over the block's rows (in slabs of
+    site_chunk entries of the first spatial axis when set, as
+    _rates_and_populations_slabbed), the pair across the block's lower
+    edge, the sum over the ranks, then statistical equilibrium on
+    identical inputs on every rank."""
+    group = engine.lam_group
+    prev = _lam.previous_row(group, J[-1:])
+    n = engine.T.shape[0]
+    step = site_chunk or n
+    R = {}
+    for s0 in range(0, n, step):
+        sl = slice(s0, min(s0 + step, n))
+        line_s = dataclasses.replace(engine.line,
+                                     dlamD=engine.line.dlamD[sl])
+        acc = calculate_R_chunk(line_s, None, J[:, sl],
+                                engine.lam_block.start, g_cell[sl],
+                                engine.lte[sl], engine.T[sl],
+                                compat=engine.cfg.compat)
+        acc = _edge_pair(engine, acc, prev, J[:1], g_cell, sl)
+        for k, v in acc.items():
+            R.setdefault(k, torch.zeros_like(engine.T))[sl] = v
+    R = _lam.all_reduce_rates(group, R, engine.T)
+    return get_revised_populations(R, engine.C, engine.nH)
+
+
 def _rates_and_populations(line, J, damping_lam, lte, C, temperature,
                            hydrogen_density, compat):
     R = calculate_R(line, J, damping_lam, lte, temperature, compat=compat)
@@ -173,18 +223,19 @@ def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
 _CRIT_POINTS = 1 << 27
 
 
-def _criterion(S_new, S_old):
+def _criterion(S_new, S_old, group=None):
     """max over lam of max |1 - S_old/S_new| (lambda_iteration.jl:
     299-349); cells where S_new is exactly 0 compare by absolute
     difference.  Taken in blocks along the wavelength axis and reduced
-    on the device: one scalar is read back."""
+    on the device: one scalar is read back.  With a lambda group, S is
+    the rank's block and the maximum is taken over the ranks."""
     rows = max(1, _CRIT_POINTS // max(S_new[0].numel(), 1))
     diff = None
     for new, old in zip(S_new.split(rows), S_old.split(rows)):
         denom = torch.where(new != 0.0, new, 1.0)
         m = torch.max(torch.abs(new - old) / torch.abs(denom))
         diff = m if diff is None else torch.maximum(diff, m)
-    return float(diff)
+    return float(diff) if group is None else _lam.global_max(group, diff)
 
 
 def _sync(t):
@@ -203,10 +254,13 @@ class _Engine:
     device: where every field lives (default: the device of
     line.dlamD).  cfg.dtype is the working type of physics and
     transport alike; a different cfg.transport_dtype is refused (float32
-    transport is not accurate yet, ROADMAP C3).
+    transport is not accurate yet, ROADMAP C3).  lam_group: a
+    parallel.lam.LamGroup, whose block of the line (lam_block, global
+    rows) this engine then owns; the line itself stays whole, since the
+    rate windows read it by global index.
     """
 
-    def __init__(self, line, cfg: Config, quadrature, device):
+    def __init__(self, line, cfg: Config, quadrature, device, lam_group):
         self.cfg = cfg
         self.device = torch.device(device if device is not None
                                    else line.dlamD.device)
@@ -221,6 +275,10 @@ class _Engine:
         # set by parallel.distribute_angles
         self.angle_devices = None
         self._angle_static = None
+        self.lam_group = None
+        self.lam_block = slice(0, self.line.n_lambda)
+        if lam_group is not None:
+            _lam.attach(self, lam_group)
 
     def _slots(self, **state):
         """The per-angle loops' view of where each angle runs: (state,
@@ -242,7 +300,7 @@ class _Engine:
         self.v = self._field(fields.velocity_zxy())
         (self.lte, self.a_cont, self.eps, self.C,
          self.B0) = frozen_setup(self.line, self.T, self.ne, self.nH,
-                                 self.cfg)
+                                 self.cfg, self.lam_block)
         self.S_start = None
         self.populations_start = None
 
@@ -261,23 +319,35 @@ class _Engine:
         'C_20', 'C_12', 'C_21' (any subset), plus optionally 'S' and
         'populations', which become the starting state of run().  The
         counterpart of tests/test_nlte_parity.py::_inject_frozen: it
-        lets the port start from the JAX engine's state.
+        lets the port start from the JAX engine's state.  With a lambda
+        group, a 'B0' or 'S' of the whole line is cut to the block.
         """
         known = {"lte", "a_cont", "eps", "B0", "S", "populations"} | {
             f"C_{i}{j}" for i, j in _C_KEYS}
         unknown = set(arrays) - known
         if unknown:
             raise KeyError(f"unknown state keys {sorted(unknown)}")
-        for name in ("lte", "a_cont", "eps", "B0"):
+        for name in ("lte", "a_cont", "eps"):
             if name in arrays:
                 setattr(self, name, self._field(arrays[name]))
+        if "B0" in arrays:
+            self.B0 = self._field(self._rows(arrays["B0"]))
         for i, j in _C_KEYS:
             if f"C_{i}{j}" in arrays:
                 self.C[(i, j)] = self._field(arrays[f"C_{i}{j}"])
         if "S" in arrays:
-            self.S_start = self._field(arrays["S"])
+            self.S_start = self._field(self._rows(arrays["S"]))
         if "populations" in arrays:
             self.populations_start = self._field(arrays["populations"])
+
+    def _rows(self, a):
+        """The lambda block's rows of an array over the whole line."""
+        return a[self.lam_block] if len(a) == self.line.n_lambda else a
+
+    def block_lam(self):
+        """The wavelengths of the engine's lambda block (all of the
+        line's without a lambda group), on the device."""
+        return self.line.lam_tensor()[self.lam_block]
 
     def _gamma_cell(self, populations):
         """Per-cell damping rate gamma (lambda-independent)."""
@@ -286,8 +356,8 @@ class _Engine:
                               self.ne, self.cfg.gamma_natural)
 
     def damping_lam(self, populations):
-        """The full (nlam, ...) damping cube."""
-        lam = self.line.lam_tensor().reshape((-1,) + (1,) * self.T.dim())
+        """The (nlam, ...) damping cube of the lambda block."""
+        lam = self.block_lam().reshape((-1,) + (1,) * self.T.dim())
         return damping(self._gamma_cell(populations)[None], lam,
                        self.line.dlamD[None])
 
@@ -306,8 +376,8 @@ class RegularEngine(_Engine):
     """
 
     def __init__(self, atmos, line, cfg: Config, quadrature=None,
-                 device=None):
-        super().__init__(line, cfg, quadrature, device)
+                 device=None, lam_group=None):
+        super().__init__(line, cfg, quadrature, device, lam_group)
         if cfg.formal_interpolation not in ("linear", "bezier"):
             raise ValueError(
                 f"unknown formal_interpolation {cfg.formal_interpolation!r}")
@@ -377,8 +447,8 @@ class RegularEngine(_Engine):
         chunk from the per-cell gamma; angle distribution broadcasts the
         materialised cube instead.
         """
-        lam = self.line.lam_tensor()
-        chunks = _lambda_chunks(self.line.n_lambda, self.cfg.lambda_chunk)
+        lam = self.block_lam()
+        chunks = _lambda_chunks(lam.shape[0], self.cfg.lambda_chunk)
         if damping_lam is None and self.angle_devices:
             damping_lam = self.damping_lam(populations)
         g_cell = self._gamma_cell(populations) if damping_lam is None \
@@ -389,7 +459,7 @@ class RegularEngine(_Engine):
             else self._J_chunk_grouped
         J = None
         if len(chunks) > 1:
-            J = torch.empty((self.line.n_lambda,) + tuple(S.shape[1:]),
+            J = torch.empty((lam.shape[0],) + tuple(S.shape[1:]),
                             dtype=S.dtype, device=S.device)
         for sl in chunks:
             damp_sl = damping_lam[sl] if damping_lam is not None else None
@@ -462,8 +532,7 @@ class RegularEngine(_Engine):
         return Jc
 
     def bottom_boundary(self):
-        return B_lambda(self.line.lam_tensor()[:, None, None],
-                        self.T[0][None])
+        return B_lambda(self.block_lam()[:, None, None], self.T[0][None])
 
     def iterate_streamed(self, S, populations):
         """One Lambda iteration, lambda-streamed: each chunk flows J ->
@@ -471,27 +540,41 @@ class RegularEngine(_Engine):
         so no full J cube, second S buffer or Planck cube exists.  S is
         overwritten.  Returns (S_new, pops_new, criterion_diff).  The
         angle-distributed path and the Bezier formal solution are not
-        supported here (use the standard loop), as in the JAX package."""
-        line, cfg = self.line, self.cfg
+        supported here (use the standard loop), as in the JAX package.
+        With a lambda group, S is the rank's block and the chunks run
+        over it; the rate integrals start at the block's first row (rows
+        are global for calculate_R_chunk), the pair across the block's
+        lower edge waits for the previous rank's last row, and the rates
+        and the criterion are then reduced over the ranks."""
+        line, cfg, group = self.line, self.cfg, self.lam_group
         _refuse_streamed(self)
-        lam = line.lam_tensor()
+        lam = self.block_lam()
+        lo = self.lam_block.start
         g_cell = self._gamma_cell(populations)
-        acc = carry = None
+        acc = carry = first = None
         diff = torch.zeros((), dtype=self.dtype, device=self.device)
-        for ci, sl in enumerate(_lambda_chunks(line.n_lambda,
+        for ci, sl in enumerate(_lambda_chunks(lam.shape[0],
                                                cfg.lambda_chunk)):
             Jc = self._J_chunk_grouped(S[sl], populations, None, lam[sl],
                                        g_cell=g_cell)
-            r0 = sl.start if ci == 0 else sl.start - 1
+            r0 = lo + (sl.start if ci == 0 else sl.start - 1)
             acc = _rates_accum(line, acc, carry, Jc, r0, g_cell, self.lte,
                                self.T, cfg.compat)
+            if ci == 0 and group is not None:
+                first = Jc[:1].clone()
             carry = Jc[-1:].clone()     # a view would keep all of Jc alive
             S, m = _s_update_stream(line, S, Jc, self.eps, self.T, lam[sl],
                                     sl.start)
             diff = torch.maximum(diff, m)
             del Jc
+        if group is None:
+            return S, get_revised_populations(acc, self.C, self.nH), \
+                float(diff)
+        acc = _edge_pair(self, acc, _lam.previous_row(group, carry), first,
+                         g_cell)
+        acc = _lam.all_reduce_rates(group, acc, self.T)
         pops = get_revised_populations(acc, self.C, self.nH)
-        return S, pops, float(diff)
+        return S, pops, _lam.global_max(group, diff)
 
     def run(self, checkpoint=None):
         if self.cfg.stream_rates:
@@ -519,8 +602,8 @@ class VoronoiEngine(_Engine):
     """
 
     def __init__(self, sites, line, cfg: Config, quadrature=None,
-                 plans=None, device=None):
-        super().__init__(line, cfg, quadrature, device)
+                 plans=None, device=None, lam_group=None):
+        super().__init__(line, cfg, quadrature, device, lam_group)
         self.sites = sites
         self.plans = list(plans) if plans is not None else \
             self.build_plans(sites, self.quad, cfg)
@@ -597,8 +680,8 @@ class VoronoiEngine(_Engine):
         gamma; angle distribution (parallel/angles.py) broadcasts the
         materialised cube instead.
         """
-        lam = self.line.lam_tensor()
-        chunks = _lambda_chunks(self.line.n_lambda, self.cfg.lambda_chunk)
+        lam = self.block_lam()
+        chunks = _lambda_chunks(lam.shape[0], self.cfg.lambda_chunk)
         if damping_lam is None and self.angle_devices:
             damping_lam = self.damping_lam(populations)
         g_cell = self._gamma_cell(populations) if damping_lam is None \
@@ -659,6 +742,15 @@ def _refuse_streamed(engine):
             "stream_rates does not take an engine with angle distribution")
 
 
+def _refuse_lam_checkpoint(engine, checkpoint):
+    """A lambda-split engine holds one block of S, and write_state needs
+    the whole S: checkpoints of such runs are not ported (ROADMAP)."""
+    if checkpoint is not None and engine.lam_group is not None:
+        raise NotImplementedError(
+            "checkpoints of an engine with a lambda group are not ported: "
+            "write_state needs the whole S, and each rank holds one block")
+
+
 def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
                    populations_init=None):
     """Host-side while loop: iterate until converged (Lambda_regular and
@@ -673,6 +765,7 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
     records a spurious 1.0, as the JAX package does."""
     cfg = engine.cfg
     line = engine.line
+    _refuse_lam_checkpoint(engine, checkpoint)
 
     if populations_init is not None:
         populations = engine._field(populations_init)
@@ -693,7 +786,7 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
     J = None
     i = start_iteration
     while True:
-        diff = _criterion(S_new, S_old)
+        diff = _criterion(S_new, S_old, engine.lam_group)
         convergence.append(diff)
         if checkpoint is not None:
             checkpoint.write_convergence(i + 1, diff)
@@ -708,7 +801,16 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
         t0 = time.perf_counter()
         S_old = S_new
         J = None    # drop the previous J before the new J pass
-        if cfg.rates_site_chunk:
+        if engine.lam_group is not None:
+            # the damping per lambda chunk inside compute_J; the rates
+            # over the block, then summed over the ranks
+            g_cell = engine._gamma_cell(populations)
+            J = engine.compute_J(S_old, populations, None)
+            S_new = _update_S(line, engine.eps, J, engine.B0)
+            populations = _rates_and_populations_lam(
+                engine, J, g_cell, cfg.rates_site_chunk)
+            del g_cell
+        elif cfg.rates_site_chunk:
             # production-memory path: damping per lambda chunk inside
             # compute_J, rates streamed over slabs -- the full damping
             # cube never sits next to J
@@ -752,6 +854,7 @@ def _run_iteration_streamed(engine, checkpoint=None):
     `checkpoint` as _run_iteration does."""
     cfg = engine.cfg
     _refuse_streamed(engine)
+    _refuse_lam_checkpoint(engine, checkpoint)
     populations = (engine.populations_start
                    if engine.populations_start is not None else engine.lte)
     S = engine.S_start if engine.S_start is not None else engine.B0

@@ -60,13 +60,19 @@ def _sources(flags):
     return srcs, digest.hexdigest()[:16]
 
 
+def library_path(flags: tuple = NVCC_FLAGS) -> Path:
+    """Where library(flags) is (or will be) built: the name carries a
+    hash of the sources and flags."""
+    return BUILD_DIR / f"libvrt_kernels_{_sources(flags)[1]}.so"
+
+
 @functools.cache
 def library(flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
     """The kernels' shared library, built on first call.  The wrappers
     use the default flags; other flags build a variant beside it, for
     measurement (tools/profile_iteration.py)."""
-    srcs, tag = _sources(flags)
-    lib_path = BUILD_DIR / f"libvrt_kernels_{tag}.so"
+    srcs, _ = _sources(flags)
+    lib_path = library_path(flags)
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build into a private name, then rename: a concurrent build

@@ -168,6 +168,24 @@ def make_line(chi_u, chi_l, chi_inf, nlam_bb, nlam_bf, g_u, g_l, f_value,
         atom_weight=float(atom_weight), Z=Z, dlamD=dlamD)
 
 
+def pad_line(line, n_lambda):
+    """Pad the wavelength grid to n_lambda by duplicating the last point
+    (JAX: physics/atom.py:180-194).
+
+    Helper of the lambda split (parallel/lam.py): the wavelength count
+    must divide the number of ranks.  The padded wavelengths ride through
+    profiles and sweeps as ordinary batch entries and lie past
+    lam_idx[-1], so the rate integrals' windows never read them.
+    """
+    extra = n_lambda - len(line.lam)
+    if extra < 0:
+        raise ValueError("cannot shrink the wavelength grid")
+    if extra == 0:
+        return line
+    lam = np.concatenate([line.lam, np.repeat(line.lam[-1:], extra)])
+    return dataclasses.replace(line, lam=lam)
+
+
 # ------------------------------------------------------- per-cell fields
 
 def line_of_sight_velocity(velocity_zxy, k):
