@@ -68,9 +68,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      both on cuda:0) each run one streamed iteration of phase 5's
      configuration on its block of the 91 wavelengths padded to 92,
      with seconds, collective seconds, peak memory and launch counts a
-     rank; one march_plane call of a rank held against the plain
-     version; the S rows at the block edges and the populations
-     against phase 5's; then dryrun_multichip(2) on the card, and
+     rank; one xy_plane and one march_plane call of a rank's last
+     lambda chunk (B = 28) held against the plain versions; the S rows
+     at the block edges and the populations against phase 5's, with
+     the cell and level of the largest populations difference; then
+     dryrun_multichip(2) on the card, and
      with one card also dryrun_multichip(1) over NCCL.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -100,11 +102,12 @@ VOR_SITES = 442_368
 # against the plain version
 STUDY_SITES = "1e5"
 SYNTH_CALL = 100
-# phase 13: ranks, and which march_plane call of a rank's iteration is
-# held against the plain version (past the third lambda chunk: the
-# block's last chunk of 7 wavelengths, a batch of 28 planes)
+# phase 13: ranks, and which xy_plane and march_plane call of a rank's
+# iteration is held against the plain version: the 100th on the batch of
+# the block's last lambda chunk (7 wavelengths at 2 ranks: 28 planes,
+# which phase 2 does not check)
 LAM_RANKS = 2
-LAM_CALL = 1500
+LAM_CALL = 100
 TOL = {"float64": dict(rtol=1e-12, atol=0.0),
        "float32": dict(rtol=2e-5, atol=1e-6)}
 # the hand-written kernels of the regular path; march_plane is K2 as the
@@ -474,6 +477,7 @@ def run_production(atmos, n_ranks=LAM_RANKS):
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the main path")
     ref = {"populations": res.populations.cpu().numpy(), "lam": line.lam,
+           "temperature": atmos.temperature,
            "S_rows": {row: res.S[row].cpu().numpy() for row in set(
                _edge_rows(line.n_lambda, n_ranks).values())}}
     return launches, ref
@@ -819,15 +823,18 @@ K2_CALL = 1000
 
 
 @contextmanager
-def _keep_call(name, n):
+def _keep_call(name, n, batch=None):
     """Keep the arguments and result of the n-th call that the regular
     sweep makes of the kernel wrapper `name` ('xy_plane' or
-    'march_plane'), to hold against the plain version afterwards."""
+    'march_plane'), to hold against the plain version afterwards; with
+    `batch`, the n-th call on a batch of that many planes."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
     fn, kept = getattr(sr, name), {"seen": 0}
 
     def keeping(*args, **kwargs):
+        if batch is not None and args[0].shape[0] != batch:
+            return fn(*args, **kwargs)
         kept["seen"] += 1
         if kept["seen"] != n:
             return fn(*args, **kwargs)
@@ -1329,21 +1336,26 @@ def _phase13_rank(group, call_n):
     torch.cuda.synchronize(dev)
     setup = time.perf_counter() - t
     b0_rows = eng.B0.shape[0]
+    lo, hi = eng.lam_block.start, eng.lam_block.stop
+    # the batch of the block's last lambda chunk in a 4-angle group
+    B = ((hi - lo) % cfg.lambda_chunk or cfg.lambda_chunk) \
+        * cfg.group_max_angles
     _launch_counts(reset=True)
-    with _keep_call("march_plane", call_n) as kept:
+    with _keep_call("xy_plane", call_n, B) as k1, \
+            _keep_call("march_plane", call_n, B) as k2:
         res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    err = _hold_kept("march_plane", kept, call_n,
-                     f"rank {group.rank}'s iteration")
-    lo, hi = eng.lam_block.start, eng.lam_block.stop
+    held = {name: {"err": _hold_kept(name, kept, call_n, f"rank "
+                                     f"{group.rank}'s iteration at B = {B}"),
+                   "shape": tuple(kept["out"].shape)}
+            for name, kept in (("xy_plane", k1), ("march_plane", k2))}
     return {"rank": group.rank, "device": str(dev),
             "name": torch.cuda.get_device_name(dev), "block": (lo, hi),
             "n_lambda": line.n_lambda, "b0_rows": b0_rows, "setup_s": setup,
             "iteration_s": res.timings[0], "collective_s": group.seconds,
             "collectives": group.calls, "peak_gib": peak / 2**30,
-            "launches": launches, "k2_err": err,
-            "k2_shape": tuple(kept["out"].shape),
+            "launches": launches, "held": held,
             "convergence": res.convergence,
             "S_edges": {lo: res.S[0].cpu().numpy(),
                         hi - 1: res.S[-1].cpu().numpy()},
@@ -1379,18 +1391,24 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
                  backend=backend, timeout=900.0)
     wall = time.perf_counter() - t
     rows = _edge_rows(PROD["nlam_bb"] + 2 * PROD["nlam_bf"], n_ranks)
-    P_ref = ref["populations"]
+    P_ref, temperature = ref["populations"], ref["temperature"]
     n_H = P_ref.sum(-1, keepdims=True)
     for o in outs:
         errS = max(_rel_np(o["S_edges"][r], ref["S_rows"][rows[r]])
                    for r in o["S_edges"])
         # the split sums the rate integrals' pairs in another order; the
-        # ground level, n_H - n2 - n3, is a 2e-7 sliver of n_H in the
-        # hottest cells, so a last-digit change of n3 moves it ~1e-10
-        # relative: populations are held per n_H (1e-10), and per entry
-        # to the packages' bar (1e-8)
+        # ground level, n_H - n2 - n3, is a sliver of n_H in the hottest
+        # cells (6e-7 of it at 12,000 K), so a last-digit change of n3
+        # moves it ~1e-10 relative: populations are held per n_H (1e-10),
+        # and per entry to the packages' bar (1e-8)
         errP = float(np.max(np.abs(o["populations"] - P_ref) / n_H))
-        relP = _rel_np(o["populations"], P_ref)
+        rel = np.abs(o["populations"] / P_ref - 1.0)
+        relP = float(rel.max())
+        # where the per-entry maximum lies: its cell (z, x, y), level,
+        # and that level's share of n_H there
+        at = tuple(int(i) for i in np.unravel_index(np.argmax(rel),
+                                                     rel.shape))
+        share = float(P_ref[at] / n_H[at[:-1]][0])
         print(f"  rank {o['rank']} on {o['device']} ({o['name']}), rows "
               f"{o['block'][0]}-{o['block'][1] - 1} of {o['n_lambda']} (B0 "
               f"{o['b0_rows']} rows): set-up {o['setup_s']:.2f} s, the "
@@ -1399,8 +1417,12 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
               f"{o['peak_gib']:.3f} GiB; launches {o['launches']}; S at the "
               f"block edges vs phase 5 max rel diff {errS:.3e} (<= 1e-12), "
               f"populations max |diff| / n_H {errP:.3e} (<= 1e-10), max rel "
-              f"diff {relP:.3e} (<= 1e-8); march_plane call {LAM_CALL} "
-              f"{o['k2_shape']}: max abs err {o['k2_err']:.3e}", flush=True)
+              f"diff {relP:.3e} (<= 1e-8) at cell {at[:-1]}, level n"
+              f"{at[-1] + 1} ({share:.3e} of n_H there, T "
+              f"{float(temperature[at[:-1]]):.1f} K); "
+              + "; ".join(f"{k} call {LAM_CALL} at {h['shape']}: max abs "
+                          f"err {h['err']:.3e}" for k, h in o["held"].items()),
+              flush=True)
         require(errS <= 1e-12 and errP <= 1e-10 and relP <= 1e-8,
                 f"rank {o['rank']} differs from the unsplit iteration")
         require(np.array_equal(o["populations"], outs[0]["populations"])

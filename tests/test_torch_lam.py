@@ -310,8 +310,6 @@ def test_refuses_a_group_with_angle_devices(sites):
     eng = distribute_angles(_engine("voronoi", sites), ["cpu", "cpu"])
     with pytest.raises(ValueError, match="not both"):
         lam.shard_voronoi(eng, _group())
-    with pytest.raises(TypeError, match="VoronoiEngine"):
-        lam.shard_voronoi(_engine("regular", _atmos()), _group())
     with pytest.raises(ValueError, match="already"):
         lam.shard_regular(_engine("regular", _atmos(), lam_group=_group()),
                           _group())

@@ -142,45 +142,17 @@ def _rates_accum(line, acc, carry, Jc, r0, g_cell, lte, T, compat):
                              compat=compat)
 
 
-def _edge_pair(engine, acc, prev, first, g_cell, cells=slice(None)):
+def _edge_pair(engine, acc, prev, first, g_cell):
     """Add to acc the trapezoid pair across a lambda block's lower edge,
-    rows (lo - 1, lo), for the cells `cells`: prev is row lo - 1 (from
-    the rank before, parallel/lam.previous_row; None on rank 0), first
-    the block's row lo."""
+    rows (lo - 1, lo): prev is row lo - 1 (from the rank before,
+    parallel/lam.previous_row; None on rank 0 and without a lambda
+    group), first the block's row lo."""
     if prev is None:
         return acc
-    line = dataclasses.replace(engine.line, dlamD=engine.line.dlamD[cells])
     return calculate_R_chunk(
-        line, acc, torch.cat([prev[:, cells], first[:, cells]]),
-        engine.lam_block.start - 1, g_cell[cells], engine.lte[cells],
-        engine.T[cells], compat=engine.cfg.compat)
-
-
-def _rates_and_populations_lam(engine, J, g_cell, site_chunk):
-    """The standard loop's rates / statistical equilibrium on a lambda
-    block: the rate integrals over the block's rows (in slabs of
-    site_chunk entries of the first spatial axis when set, as
-    _rates_and_populations_slabbed), the pair across the block's lower
-    edge, the sum over the ranks, then statistical equilibrium on
-    identical inputs on every rank."""
-    group = engine.lam_group
-    prev = _lam.previous_row(group, J[-1:])
-    n = engine.T.shape[0]
-    step = site_chunk or n
-    R = {}
-    for s0 in range(0, n, step):
-        sl = slice(s0, min(s0 + step, n))
-        line_s = dataclasses.replace(engine.line,
-                                     dlamD=engine.line.dlamD[sl])
-        acc = calculate_R_chunk(line_s, None, J[:, sl],
-                                engine.lam_block.start, g_cell[sl],
-                                engine.lte[sl], engine.T[sl],
-                                compat=engine.cfg.compat)
-        acc = _edge_pair(engine, acc, prev, J[:1], g_cell, sl)
-        for k, v in acc.items():
-            R.setdefault(k, torch.zeros_like(engine.T))[sl] = v
-    R = _lam.all_reduce_rates(group, R, engine.T)
-    return get_revised_populations(R, engine.C, engine.nH)
+        engine.line, acc, torch.cat([prev, first]),
+        engine.lam_block.start - 1, g_cell, engine.lte, engine.T,
+        compat=engine.cfg.compat)
 
 
 def _rates_and_populations(line, J, damping_lam, lte, C, temperature,
@@ -189,33 +161,36 @@ def _rates_and_populations(line, J, damping_lam, lte, C, temperature,
     return get_revised_populations(R, C, hydrogen_density)
 
 
-def _rates_slab(line, J_sl, g_sl, lte_sl, C_sl, T_sl, nH_sl, compat):
-    """One slab of rates + statistical equilibrium with the damping
-    recomputed from the slab's per-cell gamma, so the (nlam, slab) Voigt,
-    cross-section and integrand temporaries stay bounded."""
-    lam = line.lam_tensor().reshape((-1,) + (1,) * T_sl.dim())
-    damp = damping(g_sl[None], lam, line.dlamD[None])
-    R = calculate_R(line, J_sl, damp, lte_sl, T_sl, compat=compat)
-    return get_revised_populations(R, C_sl, nH_sl)
-
-
 def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
-                                   hydrogen_density, compat, site_chunk):
+                                   hydrogen_density, compat, site_chunk,
+                                   group=None, lo=0):
     """The rates / statistical-equilibrium update streamed over slabs of
     site_chunk entries of the first spatial axis (sites, or z-planes of
-    the regular grid): the full damping cube and the rates' temporaries
-    never sit next to J.  Pointwise in space; each slab is written into
-    the result in place."""
+    the regular grid; one slab when site_chunk is None): the damping is
+    recomputed per slab from the per-cell gamma, so the full damping
+    cube and the rates' temporaries never sit next to J.  Pointwise in
+    space; each slab's rate integrals are written into the rates in
+    place.  J holds the line's rows [lo, lo + len(J)).  With a lambda
+    group (J the rank's block) the previous rank's last row leads each
+    slab, so the pair across the block's lower edge integrates here, and
+    the rate integrals are summed over the ranks before the statistical
+    equilibrium, which every rank then solves on the same inputs."""
+    prev = _lam.previous_row(group, J[-1:])
     n = temperature.shape[0]
-    out = torch.empty_like(lte)
-    for s0 in range(0, n, site_chunk):
-        sl = slice(s0, min(s0 + site_chunk, n))
-        line_s = dataclasses.replace(line, dlamD=line.dlamD[sl])
-        out[sl] = _rates_slab(
-            line_s, J[:, sl], g_cell[sl], lte[sl],
-            {k: v[sl] for k, v in C.items()}, temperature[sl],
-            hydrogen_density[sl], compat)
-    return out
+    step = site_chunk or n
+    R = {}
+    for s0 in range(0, n, step):
+        sl = slice(s0, min(s0 + step, n))
+        J_sl = J[:, sl] if prev is None else torch.cat([prev[:, sl],
+                                                         J[:, sl]])
+        acc = calculate_R_chunk(
+            dataclasses.replace(line, dlamD=line.dlamD[sl]), None, J_sl,
+            lo if prev is None else lo - 1, g_cell[sl], lte[sl],
+            temperature[sl], compat=compat)
+        for k, v in acc.items():
+            R.setdefault(k, torch.zeros_like(temperature))[sl] = v
+    R = _lam.all_reduce_rates(group, R, temperature)
+    return get_revised_populations(R, C, hydrogen_density)
 
 
 # elements per block of the criterion: its temporaries stay this size
@@ -235,7 +210,7 @@ def _criterion(S_new, S_old, group=None):
         denom = torch.where(new != 0.0, new, 1.0)
         m = torch.max(torch.abs(new - old) / torch.abs(denom))
         diff = m if diff is None else torch.maximum(diff, m)
-    return float(diff) if group is None else _lam.global_max(group, diff)
+    return _lam.global_max(group, diff)
 
 
 def _sync(t):
@@ -567,9 +542,6 @@ class RegularEngine(_Engine):
                                     sl.start)
             diff = torch.maximum(diff, m)
             del Jc
-        if group is None:
-            return S, get_revised_populations(acc, self.C, self.nH), \
-                float(diff)
         acc = _edge_pair(self, acc, _lam.previous_row(group, carry), first,
                          g_cell)
         acc = _lam.all_reduce_rates(group, acc, self.T)
@@ -801,25 +773,18 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
         t0 = time.perf_counter()
         S_old = S_new
         J = None    # drop the previous J before the new J pass
-        if engine.lam_group is not None:
-            # the damping per lambda chunk inside compute_J; the rates
-            # over the block, then summed over the ranks
-            g_cell = engine._gamma_cell(populations)
-            J = engine.compute_J(S_old, populations, None)
-            S_new = _update_S(line, engine.eps, J, engine.B0)
-            populations = _rates_and_populations_lam(
-                engine, J, g_cell, cfg.rates_site_chunk)
-            del g_cell
-        elif cfg.rates_site_chunk:
+        if cfg.rates_site_chunk or engine.lam_group is not None:
             # production-memory path: damping per lambda chunk inside
             # compute_J, rates streamed over slabs -- the full damping
-            # cube never sits next to J
+            # cube never sits next to J; with a lambda group, the rates
+            # over the block, then summed over the ranks
             g_cell = engine._gamma_cell(populations)
             J = engine.compute_J(S_old, populations, None)
             S_new = _update_S(line, engine.eps, J, engine.B0)
             populations = _rates_and_populations_slabbed(
                 line, J, g_cell, engine.lte, engine.C, engine.T,
-                engine.nH, cfg.compat, cfg.rates_site_chunk)
+                engine.nH, cfg.compat, cfg.rates_site_chunk,
+                engine.lam_group, engine.lam_block.start)
             del g_cell
         else:
             damping_lam = engine.damping_lam(populations)

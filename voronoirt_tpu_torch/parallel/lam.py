@@ -161,7 +161,15 @@ def attach(engine, group):
     engine.lam_group = group
 
 
-def _shard(engine, group):
+def shard_regular(engine, group):
+    """Give an engine built whole `group`'s lambda block: its B0 (and a
+    loaded S) keep the block's rows, and its J passes, rates and
+    criterion run over the block with the group's collectives.  The
+    names of JAX's mesh.py (shard_regular, shard_voronoi on a ("lam",)
+    mesh), one function for both engines (the site axis is not split),
+    kept for tests and for code written against mesh.py: the whole B0
+    has existed by then, which building the engine with lam_group=group
+    avoids."""
     attach(engine, group)
     # keep the block's rows only; the full cubes are freed
     for name in ("B0", "S_start"):
@@ -171,24 +179,7 @@ def _shard(engine, group):
     return engine
 
 
-def shard_regular(engine, group):
-    """Give a built RegularEngine `group`'s lambda block: its B0 (and a
-    loaded S) keep the block's rows, and its J passes, rates and
-    criterion run over the block with the group's collectives (JAX:
-    mesh.py shard_regular on a ("lam",) mesh).  Building the engine
-    with lam_group=group does the same without the full B0 ever
-    existing."""
-    if not hasattr(engine, "atmos"):
-        raise TypeError("shard_regular takes a RegularEngine")
-    return _shard(engine, group)
-
-
-def shard_voronoi(engine, group):
-    """shard_regular's counterpart for a VoronoiEngine (JAX: mesh.py
-    shard_voronoi on a ("lam",) mesh); the site axis is not split."""
-    if not hasattr(engine, "sites"):
-        raise TypeError("shard_voronoi takes a VoronoiEngine")
-    return _shard(engine, group)
+shard_voronoi = shard_regular
 
 
 # --------------------------------------------------------- collectives
@@ -212,10 +203,10 @@ def gather_lambda(t, group):
 def previous_row(group, last):
     """J's row lo - 1, the previous rank's last row (1, ...), which the
     trapezoid pair across this rank's lower block edge needs; None on
-    rank 0.  `last` is this rank's last row.  One broadcast a rank but
-    the last, each to every rank."""
+    rank 0 and without a group (None).  `last` is this rank's last row.
+    One broadcast a rank but the last, each to every rank."""
     prev = None
-    for src in range(group.size - 1):
+    for src in range(group.size - 1 if group is not None else 0):
         buf = _broadcast(group, last, src)
         if src == group.rank - 1:
             prev = buf
@@ -225,7 +216,9 @@ def previous_row(group, last):
 def all_reduce_rates(group, R, like):
     """Sum each radiative-rate tensor of {(i, j): tensor} over the ranks,
     in one all_reduce; a key this rank's block does not reach counts as
-    zeros shaped like `like`."""
+    zeros shaped like `like`.  Without a group (None), R as it is."""
+    if group is None:
+        return R
     flat = torch.stack([R[k] if k in R else torch.zeros_like(like)
                         for k in _R_KEYS])
     group._run(dist.all_reduce, flat, op=dist.ReduceOp.SUM)
@@ -234,7 +227,10 @@ def all_reduce_rates(group, R, like):
 
 def global_max(group, value):
     """The maximum over the ranks of a 0-d tensor, as a float; NaN when
-    any rank's value is NaN (the flag travels beside the value)."""
+    any rank's value is NaN (the flag travels beside the value).
+    Without a group (None), the value itself."""
+    if group is None:
+        return float(value)
     v = torch.stack([torch.isnan(value).to(value.dtype),
                      torch.nan_to_num(value, nan=-torch.inf)])
     group._run(dist.all_reduce, v, op=dist.ReduceOp.MAX)
