@@ -73,11 +73,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      at the block edges and the populations against phase 5's, with
      the cell and level of the largest populations difference; then
      dryrun_multichip(2) on the card, and
-     with one card also dryrun_multichip(1) over NCCL.
+     with one card also dryrun_multichip(1) over NCCL;
+ 14. the regular iteration split over the y axis of a mesh
+     (parallel/mesh.py): two spawned ranks (NCCL on two cards where two
+     are visible, else gloo, both on cuda:0) each run one streamed
+     iteration of phase 5's configuration on their half of the grid in
+     y, K1 on halo-padded tiles and K2 on gathered march planes, with
+     seconds, the halo and gather calls, bytes and seconds, peak memory
+     and launch counts a rank; one xy_plane call on a padded tile and
+     one march_plane call on a gathered plane of a rank held against
+     the plain versions; S at phase 13's rows and the populations
+     against phase 5's at phase 13's bars; then dryrun_multichip(4)
+     (lam 2 x y 2) over gloo on the card.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is visible or the package is not beside it, and fails if
 jax or any module of the JAX package (voronoirt_tpu) was imported.
+
+    python3 chip_smoke.py --phases 5,14
+
+runs phase 1 and the phases named (a phase that needs phase 5's result
+needs 5 named too) and prints neither JSON line: a check while the
+code changes, not the smoke's result.
 """
 
 import gc
@@ -108,6 +125,10 @@ SYNTH_CALL = 100
 # which phase 2 does not check)
 LAM_RANKS = 2
 LAM_CALL = 100
+# phase 14: ranks of the y axis, and which K1 call (on a padded tile) and
+# K2 call (on a gathered plane) of a rank is held against the plain one
+MESH_RANKS = 2
+MESH_CALL = 100
 TOL = {"float64": dict(rtol=1e-12, atol=0.0),
        "float32": dict(rtol=2e-5, atol=1e-6)}
 # the hand-written kernels of the regular path; march_plane is K2 as the
@@ -823,17 +844,19 @@ K2_CALL = 1000
 
 
 @contextmanager
-def _keep_call(name, n, batch=None):
+def _keep_call(name, n, batch=None, shape=None):
     """Keep the arguments and result of the n-th call that the regular
     sweep makes of the kernel wrapper `name` ('xy_plane' or
     'march_plane'), to hold against the plain version afterwards; with
-    `batch`, the n-th call on a batch of that many planes."""
+    `batch`, the n-th call on a batch of that many planes; with `shape`,
+    the n-th call on planes of that shape."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
     fn, kept = getattr(sr, name), {"seen": 0}
 
     def keeping(*args, **kwargs):
-        if batch is not None and args[0].shape[0] != batch:
+        if ((batch is not None and args[0].shape[0] != batch)
+                or (shape is not None and tuple(args[0].shape) != shape)):
             return fn(*args, **kwargs)
         kept["seen"] += 1
         if kept["seen"] != n:
@@ -841,8 +864,11 @@ def _keep_call(name, n, batch=None):
         kept["args"] = tuple(a.clone() if torch.is_tensor(a) else a
                              for a in args)
         kept["statics"] = kwargs
-        kept["out"] = fn(*args, **kwargs)
-        return kept["out"]
+        out = fn(*args, **kwargs)
+        # a copy: on a split grid the sweep refills the output's halo in
+        # place
+        kept["out"] = out.clone()
+        return out
 
     setattr(sr, name, keeping)
     try:
@@ -1447,8 +1473,143 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
              if k not in ("S_edges", "populations")} for o in outs]
 
 
-def main():
+# ------------------------------------------------------------ phase 14
+
+def _phase14_rank(group, call_n):
+    """One rank of phase 14: one streamed iteration of phase 5's
+    configuration on the rank's half of the grid in y, on a ("y",) mesh
+    of the spawn's ranks.  Module level: the spawned ranks unpickle it
+    by name."""
     import torch
+    from voronoirt_tpu_torch import Config, synthetic_atmosphere
+    from voronoirt_tpu_torch.engine import RegularEngine
+    from voronoirt_tpu_torch.kernels import build
+    from voronoirt_tpu_torch.parallel.mesh import make_mesh
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+
+    require(build.library_path().exists(),
+            "the kernels' library that phase 1 built is not there")
+    p = PROD
+    atmos = synthetic_atmosphere(nz=p["nz"], nx=p["nx"], ny=p["ny"])
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], stream_rates=True,
+                 lambda_chunk=p["lambda_chunk"],
+                 group_max_angles=p["group_max_angles"], maxiter=1, eps=0.0)
+    dev = group.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    mesh = make_mesh((group.size,), ("y",), world=group)
+    T = torch.as_tensor(atmos.temperature, dtype=torch.float64, device=dev)
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    eng = RegularEngine(atmos, line, cfg, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    setup = time.perf_counter() - t
+    ys = eng.tile[1]
+    B = cfg.lambda_chunk * cfg.group_max_angles
+    k1_shape = (B, p["nx"], ys.stop - ys.start + 2 * eng.halo.hy)
+    k2_shape = (B, p["nx"], p["ny"])
+    _launch_counts(reset=True)
+    with _keep_call("xy_plane", call_n, shape=k1_shape) as k1, \
+            _keep_call("march_plane", call_n, shape=k2_shape) as k2:
+        res = eng.run()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = {name: {"err": _hold_kept(name, kept, call_n, f"rank "
+                                     f"{group.rank}'s y-split iteration"),
+                   "shape": tuple(kept["out"].shape)}
+            for name, kept in (("xy_plane", k1), ("march_plane", k2))}
+    rows = sorted(set(_edge_rows(line.n_lambda, LAM_RANKS).values()))
+    return {"rank": group.rank, "device": str(dev),
+            "name": torch.cuda.get_device_name(dev), "y": (ys.start, ys.stop),
+            "setup_s": setup, "iteration_s": res.timings[0],
+            "tally": mesh.tally, "world_calls": group.calls,
+            "world_s": group.seconds, "peak_gib": peak / 2**30,
+            "launches": launches, "held": held,
+            "convergence": res.convergence,
+            "S_rows": {r: res.S[r].cpu().numpy() for r in rows},
+            "populations": res.populations.cpu().numpy()}
+
+
+def run_mesh_production(ref, n_ranks=MESH_RANKS):
+    """Phase 14: the streamed iteration at the production width split
+    over the y axis of n_ranks spawned ranks, held against phase 5's (S
+    at phase 13's rows, the populations) at phase 13's bars; then
+    dryrun_multichip(4) over gloo on the card.  Returns each rank's
+    record, without its arrays."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch.entry import dryrun_multichip
+    from voronoirt_tpu_torch.parallel import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= n_ranks else "gloo"
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {n_ranks} ranks on a ('y',) mesh over {backend} "
+          f"({'one card a rank' if backend == 'nccl' else 'all on cuda:0'})",
+          flush=True)
+    t = time.perf_counter()
+    outs = spawn(_phase14_rank, n_ranks, args=(MESH_CALL,), device="cuda",
+                 backend=backend, timeout=1200.0)
+    wall = time.perf_counter() - t
+    P_ref = ref["populations"]
+    for o in outs:
+        ys = slice(*o["y"])
+        errS = max(_rel_np(o["S_rows"][r], ref["S_rows"][r][:, :, ys])
+                   for r in o["S_rows"])
+        want = P_ref[:, :, ys]
+        n_H = want.sum(-1, keepdims=True)
+        errP = float(np.max(np.abs(o["populations"] - want) / n_H))
+        relP = _rel_np(o["populations"], want)
+        tally = o["tally"]
+        print(f"  rank {o['rank']} on {o['device']} ({o['name']}), y "
+              f"{o['y'][0]}-{o['y'][1] - 1}: set-up {o['setup_s']:.2f} s, "
+              f"the iteration {o['iteration_s']:.4f} s; halo exchange "
+              f"{tally['halo']['calls']} all_reduce, "
+              f"{tally['halo']['bytes'] / 1e9:.4f} GB, "
+              f"{tally['halo']['seconds']:.4f} s; plane gather "
+              f"{tally['gather']['calls']} broadcast, "
+              f"{tally['gather']['bytes'] / 1e9:.4f} GB, "
+              f"{tally['gather']['seconds']:.4f} s; criterion "
+              f"{o['world_calls']} call(s) {o['world_s']:.4f} s; peak "
+              f"{o['peak_gib']:.3f} GiB; launches {o['launches']}; S at "
+              f"rows {sorted(o['S_rows'])} vs phase 5 max rel diff "
+              f"{errS:.3e} (<= 1e-12), populations max |diff| / n_H "
+              f"{errP:.3e} (<= 1e-10), max rel diff {relP:.3e} (<= 1e-8); "
+              + "; ".join(f"{k} call {MESH_CALL} at {h['shape']}: max abs "
+                          f"err {h['err']:.3e}" for k, h in o["held"].items()),
+              flush=True)
+        require(errS <= 1e-12 and errP <= 1e-10 and relP <= 1e-8,
+                f"rank {o['rank']} differs from the unsplit iteration")
+        require(o["convergence"] == outs[0]["convergence"],
+                "the ranks' criteria differ")
+        for name, n in o["launches"].items():
+            require(n > 0, f"{name}: no launch on rank {o['rank']}")
+    print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
+          f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
+          f"iteration)", flush=True)
+    t = time.perf_counter()
+    dryrun_multichip(4, backend="gloo")
+    print(f"  dryrun_multichip(4, backend='gloo') on the card: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    return [{k: v for k, v in o.items()
+             if k not in ("S_rows", "populations")} for o in outs]
+
+
+def main(argv=None):
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description="smoke run of the port on "
+                                 "one CUDA card")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after phase 1 "
+                         "(a check while the code changes: no JSON lines)")
+    args = ap.parse_args(argv)
+    only = (None if args.phases is None
+            else {int(p) for p in args.phases.split(",")})
+
+    def want(n):
+        return only is None or n in only
+
     sys.path.insert(0, HERE)
     from voronoirt_tpu_torch import require_cuda
     from voronoirt_tpu_torch.kernels import build
@@ -1471,47 +1632,76 @@ def main():
         gc.collect()
         print(f"{title} (at {time.perf_counter() - t0:.1f} s)", flush=True)
 
-    phase("phase 2: kernels vs plain versions on the card")
-    errs = check_kernels()
-    times, bounds = time_kernels(4 * PROD["lambda_chunk"])
-    times_b1, bounds_b1 = time_kernels(1)
-    phase("phase 3: regular-sweep goldens on the card")
-    check_goldens()
-    phase("phase 4: small entry step, card vs CPU")
-    check_entry()
-    phase("phase 5: production iteration")
+    if want(2):
+        phase("phase 2: kernels vs plain versions on the card")
+        errs = check_kernels()
+        times, bounds = time_kernels(4 * PROD["lambda_chunk"])
+        times_b1, bounds_b1 = time_kernels(1)
+    if want(3):
+        phase("phase 3: regular-sweep goldens on the card")
+        check_goldens()
+    if want(4):
+        phase("phase 4: small entry step, card vs CPU")
+        check_entry()
     atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
-    launches, ref = run_production(atmos)
-    phase("phase 6: Voronoi goldens on the card, wavefront sweeps card vs CPU")
-    check_voronoi_goldens()
-    phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
-    sites = run_voronoi_production(atmos)
-    phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
-          "iteration")
-    check_bezier_sweeps()
-    launches_bezier = run_bezier_production(atmos)
-    phase("phase 9: angle distribution, serial vs two slots on the card")
-    check_angle_distribution()
-    phase("phase 10: continuum scattering iteration")
-    launches_continuum = run_continuum(atmos, sites)
-    del sites
-    phase("phase 11: checkpoint/resume on the card, the drivers")
-    check_checkpoint_resume()
-    check_device_trace()
-    run_drivers()
-    phase("phase 12: the synthesize and continuum_study drivers at full "
-          "width")
-    launches_synth = run_synthesis(atmos, ref)
-    launches_study = run_study()
-    phase(f"phase 13: the lambda-split production iteration, {LAM_RANKS} "
-          f"ranks")
-    launches_lam = [o["launches"] for o in run_lam_production(ref)]
+    if want(5):
+        phase("phase 5: production iteration")
+        launches, ref = run_production(atmos)
+    if want(6):
+        phase("phase 6: Voronoi goldens on the card, wavefront sweeps card "
+              "vs CPU")
+        check_voronoi_goldens()
+    if want(7):
+        phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
+        sites = run_voronoi_production(atmos)
+    if want(8):
+        phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
+              "iteration")
+        check_bezier_sweeps()
+        launches_bezier = run_bezier_production(atmos)
+    if want(9):
+        phase("phase 9: angle distribution, serial vs two slots on the card")
+        check_angle_distribution()
+    if want(10):
+        phase("phase 10: continuum scattering iteration")
+        launches_continuum = run_continuum(atmos, sites)
+        del sites
+    if want(11):
+        phase("phase 11: checkpoint/resume on the card, the drivers")
+        check_checkpoint_resume()
+        check_device_trace()
+        run_drivers()
+    if want(12):
+        phase("phase 12: the synthesize and continuum_study drivers at full "
+              "width")
+        launches_synth = run_synthesis(atmos, ref)
+        launches_study = run_study()
+    if want(13):
+        phase(f"phase 13: the lambda-split production iteration, "
+              f"{LAM_RANKS} ranks")
+        launches_lam = [o["launches"] for o in run_lam_production(ref)]
+    if want(14):
+        phase(f"phase 14: the production iteration split over y, "
+              f"{MESH_RANKS} ranks")
+        mesh_ranks = run_mesh_production(ref)
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules if m == "voronoirt_tpu"
                      or m.startswith("voronoirt_tpu."))
     require(not jax_pkg, f"modules of the JAX package imported: {jax_pkg}")
+    if only is not None:
+        print(f"phases {sorted(only)} passed (a partial run: no result)",
+              flush=True)
+        return 0
+    # the split path's K1 and K2 calls: shapes and launches a rank
+    mesh_shapes = {"xy_plane": mesh_ranks[0]["held"]["xy_plane"]["shape"],
+                   "march_plane": mesh_ranks[0]["held"]["march_plane"][
+                       "shape"]}
+    mesh_shapes["march_coeffs"] = mesh_shapes["march_chain"] = \
+        mesh_shapes["march_plane"]
+    mesh_errs = {name: max(o["held"][name]["err"] for o in mesh_ranks)
+                 for name in ("xy_plane", "march_plane")}
     k2 = ("voronoirt_tpu_torch/csrc/march_plane.cu",
           "voronoirt_tpu/solvers/pallas_march.py:89")
     src = {"xy_plane": ("voronoirt_tpu_torch/csrc/xy_plane.cu",
@@ -1531,7 +1721,11 @@ def main():
                 "launches_synthesize": {f"theta_{t:g}": n[name] for t, n in
                                         launches_synth.items()},
                 "launches_continuum_study": launches_study[name],
-                "launches_lam_ranks": [n[name] for n in launches_lam]}
+                "launches_lam_ranks": [n[name] for n in launches_lam],
+                "launches_mesh_y_ranks": [o["launches"][name]
+                                          for o in mesh_ranks],
+                "shape_mesh_y": mesh_shapes[name],
+                "max_abs_err_mesh_y": mesh_errs.get(name)}
                for name in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

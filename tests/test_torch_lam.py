@@ -327,23 +327,27 @@ def test_refuses_nccl_beyond_the_visible_cards(tmp_path):
 
 @pytest.mark.parametrize("name", ["regular", "streamed"])
 def test_refuses_checkpoints(name):
-    """Checkpoints of a lambda-split run are not ported (write_state needs
-    the whole S): run(checkpoint=...) and recover raise before any
-    collective."""
-    store = object()
+    """Checkpoints of a lambda-split run are written and resumed
+    (tests/test_torch_mesh.py runs them); what recover refuses, before
+    any collective, is a store whose arrays do not cover the engine's
+    whole line and grid: here no source function, and one rank's block
+    of it."""
     eng = _engine(name, _atmos(), lam_group=_group(rank=1))
-    with pytest.raises(NotImplementedError, match="lambda group"):
-        eng.run(checkpoint=store)
+    block = eng.B0.numpy()
 
     class Store:
+        def __init__(self, S):
+            self.S = S
+
         def read_state(self):
-            return eng.lte.numpy(), None, np.zeros(3)
+            return eng.lte.numpy(), self.S, np.zeros(3)
 
         def resume_iteration(self):
             return 1
 
-    with pytest.raises(NotImplementedError, match="lambda group"):
-        recover(eng, Store())
+    for S in (None, block):
+        with pytest.raises(ValueError, match="line and grid need"):
+            recover(eng, Store(S))
 
 
 def test_a_failing_rank_fails_the_spawn():

@@ -24,4 +24,4 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 47, proc.stdout
+    assert n_modules >= 48, proc.stdout

@@ -56,7 +56,8 @@ def main(argv=None):
                          "through profile->sweep->J (production-scale "
                          "memory bound); 0 = all at once")
     ap.add_argument("--f32", action="store_true",
-                    help="float32 end to end (default is float64)")
+                    help="float32 end to end: refused by the NLTE "
+                         "engines, whose ground level cancels in float32")
     ap.add_argument("--boost", type=float, default=2.0e9,
                     help="collisional-rate boost (rates.jl:3; the "
                          "reference's 2e9 drives the destruction "

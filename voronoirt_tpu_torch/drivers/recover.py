@@ -75,7 +75,9 @@ def main(argv=None):
     ap.add_argument("--voronoi-order", default="layer",
                     choices=("layer", "wavefront"))
     ap.add_argument("--lambda-chunk", type=int, default=0)
-    ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--f32", action="store_true",
+                    help="float32: refused by the NLTE engines, as in "
+                         "line_nlte")
     ap.add_argument("--no-cache", action="store_true")
     ap.add_argument("--rates-chunk", type=int, default=0,
                     help="stream the rates/SE update over slabs "

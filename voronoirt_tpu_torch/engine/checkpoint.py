@@ -130,11 +130,20 @@ def recover(engine, path):
     engine constructor; populations and S come from the store, placed on
     the engine's device; the loop re-enters at the saved iteration.  It
     always re-enters the standard loop, so cfg.stream_rates does nothing
-    on a resume, as in the JAX package.
+    on a resume, as in the JAX package.  On an engine split over ranks
+    every rank reads the whole arrays and keeps its share; a store whose
+    arrays do not cover the engine's whole line and grid is refused.
     """
     from .lambda_iter import _run_iteration
     ckpt = path if hasattr(path, "read_state") else CheckpointFile(path)
     pops, S, _ = ckpt.read_state()
+    shape = engine.grid_shape()
+    want = ((engine.line.n_lambda,) + shape, shape + (3,))
+    got = tuple(None if a is None else tuple(a.shape) for a in (S, pops))
+    if got != want:
+        raise ValueError(f"the store's source function and populations "
+                         f"are {got[0]} and {got[1]}; this engine's line "
+                         f"and grid need {want[0]} and {want[1]}")
     it = ckpt.resume_iteration()
     return _run_iteration(engine, checkpoint=ckpt, start_iteration=it,
                           S_init=S, populations_init=pops)

@@ -24,11 +24,17 @@ angles over the engine's angle_devices (parallel/angles.py).  With a
 lambda group (parallel/lam.py; JAX: a "lam" mesh axis) the engine holds
 one block of the line's wavelengths: its frozen B0, S and J are the
 block's rows, its chunks run over the block, and the rate integrals and
-the criterion are reduced over the group's ranks.  RegularEngine and
+the criterion are reduced over the group's ranks.  On a mesh
+(parallel/mesh.py) it also holds one (x, y) tile of the regular grid, or
+one block of the Voronoi sites, of every field and of S, J and the
+populations: the sweeps exchange halos or gather what they read, the
+rates stay local to a cell and are summed over the "lam" axis only, and
+the criterion is reduced over the whole mesh.  RegularEngine and
 VoronoiEngine share the frozen set-up, the per-cell fields and
 load_state through one base class, and run() through one outer loop,
 which writes to a checkpoint store when given one
-(engine/checkpoint.py).
+(engine/checkpoint.py); a split run's state is gathered to the host of
+rank 0, which alone writes.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..device import torch_dtype
 from ..grid.voronoi import build_voronoi_plan
 from ..parallel import angles as _ang
 from ..parallel import lam as _lam
+from ..parallel.mesh import gather_space
 from ..physics.atom import (alpha_line, compute_profile, destruction,
                             line_of_sight_velocity)
 from ..physics.broadening import damping, gamma_constant
@@ -66,8 +73,10 @@ class NLTEResult:
     """Outcome of a Lambda iteration; fields are tensors on the engine's
     device (J is None for the streamed loop).  With a lambda group, S
     and J are the rank's block of wavelengths (parallel/lam.gather_lambda
-    assembles them); convergence and populations are the same on every
-    rank."""
+    assembles them); on a mesh's spatial axes, S, J, populations and
+    alpha_cont are the rank's tile or block of sites
+    (parallel/mesh.gather_space assembles them).  Convergence is the same
+    on every rank, and so are the populations across a lambda group."""
     J: torch.Tensor
     S: torch.Tensor
     alpha_cont: torch.Tensor
@@ -228,18 +237,30 @@ class _Engine:
 
     device: where every field lives (default: the device of
     line.dlamD).  cfg.dtype is the working type of physics and
-    transport alike; a different cfg.transport_dtype is refused (float32
-    transport is not accurate yet, ROADMAP C3).  lam_group: a
+    transport alike and must be float64 (n1 = n_H - n2 - n3 cancels in
+    float32, ROADMAP C4); a different cfg.transport_dtype is refused
+    (float32 transport is not accurate yet, ROADMAP C3).  lam_group: a
     parallel.lam.LamGroup, whose block of the line (lam_block, global
     rows) this engine then owns; the line itself stays whole, since the
-    rate windows read it by global index.
+    rate windows read it by global index.  mesh: a parallel.mesh.Mesh,
+    whose "lam" sub-group becomes lam_group and whose spatial axes give
+    the engine its tile (regular) or block of sites (Voronoi).
     """
 
-    def __init__(self, line, cfg: Config, quadrature, device, lam_group):
+    def __init__(self, line, cfg: Config, quadrature, device, lam_group,
+                 mesh=None):
         self.cfg = cfg
         self.device = torch.device(device if device is not None
                                    else line.dlamD.device)
         self.dtype = torch_dtype(cfg.dtype)
+        if self.dtype != torch.float64:
+            raise NotImplementedError(
+                f"dtype={cfg.dtype!r}: the NLTE engines run in float64 "
+                f"only.  The ground level n1 = atom_density - n2 - n3 "
+                f"(physics/stateq.py) cancels in ionised cells, where n1 "
+                f"is ~1e-7 of n_H, so float32 rounding of n2 + n3 becomes "
+                f"a 7-22 % error in n1 after one iteration and then "
+                f"line-core J; the JAX package shares the cancellation")
         if cfg.sweep_dtype != cfg.dtype:
             raise NotImplementedError(
                 f"transport_dtype={cfg.transport_dtype!r} differs from "
@@ -252,8 +273,51 @@ class _Engine:
         self._angle_static = None
         self.lam_group = None
         self.lam_block = slice(0, self.line.n_lambda)
+        self.mesh = None
+        if lam_group is not None and mesh is not None:
+            raise ValueError("give lam_group or a mesh (which carries its "
+                             "lambda group), not both")
         if lam_group is not None:
             _lam.attach(self, lam_group)
+
+    def _attach_mesh(self, mesh):
+        """Make this engine one rank's part of `mesh`: the "lam" axis's
+        block of the line and the spatial axes' share of the grid
+        (_split_space).  Angle slots are refused, as with a lambda
+        group."""
+        if self.mesh is not None:
+            raise ValueError("the engine already has a mesh")
+        if mesh.lam is not None:
+            _lam.attach(self, mesh.lam)
+        elif self.angle_devices:
+            raise ValueError("an engine takes a mesh or angle distribution "
+                             "(parallel/angles.py), not both")
+        elif self.lam_group is not None:
+            raise ValueError("the engine already has a lambda group")
+        self.mesh = mesh
+        self._split_space(mesh)
+
+    def _world(self):
+        """The group that spans every rank of the run (the criterion's
+        maximum, checkpoints), or None for a run on one rank."""
+        return self.mesh.world if self.mesh is not None else self.lam_group
+
+    def _cut_fields(self):
+        """Keep the rank's share of fields set up whole (shard_regular,
+        shard_voronoi): the tile or block of sites of every per-cell
+        field, and the lambda block's rows of B0 and a loaded S."""
+        for name in ("T", "ne", "nH", "v", "lte", "a_cont", "eps",
+                     "populations_start"):
+            a = getattr(self, name)
+            if a is not None:
+                setattr(self, name, self._cut(a).contiguous())
+        self.C = {k: self._cut(v).contiguous() for k, v in self.C.items()}
+        self._cut_line()
+        for name in ("B0", "S_start"):
+            a = getattr(self, name)
+            if a is not None:
+                # .clone(): the whole cube is freed
+                setattr(self, name, self._cut(self._rows(a), 1).clone())
 
     def _slots(self, **state):
         """The per-angle loops' view of where each angle runs: (state,
@@ -269,10 +333,11 @@ class _Engine:
     def _frozen_setup(self, fields):
         """The per-cell fields of `fields` (an Atmosphere or
         VoronoiSites) on the device, and the frozen set-up on them."""
-        self.T = self._field(fields.temperature)
-        self.ne = self._field(fields.electron_density)
-        self.nH = self._field(fields.hydrogen_populations)
-        self.v = self._field(fields.velocity_zxy())
+        self._cut_line()
+        self.T = self._field(self._cut(fields.temperature))
+        self.ne = self._field(self._cut(fields.electron_density))
+        self.nH = self._field(self._cut(fields.hydrogen_populations))
+        self.v = self._field(self._cut(fields.velocity_zxy()))
         (self.lte, self.a_cont, self.eps, self.C,
          self.B0) = frozen_setup(self.line, self.T, self.ne, self.nH,
                                  self.cfg, self.lam_block)
@@ -295,7 +360,9 @@ class _Engine:
         'populations', which become the starting state of run().  The
         counterpart of tests/test_nlte_parity.py::_inject_frozen: it
         lets the port start from the JAX engine's state.  With a lambda
-        group, a 'B0' or 'S' of the whole line is cut to the block.
+        group, a 'B0' or 'S' of the whole line is cut to the block; on a
+        mesh's spatial axes, an array of the whole grid to the rank's
+        tile or block of sites.
         """
         known = {"lte", "a_cont", "eps", "B0", "S", "populations"} | {
             f"C_{i}{j}" for i, j in _C_KEYS}
@@ -304,20 +371,35 @@ class _Engine:
             raise KeyError(f"unknown state keys {sorted(unknown)}")
         for name in ("lte", "a_cont", "eps"):
             if name in arrays:
-                setattr(self, name, self._field(arrays[name]))
+                setattr(self, name, self._field(self._cut(arrays[name])))
         if "B0" in arrays:
-            self.B0 = self._field(self._rows(arrays["B0"]))
+            self.B0 = self._field(self._cut(self._rows(arrays["B0"]), 1))
         for i, j in _C_KEYS:
             if f"C_{i}{j}" in arrays:
-                self.C[(i, j)] = self._field(arrays[f"C_{i}{j}"])
+                self.C[(i, j)] = self._field(self._cut(arrays[f"C_{i}{j}"]))
         if "S" in arrays:
-            self.S_start = self._field(self._rows(arrays["S"]))
+            self.S_start = self._field(self._cut(self._rows(arrays["S"]), 1))
         if "populations" in arrays:
-            self.populations_start = self._field(arrays["populations"])
+            self.populations_start = self._field(
+                self._cut(arrays["populations"]))
+
+    def _cut_line(self):
+        """The line's per-cell Doppler widths cut to the rank's share."""
+        self.line = dataclasses.replace(
+            self.line, dlamD=self._cut(self.line.dlamD).contiguous())
 
     def _rows(self, a):
         """The lambda block's rows of an array over the whole line."""
         return a[self.lam_block] if len(a) == self.line.n_lambda else a
+
+    def _cut(self, a, lead=0):
+        """The rank's tile (or block of sites) of an array over the whole
+        grid whose spatial dims follow `lead` leading dims (1 for a
+        (nlam, ...) array); an array already cut is returned as it is."""
+        grid = self.grid_shape()
+        if tuple(a.shape[lead:lead + len(grid)]) != grid:
+            return a
+        return a[(slice(None),) * lead + self._space_index()]
 
     def block_lam(self):
         """The wavelengths of the engine's lambda block (all of the
@@ -351,8 +433,8 @@ class RegularEngine(_Engine):
     """
 
     def __init__(self, atmos, line, cfg: Config, quadrature=None,
-                 device=None, lam_group=None):
-        super().__init__(line, cfg, quadrature, device, lam_group)
+                 device=None, lam_group=None, mesh=None):
+        super().__init__(line, cfg, quadrature, device, lam_group, mesh)
         if cfg.formal_interpolation not in ("linear", "bezier"):
             raise ValueError(
                 f"unknown formal_interpolation {cfg.formal_interpolation!r}")
@@ -365,7 +447,36 @@ class RegularEngine(_Engine):
         self.plan_groups = group_plans(self.quad.k, self.quad.is_up, z,
                                        atmos.dx, atmos.dy,
                                        max_group=cfg.group_max_angles)
+        self.tile = (slice(None), slice(None))
+        self.halo = None
+        if mesh is not None:
+            self._attach_mesh(mesh)
         self._frozen_setup(atmos)
+
+    def _split_space(self, mesh):
+        """The (x, y) tile of the mesh's "x" and "y" axes, and the halo
+        its sweeps exchange: one cell, two for the Bezier xy step."""
+        if mesh.size("site") > 1:
+            raise ValueError("the regular grid splits over 'x' and 'y', "
+                             "not 'site'")
+        _, nx, ny = self.atmos.shape
+        self.tile = (mesh.block("x", nx), mesh.block("y", ny))
+        self.halo = mesh.halo(
+            2 if self.cfg.formal_interpolation == "bezier" else 1)
+
+    def _space_index(self):
+        return (slice(None),) + self.tile
+
+    def grid_shape(self):
+        """The whole grid's shape, (nz, nx, ny)."""
+        return tuple(self.atmos.shape)
+
+    def _pad(self, A):
+        """A tile (..., nx, ny) padded with its halos on a split grid."""
+        return self.halo.pad(A) if self.halo is not None else A
+
+    def _strip(self, A):
+        return self.halo.strip(A) if self.halo is not None else A
 
     # ---- extinction
 
@@ -451,21 +562,24 @@ class RegularEngine(_Engine):
         slot that owns the angle; the slots' partial sums are reduced on
         S's device."""
         quad, cfg = self.quad, self.cfg
-        state, static = self._slots(S_t=S_c.transpose(0, 1), damping=damp_c,
-                                    populations=populations, lam=lam_c)
+        state, static = self._slots(S_t=self._pad(S_c.transpose(0, 1)),
+                                    damping=damp_c, populations=populations,
+                                    lam=lam_c)
         partials = {}
         for i, plan in enumerate(self.plans):
             slot = _ang.angle_device(self, i) if self.angle_devices else 0
             st, dst = state[slot], static[slot]
-            a_t = self._alpha_tot_t(quad.k[i], st["lam"], st["populations"],
-                                    st["damping"], g_cell, static=dst)
-            I = sweep(plan, st["S_t"], a_t, self._I0(st["lam"], plan.up, dst),
+            a_t = self._pad(self._alpha_tot_t(
+                quad.k[i], st["lam"], st["populations"], st["damping"],
+                g_cell, static=dst))
+            I = sweep(plan, st["S_t"], a_t,
+                      self._pad(self._I0(st["lam"], plan.up, dst)),
                       n_sweeps=cfg.n_sweeps,
-                      interpolation=cfg.formal_interpolation)
+                      interpolation=cfg.formal_interpolation, halo=self.halo)
             del a_t
             # the partial sums stay in the sweep's z-major layout
-            _ang.partial_accumulate(partials, slot,
-                                    I.mul_(float(quad.weights[i])))
+            _ang.partial_accumulate(partials, slot, self._strip(I).mul_(
+                float(quad.weights[i])))
         J_t = _ang.reduce_partials(partials, _ang.target_device(S_c))
         return J_t.transpose(0, 1).contiguous()
 
@@ -475,35 +589,38 @@ class RegularEngine(_Engine):
         group, each angle's extinction, flipped to the canonical
         quadrant and stacked along the batch axis, runs ONE sweep whose
         planes reduce into the quadrature-weighted J as they are made."""
-        quad = self.quad
+        quad, pad = self.quad, self._pad
         Jc = torch.zeros_like(S_c)
-        S_t = S_c.transpose(0, 1)          # (nz, chunk, nx, ny)
+        # (nz, chunk, nx, ny); on a split grid a padded tile, its halos
+        # filled once for the chunk
+        S_t = pad(S_c.transpose(0, 1))
         for group in self.plan_groups:
             if len(group) == 1:
                 (i, _, _) = group[0]
                 plan = self.plans[i]
-                a_t = self._alpha_tot_t(quad.k[i], lam_c, populations,
-                                        damp_c, g_cell)
-                I = sweep(plan, S_t, a_t, self._I0(lam_c, plan.up),
-                          n_sweeps=self.cfg.n_sweeps)
+                a_t = pad(self._alpha_tot_t(quad.k[i], lam_c, populations,
+                                            damp_c, g_cell))
+                I = sweep(plan, S_t, a_t, pad(self._I0(lam_c, plan.up)),
+                          n_sweeps=self.cfg.n_sweeps, halo=self.halo)
                 # in-place J accumulation
-                Jc.add_(float(quad.weights[i]) * I.transpose(0, 1))
+                Jc.add_(float(quad.weights[i])
+                        * self._strip(I).transpose(0, 1))
                 continue
-            a_list = [self._alpha_tot_t(quad.k[i], lam_c, populations,
-                                        damp_c, g_cell)
+            a_list = [pad(self._alpha_tot_t(quad.k[i], lam_c, populations,
+                                            damp_c, g_cell))
                       for (i, _, _) in group]
             # the boundary follows the ORIGINAL direction (fz = originally
             # down, z-flip-canonicalized)
-            I0_list = [self._I0(lam_c, not fz)
+            I0_list = [pad(self._I0(lam_c, not fz))
                        for (_, _, (_, _, fz)) in group]
             I_g = sweep_group_J(
                 tuple(p for (_, p, _) in group), S_t, a_list, I0_list,
                 [float(quad.weights[i]) for (i, _, _) in group],
                 n_sweeps=self.cfg.n_sweeps,
-                flips=tuple(f for (_, _, f) in group))
+                flips=tuple(f for (_, _, f) in group), halo=self.halo)
             del a_list      # free before the next group's extinction
             # in-place J accumulation
-            Jc.add_(I_g.transpose(0, 1))
+            Jc.add_(self._strip(I_g).transpose(0, 1))
         return Jc
 
     def bottom_boundary(self):
@@ -546,7 +663,7 @@ class RegularEngine(_Engine):
                          g_cell)
         acc = _lam.all_reduce_rates(group, acc, self.T)
         pops = get_revised_populations(acc, self.C, self.nH)
-        return S, pops, _lam.global_max(group, diff)
+        return S, pops, _lam.global_max(self._world(), diff)
 
     def run(self, checkpoint=None):
         if self.cfg.stream_rates:
@@ -574,11 +691,15 @@ class VoronoiEngine(_Engine):
     """
 
     def __init__(self, sites, line, cfg: Config, quadrature=None,
-                 plans=None, device=None, lam_group=None):
-        super().__init__(line, cfg, quadrature, device, lam_group)
+                 plans=None, device=None, lam_group=None, mesh=None):
+        super().__init__(line, cfg, quadrature, device, lam_group, mesh)
         self.sites = sites
         self.plans = list(plans) if plans is not None else \
             self.build_plans(sites, self.quad, cfg)
+        self.site_block = slice(0, sites.n)
+        self._T_sites = None
+        if mesh is not None:
+            self._attach_mesh(mesh)
         self._frozen_setup(sites)
         self._bc_sites = [torch.as_tensor(np.asarray(p.bc_sites,
                                                      dtype=np.int64),
@@ -588,6 +709,24 @@ class VoronoiEngine(_Engine):
         # than in the first J pass
         for p in self.plans:
             device_plan(p, cfg.n_sweeps, self.device, self.dtype)
+
+    def _split_space(self, mesh):
+        """The block of sites of the mesh's site axis; the boundary
+        sites' temperatures of every plan stay whole (_T_sites)."""
+        axis = mesh.site_axis()
+        if axis is not None and mesh.size(axis) > 1:
+            self.site_block = mesh.block(axis, self.sites.n)
+            self._T_sites = self._field(self.sites.temperature)
+
+    def _space_index(self):
+        return (self.site_block,)
+
+    def grid_shape(self):
+        """The whole grid's shape, (n_sites,)."""
+        return (self.sites.n,)
+
+    def _site_split(self):
+        return self._T_sites is not None
 
     @staticmethod
     def build_plans(sites, quad, cfg: Config):
@@ -636,7 +775,8 @@ class VoronoiEngine(_Engine):
         (lambda_iteration.jl:99-102)."""
         bc = self._bc_sites[i].to(lam_c.device)
         if self.plans[i].up:
-            T = static["T"] if static else self.T
+            T = static["T"] if static else (
+                self._T_sites if self._site_split() else self.T)
             return B_lambda(lam_c[:, None], T[bc][None])
         return torch.zeros((lam_c.shape[0], bc.shape[0]), dtype=self.dtype,
                            device=lam_c.device)
@@ -675,18 +815,27 @@ class VoronoiEngine(_Engine):
         slot that owns it, the slots' partial sums reduced on S's
         device (undistributed: one slot, the engine's own tensors)."""
         quad, cfg = self.quad, self.cfg
-        state, static = self._slots(S_T=S_c.T.contiguous(), damping=damp_c,
-                                    populations=populations, lam=lam_c)
+        # on a split site axis the sweeps read every site: S and each
+        # direction's extinction are gathered, J is kept for the block
+        def whole(A):
+            return (gather_space(A, self.mesh, dims=(0,))
+                    if self._site_split() else A)
+
+        state, static = self._slots(S_T=whole(S_c.T.contiguous()),
+                                    damping=damp_c, populations=populations,
+                                    lam=lam_c)
         partials = {}
         for i, plan in enumerate(self.plans):
             slot = _ang.angle_device(self, i) if self.angle_devices else 0
             st, dst = state[slot], static[slot]
-            a_T = self._alpha_tot_T(quad.k[i], st["lam"], st["populations"],
-                                    st["damping"], g_cell, static=dst)
+            a_T = whole(self._alpha_tot_T(
+                quad.k[i], st["lam"], st["populations"], st["damping"],
+                g_cell, static=dst))
             I_T = sweep_voronoi_t(plan, st["S_T"], a_T,
                                   self._I0(i, st["lam"], dst),
                                   n_sweeps=cfg.n_sweeps,
-                                  relax_tol=cfg.voronoi_relax_tol)
+                                  relax_tol=cfg.voronoi_relax_tol)[
+                                      self.site_block]
             del a_T
             # in-place J accumulation (the JAX package donates J to a
             # fused J + w * I)
@@ -714,13 +863,71 @@ def _refuse_streamed(engine):
             "stream_rates does not take an engine with angle distribution")
 
 
-def _refuse_lam_checkpoint(engine, checkpoint):
-    """A lambda-split engine holds one block of S, and write_state needs
-    the whole S: checkpoints of such runs are not ported (ROADMAP)."""
-    if checkpoint is not None and engine.lam_group is not None:
-        raise NotImplementedError(
-            "checkpoints of an engine with a lambda group are not ported: "
-            "write_state needs the whole S, and each rank holds one block")
+def _placement(engine, rank):
+    """(rows, index, lam_index) of a world rank's share: its rows of the
+    line, the index of its tile (or block of sites) in an array over the
+    whole grid, and its coordinate on the lambda axis."""
+    n_lam = engine.line.n_lambda
+    if engine.mesh is None:           # a lambda group spanning the world
+        k = n_lam // engine.lam_group.size
+        return slice(rank * k, (rank + 1) * k), (slice(None),), rank
+    mesh = engine.mesh
+    at = mesh.coords_of(rank)
+    if hasattr(engine, "atmos"):
+        _, nx, ny = engine.atmos.shape
+        index = (slice(None), mesh.block("x", nx, rank),
+                 mesh.block("y", ny, rank))
+    else:
+        axis = mesh.site_axis()
+        index = ((mesh.block(axis, engine.sites.n, rank),) if axis
+                 else (slice(None),))
+    return mesh.block("lam", n_lam, rank), index, at.get("lam", 0)
+
+
+def _host_state(engine, populations, S):
+    """The whole populations and S of a split run as numpy arrays on
+    world rank 0 ((None, None) on the others): each rank's rows of S, one
+    row at a time, and the populations of each tile (from the rank at
+    lambda coordinate 0), each one broadcast, so no whole cube is ever on
+    the card."""
+    world = engine._world()
+    root = world.rank == 0
+    whole = engine.grid_shape()
+    S_host = (np.empty((engine.line.n_lambda,) + whole, np.float64)
+              if root else None)
+    P_host = np.empty(whole + (3,), np.float64) if root else None
+    for r in range(world.size):
+        rows, index, lam_index = _placement(engine, r)
+        for j in range(rows.stop - rows.start):
+            row = _lam._broadcast(world, S[j], r)
+            if root:
+                S_host[(rows.start + j,) + index] = row.cpu().numpy()
+        if lam_index == 0:
+            tile = _lam._broadcast(world, populations, r)
+            if root:
+                P_host[index] = tile.cpu().numpy()
+    return P_host, S_host
+
+
+def _write_state(engine, checkpoint, populations, S):
+    """checkpoint.write_state of the whole state: on one rank directly;
+    in a split run gathered to rank 0 (_host_state), which alone
+    writes."""
+    world = engine._world()
+    if world is None:
+        checkpoint.write_state(populations, S)
+        return
+    P_host, S_host = _host_state(engine, populations, S)
+    if world.rank == 0:
+        checkpoint.write_state(P_host, S_host)
+
+
+def _write_convergence(engine, checkpoint, iteration, diff):
+    """checkpoint.write_convergence on rank 0 of a split run (every
+    rank holds the same criterion), else directly."""
+    world = engine._world()
+    if world is None or world.rank == 0:
+        checkpoint.write_convergence(iteration, diff)
 
 
 def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
@@ -731,22 +938,24 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
     every loop head goes to checkpoint.write_convergence, the state to
     checkpoint.write_state every cfg.checkpoint_every iterations (the
     only iterations that copy S to the host).  Starts from S_init /
-    populations_init (numpy arrays or tensors, placed on the engine's
-    device), else the engine's loaded state, else B0 / LTE.  On a resume
+    populations_init (numpy arrays or tensors over the whole grid and
+    line, cut to the rank's share and placed on the engine's device),
+    else the engine's loaded state, else B0 / LTE.  On a resume
     (start_iteration > 0) the first criterion compares against zeros and
-    records a spurious 1.0, as the JAX package does."""
+    records a spurious 1.0, as the JAX package does.  A split run writes
+    through rank 0 (_write_state, _write_convergence); every rank runs
+    the gathers."""
     cfg = engine.cfg
     line = engine.line
-    _refuse_lam_checkpoint(engine, checkpoint)
 
     if populations_init is not None:
-        populations = engine._field(populations_init)
+        populations = engine._field(engine._cut(populations_init))
     elif engine.populations_start is not None:
         populations = engine.populations_start
     else:
         populations = engine.lte
     if S_init is not None:
-        S_new = engine._field(S_init)
+        S_new = engine._field(engine._cut(engine._rows(S_init), 1))
     elif engine.S_start is not None:
         S_new = engine.S_start
     else:
@@ -758,10 +967,10 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
     J = None
     i = start_iteration
     while True:
-        diff = _criterion(S_new, S_old, engine.lam_group)
+        diff = _criterion(S_new, S_old, engine._world())
         convergence.append(diff)
         if checkpoint is not None:
-            checkpoint.write_convergence(i + 1, diff)
+            _write_convergence(engine, checkpoint, i + 1, diff)
         if np.isnan(diff):
             print(f"NaN convergence at iteration {i}")
         if i > 0:
@@ -798,7 +1007,7 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
         timings.append(time.perf_counter() - t0)
 
         if checkpoint is not None and i % cfg.checkpoint_every == 0:
-            checkpoint.write_state(populations, S_new)
+            _write_state(engine, checkpoint, populations, S_new)
         i += 1
 
     converged = convergence[-1] <= cfg.eps
@@ -819,7 +1028,6 @@ def _run_iteration_streamed(engine, checkpoint=None):
     `checkpoint` as _run_iteration does."""
     cfg = engine.cfg
     _refuse_streamed(engine)
-    _refuse_lam_checkpoint(engine, checkpoint)
     populations = (engine.populations_start
                    if engine.populations_start is not None else engine.lte)
     S = engine.S_start if engine.S_start is not None else engine.B0
@@ -827,7 +1035,7 @@ def _run_iteration_streamed(engine, checkpoint=None):
     convergence = [1.0]
     timings = []
     if checkpoint is not None:
-        checkpoint.write_convergence(1, 1.0)
+        _write_convergence(engine, checkpoint, 1, 1.0)
     print("Iteration 1...")
     i = 0
     diff = float("inf")
@@ -842,9 +1050,9 @@ def _run_iteration_streamed(engine, checkpoint=None):
             print(f"NaN convergence at iteration {i}")
         print(f"   Rel. diff.: {diff}")
         if checkpoint is not None:
-            checkpoint.write_convergence(i + 1, diff)
+            _write_convergence(engine, checkpoint, i + 1, diff)
             if (i - 1) % cfg.checkpoint_every == 0:
-                checkpoint.write_state(populations, S)
+                _write_state(engine, checkpoint, populations, S)
         if diff > cfg.eps and i < cfg.maxiter:
             print(f"Iteration {i + 1}...")
     converged = convergence[-1] <= cfg.eps

@@ -9,9 +9,10 @@ radiative rates -> statistical-equilibrium populations.
 
 dryrun_multichip(n_ranks) is the counterpart of
 __graft_entry__.dryrun_multichip: one Lambda iteration of both engines
-with the wavelength axis split over n_ranks processes
-(parallel/lam.py), each held against the unsharded iteration, then the
-Voronoi angle distribution.
+on a mesh of n_ranks processes (parallel/mesh.py) factored as JAX
+factors its devices -- lam = 2 (else 3, else 1) wavelength blocks times
+y (regular grid) or site (Voronoi grid) shards -- each held against the
+unsharded iteration, then the Voronoi angle distribution.
 
 All three run on the CUDA card unless the caller asks for another
 device (device="cpu", as the CPU tests do); with no card visible and no
@@ -35,6 +36,7 @@ from .engine.lambda_iter import (RegularEngine, VoronoiEngine,
 from .grid import build_sites, initialise_sites, sample_sites
 from .parallel import distribute_angles
 from .parallel.lam import gather_lambda, spawn
+from .parallel.mesh import gather_space, make_mesh
 from .physics.atom import lyman_alpha_line, pad_line
 from .quadrature import get_quadrature
 
@@ -73,12 +75,37 @@ def entry(device=None):
 # ------------------------------------------------------------ dry run
 
 
-def _padded_line(temperature, device, n_ranks):
+def _lam_shards(n_ranks):
+    """The "lam" extent of the dry run's mesh: 2, else 3, else 1
+    (__graft_entry__.py:92-98)."""
+    return next((f for f in (2, 3) if n_ranks % f == 0), 1)
+
+
+def _padded_line(temperature, device, n_lam):
     """The small problem's line on `device`, padded to a multiple of
-    n_ranks wavelengths (__graft_entry__.py:104-105)."""
+    n_lam wavelengths (__graft_entry__.py:104-105)."""
     T = torch.as_tensor(temperature, dtype=torch.float64, device=device)
     line = lyman_alpha_line(5, 3, T)
-    return pad_line(line, -(-line.n_lambda // n_ranks) * n_ranks)
+    return pad_line(line, -(-line.n_lambda // n_lam) * n_lam)
+
+
+def _moved(mesh, S):
+    """Rank 0's halo and gather traffic of its iteration, beside the
+    bytes of its own block of S (the field the JAX package's finding
+    compares site-sharding traffic with)."""
+    t = mesh.tally
+    field = S.numel() * S.element_size()
+    return ", ".join(
+        f"{k} {t[k]['calls']} calls {t[k]['bytes']} B "
+        f"({t[k]['bytes'] / field:.1f}x the rank's S)" for k in t
+        if t[k]["calls"]) or "no spatial split"
+
+
+def _gathered(res, mesh, space_dims, pop_dims):
+    """A split run's S and populations, whole, on every rank."""
+    S = res.S if mesh.lam is None else gather_lambda(res.S, mesh.lam)
+    return (gather_space(S, mesh, space_dims),
+            gather_space(res.populations, mesh, pop_dims))
 
 
 def _hold(what, S, P, ref):
@@ -94,32 +121,40 @@ def _hold(what, S, P, ref):
 
 def _dryrun_rank(group, atmos, sites):
     """One rank of dryrun_multichip: one iteration of each engine on its
-    lambda block; rank 0 also runs the unsharded iterations and the
-    angle distribution, and returns the report lines."""
+    share of a (lam, y) and a (lam, site) mesh; rank 0 also runs the
+    unsharded iterations and the angle distribution, and returns the
+    report lines."""
     n, dev = group.size, group.device
+    n_lam = _lam_shards(n)
     cfg = Config(nlam_bb=5, nlam_bf=3, quadrature="ul2n3", maxiter=1,
                  eps=0.0)
     lines = []
-    line = _padded_line(atmos.temperature, dev, n)
-    res = RegularEngine(atmos, line, cfg, device=dev, lam_group=group).run()
-    S = gather_lambda(res.S, group)
+    line = _padded_line(atmos.temperature, dev, n_lam)
+    mesh = make_mesh((n_lam, n // n_lam), ("lam", "y"), world=group)
+    res = RegularEngine(atmos, line, cfg, device=dev, mesh=mesh).run()
+    moved = _moved(mesh, res.S)
+    S, P = _gathered(res, mesh, (-2, -1), (1, 2))
     if group.rank == 0:
-        _hold("regular", S, res.populations,
+        _hold("regular", S, P,
               RegularEngine(atmos, line, cfg, device=dev).run())
-        lines.append(f"dryrun_multichip regular OK on {n} ranks (λ={n}, "
-                     f"{group.backend} on {dev}, sharded == unsharded)")
+        lines.append(f"dryrun_multichip regular OK on {n} ranks (mesh "
+                     f"lam={n_lam} x y={n // n_lam}, {group.backend} on "
+                     f"{dev}, sharded == unsharded; {moved})")
 
-    vline = _padded_line(sites.temperature, dev, n)
+    vline = _padded_line(sites.temperature, dev, n_lam)
     plans = VoronoiEngine.build_plans(sites, get_quadrature(cfg.quadrature),
                                       cfg)
+    vmesh = make_mesh((n_lam, n // n_lam), ("lam", "site"), world=group)
     res = VoronoiEngine(sites, vline, cfg, plans=plans, device=dev,
-                        lam_group=group).run()
-    S = gather_lambda(res.S, group)
+                        mesh=vmesh).run()
+    moved = _moved(vmesh, res.S)
+    S, P = _gathered(res, vmesh, (-1,), (0,))
     if group.rank == 0:
         ref = VoronoiEngine(sites, vline, cfg, plans=plans, device=dev).run()
-        _hold("voronoi", S, res.populations, ref)
-        lines.append(f"dryrun_multichip voronoi OK on {n} ranks (λ={n}, "
-                     f"{sites.n} sites, sharded == unsharded)")
+        _hold("voronoi", S, P, ref)
+        lines.append(f"dryrun_multichip voronoi OK on {n} ranks (mesh "
+                     f"lam={n_lam} x site={n // n_lam}, {sites.n} sites, "
+                     f"sharded == unsharded; {moved})")
         # the angle distribution (parallel/angles.py), over slots of
         # rank 0's device
         n_ang = min(n, len(plans))
@@ -135,13 +170,14 @@ def _dryrun_rank(group, atmos, sites):
 
 
 def dryrun_multichip(n_ranks, device=None, backend=None):
-    """One Lambda iteration of BOTH engines with the wavelength axis split
-    over n_ranks processes, each held against the unsharded iteration
-    (S rtol 1e-10, populations 1e-8), then the Voronoi angle
-    distribution against the same; the counterpart of
-    __graft_entry__.dryrun_multichip on JAX's tiny shapes (regular:
-    nz=10, nx=ny=2 n_ranks, 5 + 2x3 wavelengths padded to a multiple of
-    n_ranks, ul2n3, seed 7; Voronoi: 64 n_ranks sites, seed 21).
+    """One Lambda iteration of BOTH engines on a mesh of n_ranks
+    processes, lam = 2 (else 3, else 1) wavelength blocks times y shards
+    of the regular grid or site shards of the Voronoi grid, each held
+    against the unsharded iteration (S rtol 1e-10, populations 1e-8),
+    then the Voronoi angle distribution against the same; the
+    counterpart of __graft_entry__.dryrun_multichip on JAX's tiny shapes
+    (regular: nz=10, nx=ny=2 y, 5 + 2x3 wavelengths padded to a multiple
+    of lam, ul2n3, seed 7; Voronoi: 64 n_ranks sites, seed 21).
 
     device: the ranks' device (default: the CUDA card); backend: 'nccl'
     (one card a rank, the default on cards) or 'gloo' (the CPU, or
@@ -150,8 +186,8 @@ def dryrun_multichip(n_ranks, device=None, backend=None):
     makes it raise.
     """
     device = torch.device(device) if device is not None else require_cuda()
-    atmos = synthetic_atmosphere(nz=10, nx=2 * n_ranks, ny=2 * n_ranks,
-                                 seed=7)
+    n_y = n_ranks // _lam_shards(n_ranks)
+    atmos = synthetic_atmosphere(nz=10, nx=2 * n_y, ny=2 * n_y, seed=7)
     pos = sample_sites(atmos, 64 * n_ranks, seed=21)
     bounds = (atmos.z[0], atmos.z[-1], atmos.x[0], atmos.x[-1],
               atmos.y[0], atmos.y[-1])
@@ -166,7 +202,7 @@ def dryrun_multichip(n_ranks, device=None, backend=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="the small entry step, or "
-                                 "the lambda-split dry run")
+                                 "the dry run on a mesh of processes")
     ap.add_argument("command", nargs="?", choices=("dryrun",))
     ap.add_argument("n_ranks", nargs="?", type=int, default=2)
     ap.add_argument("--device", default=None,

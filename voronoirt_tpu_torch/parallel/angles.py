@@ -41,11 +41,13 @@ def distribute_angles(engine, devices):
     devices = tuple(torch.device(d) for d in devices)
     if not devices:
         raise ValueError("distribute_angles needs at least one device")
-    if getattr(engine, "lam_group", None) is not None:
+    if (getattr(engine, "lam_group", None) is not None
+            or getattr(engine, "mesh", None) is not None):
         # alternatives on the same devices (voronoirt_tpu/parallel/
         # angles.py:21-25)
-        raise ValueError("an engine takes a lambda group "
-                         "(parallel/lam.py) or angle distribution, not both")
+        raise ValueError("an engine takes a lambda group or mesh "
+                         "(parallel/lam.py, parallel/mesh.py) or angle "
+                         "distribution, not both")
     static = []
     for d in devices:
         st = {"v": engine.v.to(d), "a_cont": engine.a_cont.to(d),

@@ -21,11 +21,12 @@ Only all_reduce and broadcast are used: gloo runs both on CUDA tensors
 too, so one code path serves NCCL across cards and gloo with two ranks
 on one card (NCCL refuses two ranks on one device).
 
-Not ported yet (ROADMAP): mesh.py's spatial axes -- "y" and "x" of the
-regular grid, "site" of the Voronoi grid -- and make_hybrid_mesh.  A
-lambda group and parallel/angles.py's angle slots are alternatives on
-the same devices (voronoirt_tpu/parallel/angles.py:21-25): an engine
-takes one or the other.
+The spatial axes -- "y" and "x" of the regular grid, "site" of the
+Voronoi grid -- and make_hybrid_mesh are parallel/mesh.py's, whose
+"lam" sub-group is a LamGroup of this module.  A lambda group and
+parallel/angles.py's angle slots are alternatives on the same devices
+(voronoirt_tpu/parallel/angles.py:21-25): an engine takes one or the
+other.
 
 Usage, in each of n processes (spawn() starts them from one):
     group = join_group(rank, n, "file:///tmp/rendezvous")
@@ -58,16 +59,22 @@ _R_KEYS = ((0, 2), (2, 0), (1, 2), (2, 1), (0, 1), (1, 0))
 class LamGroup:
     """One rank's place in a lambda group: its rank, the group size, the
     device its tensors live on and the torch.distributed backend.
-    seconds and calls count the collectives this rank made, on the
-    host's clock with the device synchronised on both sides (so waiting
-    for a slower rank counts)."""
+    seconds, calls and bytes count the collectives this rank made (the
+    bytes of the tensor each call was given), seconds on the host's
+    clock with the device synchronised on both sides (so waiting for a
+    slower rank counts).  pg and ranks: the torch.distributed sub-group
+    and its members' global ranks in group order, for a group that is
+    one axis of a mesh (parallel/mesh.py); by default the whole world."""
 
-    def __init__(self, rank, size, device, backend):
+    def __init__(self, rank, size, device, backend, pg=None, ranks=None):
         self.rank, self.size = int(rank), int(size)
         self.device = torch.device(device)
         self.backend = backend
+        self.pg = pg
+        self.ranks = list(ranks) if ranks is not None else list(range(size))
         self.seconds = 0.0
         self.calls = 0
+        self.bytes = 0
 
     def block(self, n_lambda):
         """This rank's rows [lo, hi) of an n_lambda grid; the grid must
@@ -81,15 +88,21 @@ class LamGroup:
         return slice(self.rank * n, (self.rank + 1) * n)
 
     def _run(self, collective, tensor, **kwargs):
+        """collective(tensor) over this group; returns (tensor, its
+        seconds)."""
+        if self.pg is not None:
+            kwargs["group"] = self.pg
         if tensor.is_cuda:
             torch.cuda.synchronize(tensor.device)
         t0 = time.perf_counter()
         collective(tensor, **kwargs)
         if tensor.is_cuda:
             torch.cuda.synchronize(tensor.device)
-        self.seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.seconds += dt
         self.calls += 1
-        return tensor
+        self.bytes += tensor.numel() * tensor.element_size()
+        return tensor, dt
 
 
 def _backend(backend, device, n_ranks):
@@ -166,16 +179,13 @@ def shard_regular(engine, group):
     loaded S) keep the block's rows, and its J passes, rates and
     criterion run over the block with the group's collectives.  The
     names of JAX's mesh.py (shard_regular, shard_voronoi on a ("lam",)
-    mesh), one function for both engines (the site axis is not split),
-    kept for tests and for code written against mesh.py: the whole B0
+    mesh; parallel/mesh.py has the same names for a whole mesh), one
+    function for both engines, kept for code written against a lambda
+    group: the whole B0
     has existed by then, which building the engine with lam_group=group
     avoids."""
     attach(engine, group)
-    # keep the block's rows only; the full cubes are freed
-    for name in ("B0", "S_start"):
-        full = getattr(engine, name, None)
-        if full is not None:
-            setattr(engine, name, full[engine.lam_block].clone())
+    engine._cut_fields()      # the block's rows; the full cubes are freed
     return engine
 
 
@@ -190,7 +200,7 @@ def _broadcast(group, t, src):
     the local `t`)."""
     buf = (t.contiguous().clone() if src == group.rank
            else torch.empty_like(t, memory_format=torch.contiguous_format))
-    return group._run(dist.broadcast, buf, src=src)
+    return group._run(dist.broadcast, buf, src=group.ranks[src])[0]
 
 
 def gather_lambda(t, group):

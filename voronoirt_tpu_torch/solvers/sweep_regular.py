@@ -27,6 +27,15 @@ package) runs each xy segment with the quadratic-Bezier update,
 _xy_step_bezier, in plain torch on every device: the JAX package runs it
 as plain XLA outside any Pallas kernel.  The marching segments stay
 linear and go through march_plane as ever.
+
+halo: on a grid split over ranks in x and / or y (parallel/mesh.Halo),
+S, alpha and I0 are the rank's padded tiles, halos filled.  An xy step
+runs on the padded planes unchanged (its periodic wrap spoils only the
+halo cells of its output) and the carried plane's halo is refilled
+after it.  A yz / xz segment gathers the carried plane and each alpha
+and S plane it reads over the split axes, marches on the whole planes
+(on every rank alike) and keeps its tile of every plane it makes.  The
+emitted planes are padded tiles; their interior is the rank's share.
 """
 
 from __future__ import annotations
@@ -236,37 +245,44 @@ def _xy_step_bezier(plan, I_p, alpha_c, alpha_p, S_c, S_p, alpha_pp, S_pp,
     return ew * I_up + wu * S_up + wc * S_c + wk * C
 
 
-def _xy_segment_bezier(plan, seg, S, alpha, carry, emit):
+def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill):
     """One xy segment of a single-direction sweep, Bezier update.  The
     second-upwind plane index is clamped at the boundary; at the
     segment's first step the previous step's ray geometry repeats this
-    step's and `first` selects the secant slope."""
+    step's and `first` selects the secant slope.  refill: the carried
+    plane's halo refill on a split grid (two cells: the second-upwind
+    sample composes two one-sided stencils), else the identity."""
     nz = S.shape[0]
     dirn = 1 if plan.up else -1
     for j, t in enumerate(seg.steps):
         jp = max(j - 1, 0)
         t2 = min(max(t - 2 * dirn, 0), nz - 1)
-        carry = _xy_step_bezier(
+        carry = refill(_xy_step_bezier(
             plan, carry, alpha[t], alpha[t - dirn], S[t], S[t - dirn],
             alpha[t2], S[t2], seg.r[j], seg.fx[j], seg.fy[j],
-            seg.r[jp], seg.fx[jp], seg.fy[jp], 1.0 if j == 0 else 0.0)
+            seg.r[jp], seg.fx[jp], seg.fy[jp], 1.0 if j == 0 else 0.0))
         emit(t, carry)
     return carry
 
 
 def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
-                        interpolation="linear"):
+                        interpolation="linear", halo=None):
     """Shared body of sweep / sweep_batched / sweep_batched_J.
 
     Runs the batched multi-angle sweep and calls emit(t, plane) on every
     computed (P*B, Nx, Ny) intensity plane t and on the boundary plane.
-    interpolation='bezier' is for one plan only (`sweep`).
+    interpolation='bezier' is for one plan only (`sweep`).  halo: the
+    split grid's parallel/mesh.Halo (S, alpha, I0 and the planes padded
+    tiles), or None.
     """
     lead = plans[0]
     nz = S.shape[0]
     B_lam = S.shape[1] // len(plans)
     if down_flags is None:
         down_flags = tuple(not p.up for p in plans)
+    if halo is not None and interpolation == "bezier" and halo.width < 2:
+        raise ValueError("the Bezier xy step needs a halo of 2 cells")
+    refill = halo.refill if halo is not None else (lambda P: P)
     S, alpha = S.contiguous(), alpha.contiguous()
     carry = I0.contiguous()
     emit(0 if lead.up else nz - 1, carry)
@@ -275,16 +291,17 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
     for si, seg in enumerate(lead.segments):
         segs_p = [p.segments[si] for p in plans]
         if seg.case == "xy" and interpolation == "bezier":
-            carry = _xy_segment_bezier(lead, seg, S, alpha, carry, emit)
+            carry = _xy_segment_bezier(lead, seg, S, alpha, carry, emit,
+                                       refill)
             continue
         if seg.case == "xy":
             r = _per_element([s.r for s in segs_p], B_lam, S)
             fx = _per_element([s.fx for s in segs_p], B_lam, S)
             fy = _per_element([s.fy for s in segs_p], B_lam, S)
             for j, t in enumerate(seg.steps):
-                carry = xy_plane(alpha[t - dirn], alpha[t], S[t - dirn],
-                                 S[t], carry, r[j], fx[j], fy[j],
-                                 lead.sxs, lead.sys)
+                carry = refill(xy_plane(alpha[t - dirn], alpha[t],
+                                        S[t - dirn], S[t], carry, r[j],
+                                        fx[j], fy[j], lead.sxs, lead.sys))
                 emit(t, carry)
             continue
         if seg.case == "yz":
@@ -303,10 +320,25 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
         c_prev = _per_element(
             [float(d and seg.case == "xz") for d in down_flags], B_lam, S)
         w_cur = _per_element([s.w_cur for s in segs_p], B_lam, S)
+        if halo is None:
+            for j, t in enumerate(seg.steps):
+                carry = march_plane(alpha[t - dirn], alpha[t], S[t - dirn],
+                                    S[t], carry, r, f_line, w_cur[j], c_prev,
+                                    **statics)
+                emit(t, carry)
+            continue
+        # split grid: march on whole planes, gathered as the march
+        # reaches them (each upper plane is the next step's lower one)
+        t0 = seg.steps[0]
+        whole = halo.gather(carry)
+        a_p, s_p = halo.gather(alpha[t0 - dirn]), halo.gather(S[t0 - dirn])
         for j, t in enumerate(seg.steps):
-            carry = march_plane(alpha[t - dirn], alpha[t], S[t - dirn], S[t],
-                                carry, r, f_line, w_cur[j], c_prev, **statics)
+            a_c, s_c = halo.gather(alpha[t]), halo.gather(S[t])
+            whole = march_plane(a_p, a_c, s_p, s_c, whole, r, f_line,
+                                w_cur[j], c_prev, **statics)
+            carry = halo.slab(whole)
             emit(t, carry)
+            a_p, s_p = a_c, s_c
 
 
 def _stacker(out):
@@ -316,7 +348,7 @@ def _stacker(out):
 
 
 def sweep(plan: RegularPlan, S, alpha, I0, n_sweeps=3,
-          interpolation="linear"):
+          interpolation="linear", halo=None):
     """Formal solution along direction plan.k over the whole grid.
 
     S, alpha: (nz, B, Nx, Ny); I0: (B, Nx, Ny) boundary intensity
@@ -325,13 +357,15 @@ def sweep(plan: RegularPlan, S, alpha, I0, n_sweeps=3,
     DELO-Bezier source integration in the xy segments; the marching
     segments stay linear, their one-line buffer has no second-upwind
     sample).  Returns I: (nz, B, Nx, Ny).  Equivalent of
-    short_characteristics_up/_down (characteristics.jl:19,110).
+    short_characteristics_up/_down (characteristics.jl:19,110).  halo:
+    on a split grid (parallel/mesh.Halo), S, alpha, I0 and I are padded
+    tiles.
     """
     if interpolation not in ("linear", "bezier"):
         raise ValueError(f"unknown interpolation {interpolation!r}")
     out = torch.empty(S.shape, dtype=S.dtype, device=S.device)
     _sweep_batched_impl((plan,), S, alpha, I0, n_sweeps, None, _stacker(out),
-                        interpolation)
+                        interpolation, halo)
     return out
 
 
@@ -349,14 +383,16 @@ def sweep_batched(plans, S, alpha, I0, n_sweeps=3, down_flags=None):
 
 
 def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
-                    unflips=None):
+                    unflips=None, halo=None):
     """Batched multi-angle sweep emitting the weighted J contribution.
 
     Each computed plane is reduced over the P angle blocks as it is
     made, part[e] = w[e] * unflip_xy(I_plane[e*B:(e+1)*B]), summed
     separately over originally-up and originally-down angles, so the
     (nz, P*B, Nx, Ny) intensity cube never exists.  Returns (J_up, J_dn),
-    each (nz, B, Nx, Ny) in canonical z order.
+    each (nz, B, Nx, Ny) in canonical z order.  halo: on a split grid,
+    the batch's parallel/mesh.Halo with each element's flips (fields,
+    planes and J padded tiles).
     """
     P = len(plans)
     B_lam = S.shape[1] // P
@@ -376,21 +412,31 @@ def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
             # in-place J accumulation (the JAX package donates instead)
             (J_dn if down_flags[e] else J_up)[t].add_(blk)
 
-    _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit)
+    _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
+                        halo=halo)
     return J_up, J_dn
 
 
-def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None):
+def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None,
+                  halo=None):
     """One angle group's weighted J contribution from raw fields.
 
     S: shared source function (nz, B, Nx, Ny); a_list: P per-angle
     extinctions of S's shape; I0_list: P boundary planes (B, Nx, Ny);
     w: (P,) quadrature weights; flips: P (flip_x, flip_y, flip_z) from
     group_plans.  Returns the group's J (nz, B, Nx, Ny), physical
-    orientation.
+    orientation.  halo: on a split grid, the grid's parallel/mesh.Halo;
+    S, the extinctions, I0 and J are then padded tiles (a padded tile
+    flipped locally is the mirrored position's padded tile of the
+    flipped field, so the flips stay local).
     """
     if flips is None:
         flips = tuple((False, False, False) for _ in plans)
+    if halo is not None:
+        B_lam = S.shape[1]
+        mask = [torch.tensor([f[a] for f in flips for _ in range(B_lam)],
+                             device=S.device) for a in (0, 1)]
+        halo = halo.with_flips(*mask)
     S_b = torch.cat([flip_field(S, *f) for f in flips], dim=1)
     a_b = torch.cat([flip_field(a, *f) for a, f in zip(a_list, flips)],
                     dim=1)
@@ -399,7 +445,8 @@ def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None):
     J_up, J_dn = sweep_batched_J(plans, S_b, a_b, I0_b, w,
                                  n_sweeps=n_sweeps,
                                  down_flags=tuple(f[2] for f in flips),
-                                 unflips=tuple((f[0], f[1]) for f in flips))
+                                 unflips=tuple((f[0], f[1]) for f in flips),
+                                 halo=halo)
     del S_b, a_b      # free the stacks before the flip below allocates
     # in place: J_up holds the group's J
     return J_up.add_(torch.flip(J_dn, [0]))
