@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      stencil-shift / march-direction combination with mixed per-element
      geometry: xy_plane (K1), and K2 as march_coeffs, march_chain and
      their composition march_plane; then all timed at the production
-     shape beside their bounds, K2 per march axis, and at (1, 256, 256);
+     shape beside their bounds, K2 per march axis, and at (1, 256, 256),
+     and at the production shape in float32 too;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
@@ -84,7 +85,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      one march_plane call on a gathered plane of a rank held against
      the plain versions; S at phase 13's rows and the populations
      against phase 5's at phase 13's bars; then dryrun_multichip(4)
-     (lam 2 x y 2) over gloo on the card.
+     (lam 2 x y 2) over gloo on the card;
+ 15. float32 production (Config(dtype="float32"), the JAX package's
+     production mode): one streamed iteration of phase 5's
+     configuration in float32, with seconds, the J-pass share, peak
+     memory and launch counts (equal to phase 5's), the 100th K1 and
+     K2 call on the production batch (52 planes) held against the plain
+     versions at TOL["float32"], and S and the populations held against
+     phase 5's float64 result at the bar of
+     tests/test_f32_physics.py::test_nlte_iteration_f32_vs_f64 (rtol
+     5e-3 plus 5e-3 of the float64 array's largest magnitude), with the
+     worst entry; then two 'layer' iterations in float32 on phase 7's
+     sites with phase 7's plans, seconds and peak, held against phase
+     7's float64 result at the same bar.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is visible or the package is not beside it, and fails if
@@ -93,10 +106,12 @@ jax or any module of the JAX package (voronoirt_tpu) was imported.
     python3 chip_smoke.py --phases 5,14
 
 runs phase 1 and the phases named (a phase that needs phase 5's result
-needs 5 named too) and prints neither JSON line: a check while the
-code changes, not the smoke's result.
+needs 5 named too, and phase 15 needs 5 and 7: `--phases 5,7,15`) and
+prints neither JSON line: a check while the code changes, not the
+smoke's result.
 """
 
+import dataclasses
 import gc
 import json
 import os
@@ -135,7 +150,9 @@ TOL = {"float64": dict(rtol=1e-12, atol=0.0),
 # composition of march_coeffs and march_chain
 KERNELS = ("xy_plane", "march_plane", "march_coeffs", "march_chain")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
-F64_OPS_PER_S = 34e12         # float64 outside the tensor cores, the same
+# floating-point operations a second outside the tensor cores, the same
+OPS_PER_S = {"float64": 34e12, "float32": 67e12}
+ELEMENT_BYTES = {"float64": 8, "float32": 4}
 
 
 def require(cond, msg):
@@ -197,13 +214,13 @@ def _compare(name, got, want, dtype_name):
 def check_kernels():
     """Phase 2: each kernel against its plain version on the card; K2 as
     its two kernels, march_coeffs and march_chain (on the kernel's own
-    scratch), and as their composition march_plane.  Returns {kernel:
-    max abs err in float64}."""
+    scratch), and as their composition march_plane.  Returns {dtype
+    name: {kernel: max abs err}}."""
     import torch
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
-    worst = dict.fromkeys(KERNELS, 0.0)
+    worst = {d: dict.fromkeys(KERNELS, 0.0) for d in TOL}
     gen = torch.Generator().manual_seed(2024)
     # the production group-plane shape (4 angles x lambda_chunk), a
     # smaller full plane, a ragged one, the per-angle plane of the Bezier
@@ -257,9 +274,8 @@ def check_kernels():
             print(f"  {dtype_name} B={B} {nx}x{ny}: max abs err (rel) "
                   + "; ".join(f"{k} {a:.3e} ({b:.3e})"
                               for k, (a, b) in err.items()), flush=True)
-            if dtype_name == "float64":
-                for k in KERNELS:
-                    worst[k] = max(worst[k], err[k][0])
+            for k in KERNELS:
+                worst[dtype_name][k] = max(worst[dtype_name][k], err[k][0])
     return worst
 
 
@@ -277,29 +293,32 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def _bounds(B, nx, ny, n_sweeps=3):
-    """Least time (ms) of each kernel's work at (B, nx, ny), float64, on
-    an H100 SXM: the larger of its bytes (each input plane read once,
-    each output written once) over 3.35 TB/s and its floating-point
-    operations over the 34 TFLOP/s of float64 outside the tensor cores
-    (NVIDIA's data sheet); operations counted per point from the CUDA
-    source, an exp as one.  Returns {kernel: (ms, 'bytes' | 'operations')}."""
+def _bounds(B, nx, ny, n_sweeps=3, dtype_name="float64"):
+    """Least time (ms) of each kernel's work at (B, nx, ny) in
+    `dtype_name` on an H100 SXM: the larger of its bytes (each input
+    plane read once, each output written once, ELEMENT_BYTES a point)
+    over 3.35 TB/s and its floating-point operations over the dtype's
+    rate outside the tensor cores, 34 TFLOP/s float64 or 67 TFLOP/s
+    float32 (NVIDIA's data sheet); operations counted per point from
+    the CUDA source, an exp as one.  Returns {kernel: (ms, 'bytes' |
+    'operations')}."""
     pts = B * nx * ny
-    plane = 8 * pts
+    plane = ELEMENT_BYTES[dtype_name] * pts
     work = {"xy_plane": (6 * plane, 60 * pts),
             "march_coeffs": (7 * plane, 50 * pts),
             "march_chain": (3 * plane, 5 * n_sweeps * pts),
             "march_plane": (6 * plane, (50 + 5 * n_sweeps) * pts)}
     out = {}
     for k, (nbytes, ops) in work.items():
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+        t_b = nbytes / HBM_BYTES_PER_S
+        t_o = ops / OPS_PER_S[dtype_name]
         out[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
     return out
 
 
-def time_kernels(B):
-    """Kernel and plain times at (B, 256, 256), float64, beside each
-    kernel's bound: B = 4 angles x lambda_chunk wavelengths is the
+def time_kernels(B, dtype_name="float64"):
+    """Kernel and plain times at (B, 256, 256) in `dtype_name`, beside
+    each kernel's bound: B = 4 angles x lambda_chunk wavelengths is the
     production group plane, B = 1 the continuum iteration's.  K2 per
     march axis, and split into its two kernels."""
     import torch
@@ -307,17 +326,18 @@ def time_kernels(B):
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
     nx, ny = PROD["nx"], PROD["ny"]
-    bound = _bounds(B, nx, ny)
+    dtype = getattr(torch, dtype_name)
+    bound = _bounds(B, nx, ny, dtype_name=dtype_name)
     gen = torch.Generator().manual_seed(7)
-    planes = _planes(gen, B, nx, ny, torch.float64)
-    r = _rand(gen, (B,), -1.0, 1.0, torch.float64, log=True)
-    f1, f2 = (_fractions(gen, B, torch.float64) for _ in range(2))
-    c_prev = (torch.arange(B, device="cuda") % 2).to(torch.float64)
+    planes = _planes(gen, B, nx, ny, dtype)
+    r = _rand(gen, (B,), -1.0, 1.0, dtype, log=True)
+    f1, f2 = (_fractions(gen, B, dtype) for _ in range(2))
+    c_prev = (torch.arange(B, device="cuda") % 2).to(dtype)
     times = {}
     xy_args = (*planes, r, f1, f2, -1, 0)
     times["xy_plane"] = (_time_ms(lambda: xp.xy_plane(*xy_args), 50),
                          _time_ms(lambda: xp.xy_plane_plain(*xy_args), 10))
-    print(f"  xy_plane (B={B}, {nx}x{ny}, float64): kernel "
+    print(f"  xy_plane (B={B}, {nx}x{ny}, {dtype_name}): kernel "
           f"{times['xy_plane'][0]:.4f} ms, plain {times['xy_plane'][1]:.4f} "
           f"ms, bound {bound['xy_plane'][0]:.4f} ms "
           f"({100 * bound['xy_plane'][0] / times['xy_plane'][0]:.1f} %)",
@@ -344,7 +364,7 @@ def time_kernels(B):
             acc[k][0].append(_time_ms(kern, 20))
             acc[k][1].append(_time_ms(plain, 2))
         kp = acc["march_plane"][0][-1]
-        print(f"  march_plane axis={axis} (B={B}, {nx}x{ny}, float64): "
+        print(f"  march_plane axis={axis} (B={B}, {nx}x{ny}, {dtype_name}): "
               f"kernel {kp:.4f} ms = march_coeffs "
               f"{acc['march_coeffs'][0][-1]:.4f} + march_chain "
               f"{acc['march_chain'][0][-1]:.4f} ms (alone); plain "
@@ -354,8 +374,9 @@ def time_kernels(B):
               flush=True)
     for k, (km, pm) in acc.items():
         times[k] = (sum(km) / 2, sum(pm) / 2)
-    print(f"  march_plane mean of both axes {times['march_plane'][0]:.4f} "
-          f"ms, {100 * bound['march_plane'][0] / times['march_plane'][0]:.1f}"
+    print(f"  march_plane mean of both axes ({dtype_name}) "
+          f"{times['march_plane'][0]:.4f} ms, "
+          f"{100 * bound['march_plane'][0] / times['march_plane'][0]:.1f}"
           f" % of its bound", flush=True)
     return times, bound
 
@@ -426,11 +447,12 @@ def _edge_rows(n_lambda, n_ranks):
     return {row: min(row, n_lambda - 1) for row in sorted(rows)}
 
 
-def run_production(atmos, n_ranks=LAM_RANKS):
-    """One lambda-streamed iteration at the production configuration.
-    Returns the launch counts and, on the host, what phases 12-13 hold
-    against: the populations, the wavelengths and the S rows at the
-    edges of n_ranks' lambda blocks."""
+def _production_iteration(atmos, dtype_name):
+    """One lambda-streamed iteration at the production configuration in
+    `dtype_name`, the J pass timed chunk by chunk; prints its set-up,
+    seconds, J-pass share, rate, peak memory and launch counts, and
+    requires the shapes, finite values and a launch of every kernel.
+    Returns (result, engine, launches, max |sum(populations)/n_H - 1|)."""
     import torch
     from voronoirt_tpu_torch import Config
     from voronoirt_tpu_torch.engine import RegularEngine
@@ -441,15 +463,16 @@ def run_production(atmos, n_ranks=LAM_RANKS):
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
                  quadrature=p["quadrature"], stream_rates=True,
                  lambda_chunk=p["lambda_chunk"],
-                 group_max_angles=p["group_max_angles"], maxiter=1, eps=0.0)
-    T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
+                 group_max_angles=p["group_max_angles"], maxiter=1, eps=0.0,
+                 dtype=dtype_name)
+    T = torch.as_tensor(atmos.temperature, dtype=getattr(torch, dtype_name),
                         device="cuda")
     line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
     eng = RegularEngine(atmos, line, cfg, device="cuda")
     torch.cuda.synchronize()
     groups = [(len(g), sorted({s.case for s in g[0][1].segments}))
               for g in eng.plan_groups]
-    print(f"  set-up {time.perf_counter() - t0:.2f} s; grid "
+    print(f"  {dtype_name}: set-up {time.perf_counter() - t0:.2f} s; grid "
           f"{p['nz']}x{p['nx']}x{p['ny']}, {line.n_lambda} wavelengths, "
           f"{eng.quad.n_angles} directions, lambda_chunk "
           f"{cfg.lambda_chunk}; groups (angles, cases) {groups}", flush=True)
@@ -480,11 +503,12 @@ def run_production(atmos, n_ranks=LAM_RANKS):
     require(tuple(res.S.shape) == shape, f"S shape {tuple(res.S.shape)}")
     require(tuple(res.populations.shape) == shape[1:] + (3,),
             f"populations shape {tuple(res.populations.shape)}")
+    require(res.S.dtype == res.populations.dtype == T.dtype,
+            f"S {res.S.dtype}, populations {res.populations.dtype}")
     finite = bool(torch.isfinite(res.S).all()) and bool(
         torch.isfinite(res.populations).all())
     require(finite, "S or populations not finite")
-    mass = _max_rel(res.populations.sum(-1), eng.nH)
-    require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
+    mass = _max_rel(res.populations.double().sum(-1), eng.nH.double())
     rate = (p["nz"] * p["nx"] * p["ny"] * line.n_lambda
             * eng.quad.n_angles) / j
     print(f"  the iteration {it:.4f} s, J pass {j:.4f} s "
@@ -497,10 +521,25 @@ def run_production(atmos, n_ranks=LAM_RANKS):
     print(f"  launches during the iteration: {launches}", flush=True)
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the main path")
-    ref = {"populations": res.populations.cpu().numpy(), "lam": line.lam,
-           "temperature": atmos.temperature,
+    return res, eng, launches, mass
+
+
+def run_production(atmos, n_ranks=LAM_RANKS, keep_S=False):
+    """Phase 5: one lambda-streamed iteration at the production
+    configuration, float64.  Returns the launch counts and, on the host,
+    what phases 12-13 hold against: the populations, the wavelengths and
+    the S rows at the edges of n_ranks' lambda blocks; with keep_S, for
+    phase 15, the whole S (10.26 GB) and its largest magnitude too."""
+    res, eng, launches, mass = _production_iteration(atmos, "float64")
+    require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
+    n_lambda = res.S.shape[0]
+    ref = {"populations": res.populations.cpu().numpy(),
+           "lam": eng.line.lam, "temperature": atmos.temperature,
            "S_rows": {row: res.S[row].cpu().numpy() for row in set(
-               _edge_rows(line.n_lambda, n_ranks).values())}}
+               _edge_rows(n_lambda, n_ranks).values())}}
+    if keep_S:
+        ref["S"] = res.S.cpu().numpy()
+        ref["S_scale"] = float(res.S.abs().max())
     return launches, ref
 
 
@@ -653,7 +692,8 @@ def _timed_J(eng, lambda_iter, sv):
 
 def run_voronoi_production(atmos):
     """Phase 7: two 'layer' iterations at VOR_SITES sites, 91
-    wavelengths, ul7n12, float64."""
+    wavelengths, ul7n12, float64.  Returns the sites and, for phase 15,
+    the plans and the result's S and populations on the host."""
     import torch
     from voronoirt_tpu_torch import Config, get_quadrature, grid
     from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter
@@ -725,7 +765,12 @@ def run_voronoi_production(atmos):
           f"{mass:.3e}", flush=True)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
           f" GiB (max_memory_allocated, phase 7)", flush=True)
-    return sites
+    # host copies of the plans for phase 15: the float64 device arrays
+    # the engine cached on the originals would stay on the card through
+    # phases 8-14, whose spawned ranks need the room
+    return sites, {"plans": [dataclasses.replace(p) for p in plans],
+                   "S": res.S.cpu().numpy(),
+                   "populations": res.populations.cpu().numpy()}
 
 
 # ------------------------------------------------------------ phase 8-11
@@ -879,20 +924,22 @@ def _keep_call(name, n, batch=None, shape=None):
 
 def _hold_kept(name, kept, n, what):
     """The kept n-th call of `name` against its plain version on the
-    same inputs, float64 (rtol 1e-12); returns the max abs error."""
+    same inputs, at TOL of the call's dtype; returns the max abs
+    error."""
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     plain = {"xy_plane": xp.xy_plane_plain,
              "march_plane": mp.march_plane_plain}[name]
     require("out" in kept, f"{what} made {kept['seen']} {name} calls, "
                            f"fewer than {n}")
+    dtype_name = str(kept["out"].dtype).replace("torch.", "")
     e_abs, e_rel = _compare(name, kept["out"],
                             plain(*kept["args"], **kept["statics"]),
-                            "float64")
-    print(f"  {name} call {n} of {what}, {tuple(kept['out'].shape)}, "
-          f"{kept['statics']}: against the plain version on the same inputs"
-          f" max abs err {e_abs:.3e} (rel {e_rel:.3e}, rtol 1e-12)",
-          flush=True)
+                            dtype_name)
+    print(f"  {name} call {n} of {what}, {tuple(kept['out'].shape)} "
+          f"{dtype_name}, {kept['statics']}: against the plain version on "
+          f"the same inputs max abs err {e_abs:.3e} (rel {e_rel:.3e}, "
+          f"{TOL[dtype_name]})", flush=True)
     return e_abs
 
 
@@ -1422,11 +1469,9 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
     for o in outs:
         errS = max(_rel_np(o["S_edges"][r], ref["S_rows"][rows[r]])
                    for r in o["S_edges"])
-        # the split sums the rate integrals' pairs in another order; the
-        # ground level, n_H - n2 - n3, is a sliver of n_H in the hottest
-        # cells (6e-7 of it at 12,000 K), so a last-digit change of n3
-        # moves it ~1e-10 relative: populations are held per n_H (1e-10),
-        # and per entry to the packages' bar (1e-8)
+        # the split sums the rate integrals' pairs in another order, a
+        # last-digit change of each rate: populations are held per n_H
+        # (1e-10), and per entry to the packages' bar (1e-8)
         errP = float(np.max(np.abs(o["populations"] - P_ref) / n_H))
         rel = np.abs(o["populations"] / P_ref - 1.0)
         relP = float(rel.max())
@@ -1595,6 +1640,120 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
              if k not in ("S_rows", "populations")} for o in outs]
 
 
+# ------------------------------------------------------------ phase 15
+
+# tests/test_f32_physics.py::test_nlte_iteration_f32_vs_f64's bar: a
+# float32 value within GATE of the float64 one plus GATE of the float64
+# array's largest magnitude
+GATE = 5e-3
+# which K1 and K2 call of the float32 iteration, on a batch of 52
+# planes (4 angles x lambda_chunk), is held against the plain version
+F32_CALL = 100
+
+
+def _against_gate(what, got, want, scale, names):
+    """got (float32, on the card) against want (float64 numpy, the same
+    shape) at the gate's bar, in blocks of the first axis of about 2^24
+    entries.  Prints the largest |got - want| as a share of scale, the
+    largest relative difference among the entries above 1e-6 of scale,
+    and the worst entry's index (named by `names`) and its share of the
+    bar; raises if an entry is not finite or misses the bar."""
+    import numpy as np
+    import torch
+    worst, share, rel, at = -1.0, 0.0, 0.0, None
+    rows = max(1, (1 << 24) // max(1, int(np.prod(got.shape[1:]))))
+    for i in range(0, got.shape[0], rows):
+        g = got[i:i + rows].to(torch.float64)
+        require(bool(torch.isfinite(g).all()), f"{what}: not finite")
+        w = torch.as_tensor(want[i:i + rows], device=g.device)
+        d = (g - w).abs()
+        share = max(share, float(d.max()) / scale)
+        big = w.abs() > 1e-6 * scale
+        if bool(big.any()):
+            rel = max(rel, float((d[big] / w[big].abs()).max()))
+        ratio = d / (GATE * w.abs() + GATE * scale)
+        k = int(ratio.argmax())
+        if float(ratio.reshape(-1)[k]) > worst:
+            worst = float(ratio.reshape(-1)[k])
+            at = np.unravel_index(k, g.shape)
+            at = (i + int(at[0]),) + tuple(int(j) for j in at[1:])
+    label = ", ".join(f"{n} {j}" for n, j in zip(names, at))
+    print(f"  {what} float32 vs float64: max |diff| {share:.3e} of scale "
+          f"({scale:.4e}), max rel diff {rel:.3e} above 1e-6 of scale; "
+          f"worst entry ({label}) at {worst:.3e} of the gate's bar (rtol "
+          f"{GATE:g} + {GATE:g} x scale)", flush=True)
+    require(worst <= 1.0, f"{what}: float32 misses the gate at ({label})")
+
+
+def run_f32_production(atmos, ref, launches64):
+    """Phase 15a: one streamed iteration of phase 5's configuration in
+    float32, held against phase 5's float64 result; the F32_CALL-th K1
+    and K2 call on the production batch against the plain versions.
+    Returns the launch counts and the kept calls' max abs errors."""
+    import torch
+
+    B = 4 * PROD["lambda_chunk"]
+    with _keep_call("xy_plane", F32_CALL, batch=B) as kept_xy, \
+            _keep_call("march_plane", F32_CALL, batch=B) as kept_m:
+        res, _, launches, mass = _production_iteration(atmos, "float32")
+    # float32 rounding of the three ratios (physics/stateq.py)
+    require(mass < 1e-6, f"populations do not sum to n_H ({mass:.3e})")
+    require(launches == launches64, f"float32 launches {launches}, "
+                                    f"float64 (phase 5) {launches64}")
+    errs = {}
+    for name, kept in (("xy_plane", kept_xy), ("march_plane", kept_m)):
+        require(kept.get("out") is not None
+                and kept["out"].dtype == torch.float32,
+                f"{name}: no float32 call {F32_CALL} kept")
+        errs[name] = _hold_kept(name, kept, F32_CALL, "the float32 iteration")
+    P64 = ref["populations"]
+    _against_gate("S", res.S, ref["S"], ref["S_scale"],
+                  ("lambda", "z", "x", "y"))
+    _against_gate("populations", res.populations, P64,
+                  float(abs(P64).max()), ("z", "x", "y", "level"))
+    return launches, errs
+
+
+def run_f32_voronoi(sites, vor_ref):
+    """Phase 15b: two 'layer' iterations at phase 7's sites and with its
+    plans in float32, held against phase 7's float64 result."""
+    import torch
+    from voronoirt_tpu_torch import Config
+    from voronoirt_tpu_torch.engine import VoronoiEngine
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+
+    p = PROD
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], voronoi_order="layer",
+                 maxiter=2, eps=0.0, dtype="float32")
+    t = time.perf_counter()
+    T = torch.as_tensor(sites.temperature, dtype=torch.float32,
+                        device="cuda")
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    eng = VoronoiEngine(sites, line, cfg, plans=vor_ref["plans"],
+                        device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t
+    res = eng.run()
+    peak = torch.cuda.max_memory_allocated()
+    require(res.iterations == 2, f"ran {res.iterations} iterations")
+    require(res.S.dtype == res.populations.dtype == torch.float32,
+            f"S {res.S.dtype}, populations {res.populations.dtype}")
+    print(f"  float32, {sites.n} sites: engine set-up {setup:.2f} s "
+          f"(phase 7's plans), iteration seconds "
+          f"{[round(x, 4) for x in res.timings]}, peak device memory "
+          f"{peak / 2**30:.3f} GiB; criterion {res.convergence}",
+          flush=True)
+    P64 = vor_ref["populations"]
+    _against_gate("Voronoi S", res.S, vor_ref["S"],
+                  float(abs(vor_ref["S"]).max()), ("lambda", "site"))
+    _against_gate("Voronoi populations", res.populations, P64,
+                  float(abs(P64).max()), ("site", "level"))
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -1637,6 +1796,8 @@ def main(argv=None):
         errs = check_kernels()
         times, bounds = time_kernels(4 * PROD["lambda_chunk"])
         times_b1, bounds_b1 = time_kernels(1)
+        times32, bounds32 = time_kernels(4 * PROD["lambda_chunk"],
+                                         "float32")
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
         check_goldens()
@@ -1646,14 +1807,14 @@ def main(argv=None):
     atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
     if want(5):
         phase("phase 5: production iteration")
-        launches, ref = run_production(atmos)
+        launches, ref = run_production(atmos, keep_S=want(15))
     if want(6):
         phase("phase 6: Voronoi goldens on the card, wavefront sweeps card "
               "vs CPU")
         check_voronoi_goldens()
     if want(7):
         phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
-        sites = run_voronoi_production(atmos)
+        sites, vor_ref = run_voronoi_production(atmos)
     if want(8):
         phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
               "iteration")
@@ -1665,7 +1826,6 @@ def main(argv=None):
     if want(10):
         phase("phase 10: continuum scattering iteration")
         launches_continuum = run_continuum(atmos, sites)
-        del sites
     if want(11):
         phase("phase 11: checkpoint/resume on the card, the drivers")
         check_checkpoint_resume()
@@ -1684,6 +1844,11 @@ def main(argv=None):
         phase(f"phase 14: the production iteration split over y, "
               f"{MESH_RANKS} ranks")
         mesh_ranks = run_mesh_production(ref)
+    if want(15):
+        phase("phase 15: float32 production, the streamed iteration and "
+              f"the Voronoi iterations at {VOR_SITES} sites")
+        launches32, errs32 = run_f32_production(atmos, ref, launches)
+        run_f32_voronoi(sites, vor_ref)
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
@@ -1709,7 +1874,7 @@ def main(argv=None):
            "march_plane": k2, "march_coeffs": k2, "march_chain": k2}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
+                "max_abs_err": errs["float64"][name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 "pct_of_bound": 100 * bounds[name][0] / times[name][0],
@@ -1725,7 +1890,15 @@ def main(argv=None):
                 "launches_mesh_y_ranks": [o["launches"][name]
                                           for o in mesh_ranks],
                 "shape_mesh_y": mesh_shapes[name],
-                "max_abs_err_mesh_y": mesh_errs.get(name)}
+                "max_abs_err_mesh_y": mesh_errs.get(name),
+                "max_abs_err_f32": errs["float32"][name],
+                "ms_f32": times32[name][0], "plain_ms_f32": times32[name][1],
+                "bound_ms_f32": bounds32[name][0],
+                "bound_by_f32": bounds32[name][1],
+                "pct_of_bound_f32": 100 * bounds32[name][0]
+                / times32[name][0],
+                "launches_f32_iteration": launches32[name],
+                "max_abs_err_f32_iteration": errs32.get(name)}
                for name in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

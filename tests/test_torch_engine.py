@@ -140,31 +140,11 @@ def test_per_angle_J_equals_grouped():
 
 
 def test_one_working_dtype():
-    """A transport dtype other than the working dtype is refused (the
-    float32 linear weights cancel near their 5e-4 guard, ROADMAP C3)."""
+    """A transport dtype other than the working dtype is refused: the
+    JAX package declares the field and never reads it."""
     atmos = synthetic_atmosphere(nz=6, nx=4, ny=4, seed=7)
     with pytest.raises(NotImplementedError):
         _engine(atmos, 5, 3, quadrature="ul2n3", transport_dtype="float32")
-
-
-def test_float32_engine_refused(tmp_path):
-    """Config(dtype='float32') is refused, naming the cancelling line
-    (n1 = n_H - n2 - n3 in ionised cells, ROADMAP C4); so are the
-    line_nlte and recover drivers' --f32, before any file is written."""
-    from voronoirt_tpu_torch.drivers import line_nlte
-    atmos = synthetic_atmosphere(nz=6, nx=4, ny=4, seed=7)
-    cfg = Config(nlam_bb=5, nlam_bf=3, quadrature="ul2n3", dtype="float32")
-    line = lyman_alpha_line(5, 3, torch.from_numpy(
-        np.asarray(atmos.temperature, dtype=np.float32)))
-    with pytest.raises(NotImplementedError, match="n1 = atom_density"):
-        RegularEngine(atmos, line, cfg)
-    out = tmp_path / "run.h5"
-    with pytest.raises(NotImplementedError, match="n1 = atom_density"):
-        line_nlte.main(["--atmos", "6", "4", "4", "--nlam-bb", "5",
-                        "--nlam-bf", "3", "--quadrature", "ul2n3",
-                        "--maxiter", "1", "--f32", "--device", "cpu",
-                        "--out", str(out)])
-    assert not out.exists()
 
 
 def test_linear_formal_solution_only():

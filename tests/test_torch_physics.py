@@ -2,8 +2,12 @@
 
 One parametrised case per ported function: the same numpy inputs, made
 from a seed, go through the JAX function (CPU, x64) and its port, to
-rtol 1e-12.  Plus the continuum-recipe golden and the Ly-alpha line.
+rtol 1e-12 (the populations of test_stateq against exact arithmetic
+instead, where the JAX package's subtractions round).  Plus the
+continuum-recipe golden and the Ly-alpha line.
 """
+
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -280,7 +284,35 @@ def test_rates(fn, compat):
                                           float(jl.lam[16]), compat))
 
 
+def _exact_populations(R, C, nH):
+    """The 3-level balance in exact rational arithmetic on the given
+    float64 rates: Cramer's rule on the JAX package's 2x2 system for
+    (n2, n3) and n1 = n_H - n2 - n3, with P = R + C, rounded once to
+    float64.  Returns (n, 3)."""
+    F = lambda a: [Fraction(float(x)) for x in np.asarray(a)]
+    P = {k: [r + c for r, c in zip(F(R[k]), F(C[k]))] for k in R}
+    out = []
+    for i, n in enumerate(F(nH)):
+        p = {k: v[i] for k, v in P.items()}
+        a00 = p[(0, 1)] + p[(1, 0)] + p[(1, 2)]
+        a01 = p[(0, 1)] - p[(2, 1)]
+        a10 = p[(0, 2)] - p[(1, 2)]
+        a11 = p[(0, 2)] + p[(2, 0)] + p[(2, 1)]
+        det = a00 * a11 - a01 * a10
+        n2 = n * (a11 * p[(0, 1)] - a01 * p[(0, 2)]) / det
+        n3 = n * (a00 * p[(0, 2)] - a10 * p[(0, 1)]) / det
+        out.append([float(n - n2 - n3), float(n2), float(n3)])
+    return np.array(out)
+
+
 def test_stateq():
+    """The port closes the balance without the JAX package's
+    subtractions (physics/stateq.py): n1 = n_H - n2 - n3 and the Cramer
+    numerators cancel where a level is small, so JAX's float64 n1 is
+    off by up to 4e-10 relative and its n2 by up to 6e-12 on these
+    inputs.  Each level is held against an exact evaluation of the same
+    rates to 1e-14 relative (4.4e-16 measured), and against JAX's at
+    JAX's own rounding, 8 eps n_H (2.1 eps n_H measured)."""
     d, jl, tl, pj, pt, J, g = _rates_inputs()
     lam = np.asarray(jl.lam)[:, None]
     damp = np.asarray(j_broad.damping(jnp.asarray(g)[None], lam,
@@ -288,11 +320,17 @@ def test_stateq():
     T_j, T_t = jnp.asarray(d["T"]), torch.from_numpy(d["T"])
     R = j_rates.calculate_R(jl, jnp.asarray(J), jnp.asarray(damp), pj, T_j)
     C = j_rates.calculate_C(jnp.asarray(d["ne"]), T_j, pj)
-    as_t = lambda dct: {k: torch.from_numpy(np.asarray(v))
+    as_t = lambda dct: {k: torch.from_numpy(np.array(v))
                         for k, v in dct.items()}
-    _close(t_stateq.get_revised_populations(as_t(R), as_t(C),
-                                            torch.from_numpy(d["nH"])),
-           j_stateq.get_revised_populations(R, C, jnp.asarray(d["nH"])))
+    got = t_stateq.get_revised_populations(
+        as_t(R), as_t(C), torch.from_numpy(d["nH"])).numpy()
+    want = np.asarray(j_stateq.get_revised_populations(
+        R, C, jnp.asarray(d["nH"])))
+    exact = _exact_populations(R, C, d["nH"])
+    assert np.all(exact > 0.0)
+    np.testing.assert_allclose(got, exact, rtol=1e-14, atol=0)
+    eps = np.finfo(np.float64).eps
+    assert np.all(np.abs(got - want) <= 8 * eps * d["nH"][:, None])
 
 
 def test_alpha_cont_golden():

@@ -2,8 +2,8 @@
 
 Counterpart of the dtype fields of voronoirt_tpu.config.Config
 (`dtype`, `transport_dtype` / `sweep_dtype`).  float64 is the default
-working type; the H100 runs it natively, so unlike the TPU build no
-physics is demoted to float32 for the device.
+working type, for validation runs; float32 is the JAX package's
+production mode (`--f32`), and then every path runs in float32.
 """
 
 from __future__ import annotations

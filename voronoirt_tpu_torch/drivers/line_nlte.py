@@ -9,7 +9,7 @@ snapshot (--data) or the synthetic atmosphere.
 Usage:
   python -m voronoirt_tpu_torch.drivers.line_nlte [--data F]
         [--grid regular|voronoi] [--n-sites N] [--skip K] [--out out.h5]
-        [--maxiter N] [--eps E] [--device cpu]
+        [--maxiter N] [--eps E] [--f32] [--device cpu]
 """
 
 import argparse
@@ -56,8 +56,8 @@ def main(argv=None):
                          "through profile->sweep->J (production-scale "
                          "memory bound); 0 = all at once")
     ap.add_argument("--f32", action="store_true",
-                    help="float32 end to end: refused by the NLTE "
-                         "engines, whose ground level cancels in float32")
+                    help="float32 end to end (the production mode; "
+                         "default is float64 for validation runs)")
     ap.add_argument("--boost", type=float, default=2.0e9,
                     help="collisional-rate boost (rates.jl:3; the "
                          "reference's 2e9 drives the destruction "
@@ -113,7 +113,7 @@ def main(argv=None):
         eng = RegularEngine(atmos, line, cfg, device=device)
         if args.out:
             ckpt = CheckpointFile(args.out)
-            ckpt.create_regular(line, atmos, cfg.maxiter)
+            ckpt.create_regular(line, atmos, cfg.maxiter, cfg.dtype)
     else:
         n_sites = args.n_sites or (atmos.shape[0] * atmos.shape[1]
                                    * atmos.shape[2])
@@ -131,7 +131,7 @@ def main(argv=None):
         eng = VoronoiEngine(sites, line, cfg, device=device)
         if args.out:
             ckpt = CheckpointFile(args.out)
-            ckpt.create_voronoi(line, sites, cfg.maxiter)
+            ckpt.create_voronoi(line, sites, cfg.maxiter, cfg.dtype)
 
     res = eng.run(checkpoint=ckpt)
     wall = time.perf_counter() - t_start

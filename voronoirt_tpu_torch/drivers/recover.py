@@ -10,7 +10,7 @@ tessellation is re-derived from the stored positions.
 
 Usage:
   python -m voronoirt_tpu_torch.drivers.recover out.h5 [--eps E]
-        [--maxiter N] [--device cpu]
+        [--maxiter N] [--f32] [--device cpu]
 """
 
 import argparse
@@ -76,8 +76,8 @@ def main(argv=None):
                     choices=("layer", "wavefront"))
     ap.add_argument("--lambda-chunk", type=int, default=0)
     ap.add_argument("--f32", action="store_true",
-                    help="float32: refused by the NLTE engines, as in "
-                         "line_nlte")
+                    help="float32 end to end, as line_nlte --f32 ran "
+                         "(the file's arrays are then float32)")
     ap.add_argument("--no-cache", action="store_true")
     ap.add_argument("--rates-chunk", type=int, default=0,
                     help="stream the rates/SE update over slabs "

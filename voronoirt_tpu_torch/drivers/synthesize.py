@@ -130,7 +130,10 @@ def synthesize(atmos, populations, lam, theta=180.0, phi=0.0, n_sweeps=3,
     """Emergent intensity cube I(lam, x, y) [IUNIT] from saved populations,
     as a numpy array, and the line rebuilt on the atmosphere: the
     plotter (plot_utils.jl:298-354) + write_top_intensity (:99-140)
-    chain in one call, on `device` (default: the CUDA card), float64."""
+    chain in one call, on `device` (default: the CUDA card), float64:
+    the float32 populations of a float32 run's file are widened first
+    (the JAX driver adds them in float32 before they meet its float64
+    fields)."""
     device = pick_device(device)
 
     def t(a):

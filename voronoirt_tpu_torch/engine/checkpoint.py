@@ -16,6 +16,8 @@ reference's), so either package reads the other's:
   voronoi: source_function (nlam,n), populations (n,3), positions (3,n),
            boundaries (6), ... same tail.
 Units on disk: kW m^-2 nm^-1 (the native intensity unit) and SI m^-3.
+The state datasets take the run's dtype (float32 for a float32 run);
+everything else is float64.
 write_state takes tensors on any device (or numpy arrays) and writes
 numpy; h5py is imported inside the methods.
 """
@@ -40,13 +42,17 @@ class CheckpointFile:
 
     # ------------------------------------------------------------ create
 
-    def create_regular(self, line, atmos, maxiter):
+    def create_regular(self, line, atmos, maxiter, dtype="float64"):
+        """A new file for a regular run; dtype ('float64' or 'float32',
+        the run's Config.dtype) is the type of the source function and
+        populations datasets (the JAX package writes float64 whatever
+        the run's type)."""
         import h5py
         nlam = line.n_lambda
         nz, nx, ny = atmos.shape
         with h5py.File(self.path, "w") as f:
-            f.create_dataset("source_function", (nlam, nz, nx, ny), "f8")
-            f.create_dataset("populations", (nz, nx, ny, 3), "f8")
+            f.create_dataset("source_function", (nlam, nz, nx, ny), dtype)
+            f.create_dataset("populations", (nz, nx, ny, 3), dtype)
             f["z"] = np.asarray(atmos.z)
             f["x"] = np.asarray(atmos.x)
             f["y"] = np.asarray(atmos.y)
@@ -55,13 +61,14 @@ class CheckpointFile:
             f["convergence"] = np.zeros(maxiter + 1)
             self._write_line(f, line)
 
-    def create_voronoi(self, line, sites, maxiter):
+    def create_voronoi(self, line, sites, maxiter, dtype="float64"):
+        """A new file for a Voronoi run; dtype as in create_regular."""
         import h5py
         nlam = line.n_lambda
         n = sites.n
         with h5py.File(self.path, "w") as f:
-            f.create_dataset("source_function", (nlam, n), "f8")
-            f.create_dataset("populations", (n, 3), "f8")
+            f.create_dataset("source_function", (nlam, n), dtype)
+            f.create_dataset("populations", (n, 3), dtype)
             f["positions"] = sites.positions.T  # reference layout (3, n)
             for name in ("temperature", "electron_density",
                          "hydrogen_populations", "velocity_z",

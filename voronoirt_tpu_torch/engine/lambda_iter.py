@@ -34,7 +34,9 @@ VoronoiEngine share the frozen set-up, the per-cell fields and
 load_state through one base class, and run() through one outer loop,
 which writes to a checkpoint store when given one
 (engine/checkpoint.py); a split run's state is gathered to the host of
-rank 0, which alone writes.
+rank 0, which alone writes.  Config.dtype is the one working type:
+float64, or float32 end to end (the JAX package's production mode, in
+which the sweeps launch the kernels' float32 builds).
 """
 
 from __future__ import annotations
@@ -210,7 +212,9 @@ _CRIT_POINTS = 1 << 27
 def _criterion(S_new, S_old, group=None):
     """max over lam of max |1 - S_old/S_new| (lambda_iteration.jl:
     299-349); cells where S_new is exactly 0 compare by absolute
-    difference.  Taken in blocks along the wavelength axis and reduced
+    difference (in float32, B_lambda at the 22.8 nm bound-free edge
+    underflows to 0 in cold cells, as the JAX package notes).  Taken in
+    blocks along the wavelength axis and reduced
     on the device: one scalar is read back.  With a lambda group, S is
     the rank's block and the maximum is taken over the ranks."""
     rows = max(1, _CRIT_POINTS // max(S_new[0].numel(), 1))
@@ -236,10 +240,11 @@ class _Engine:
     per-site) fields, the damping and the state loaded to start from.
 
     device: where every field lives (default: the device of
-    line.dlamD).  cfg.dtype is the working type of physics and
-    transport alike and must be float64 (n1 = n_H - n2 - n3 cancels in
-    float32, ROADMAP C4); a different cfg.transport_dtype is refused
-    (float32 transport is not accurate yet, ROADMAP C3).  lam_group: a
+    line.dlamD).  cfg.dtype ('float64' or 'float32', the JAX package's
+    production mode) is the working type of physics and transport alike:
+    every field, the line, the extinction (complex64 Voigt in float32),
+    the sweeps' kernels, the rates and S; a different
+    cfg.transport_dtype is refused.  lam_group: a
     parallel.lam.LamGroup, whose block of the line (lam_block, global
     rows) this engine then owns; the line itself stays whole, since the
     rate windows read it by global index.  mesh: a parallel.mesh.Mesh,
@@ -253,18 +258,12 @@ class _Engine:
         self.device = torch.device(device if device is not None
                                    else line.dlamD.device)
         self.dtype = torch_dtype(cfg.dtype)
-        if self.dtype != torch.float64:
-            raise NotImplementedError(
-                f"dtype={cfg.dtype!r}: the NLTE engines run in float64 "
-                f"only.  The ground level n1 = atom_density - n2 - n3 "
-                f"(physics/stateq.py) cancels in ionised cells, where n1 "
-                f"is ~1e-7 of n_H, so float32 rounding of n2 + n3 becomes "
-                f"a 7-22 % error in n1 after one iteration and then "
-                f"line-core J; the JAX package shares the cancellation")
         if cfg.sweep_dtype != cfg.dtype:
             raise NotImplementedError(
                 f"transport_dtype={cfg.transport_dtype!r} differs from "
-                f"dtype={cfg.dtype!r}: only one working type is ported")
+                f"dtype={cfg.dtype!r}: the JAX package declares the field "
+                f"and never reads it, so there is no mixed-type engine to "
+                f"port; set dtype alone")
         self.line = dataclasses.replace(
             line, dlamD=line.dlamD.to(self.device, self.dtype))
         self.quad = get_quadrature(quadrature or cfg.quadrature)
@@ -885,17 +884,18 @@ def _placement(engine, rank):
 
 
 def _host_state(engine, populations, S):
-    """The whole populations and S of a split run as numpy arrays on
-    world rank 0 ((None, None) on the others): each rank's rows of S, one
-    row at a time, and the populations of each tile (from the rank at
-    lambda coordinate 0), each one broadcast, so no whole cube is ever on
-    the card."""
+    """The whole populations and S of a split run as numpy arrays of the
+    working dtype on world rank 0 ((None, None) on the others): each
+    rank's rows of S, one row at a time, and the populations of each
+    tile (from the rank at lambda coordinate 0), each one broadcast, so
+    no whole cube is ever on the card."""
     world = engine._world()
     root = world.rank == 0
     whole = engine.grid_shape()
-    S_host = (np.empty((engine.line.n_lambda,) + whole, np.float64)
+    host = np.dtype(engine.cfg.dtype)
+    S_host = (np.empty((engine.line.n_lambda,) + whole, host)
               if root else None)
-    P_host = np.empty(whole + (3,), np.float64) if root else None
+    P_host = np.empty(whole + (3,), host) if root else None
     for r in range(world.size):
         rows, index, lam_index = _placement(engine, r)
         for j in range(rows.stop - rows.start):
