@@ -11,16 +11,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      per-angle plane of the Bezier iteration, (13, 256, 256), and at the
      continuum iteration's batch of one, (1, 256, 256), over every
      stencil-shift / march-direction combination with mixed per-element
-     geometry: xy_plane (K1), and K2 as march_coeffs, march_chain and
-     their composition march_plane; then all timed at the production
-     shape beside their bounds, K2 per march axis, and at (1, 256, 256),
-     and at the production shape in float32 too;
+     geometry: xy_plane (K1 one plane a launch), and K2 as
+     march_coeffs, march_chain and their composition march_plane; then
+     xy_segment (K1 a segment a launch) at the same shapes and a
+     320x320 plane (its global placement) and a 6x1 one, over every
+     shift pair, both directions and segment lengths 1, 2, 7 and 214,
+     bit-equal to its plain version and to a loop of xy_plane, a
+     segment cut into pieces bit-equal to the whole one; then all
+     timed at the production shape beside their bounds, K2 per march
+     axis, and at (1, 256, 256), and at the production shape in float32
+     too; a 214-plane xy segment at B = 52, 13 and 1 in both types, ms a
+     step beside its bound and the per-plane K1's time;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
   5. one Lambda iteration of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
-     through RegularEngine.run(), with every kernel's launch count;
+     through RegularEngine.run(), with every kernel's launch count
+     (xy_segment one a piece of an xy segment, xy_plane none);
   6. the Voronoi NLTE chain goldens (tests/golden/nlte_fixtures.npz
      vor_*: 500 sites, 'layer' order, 3 iterations) through
      VoronoiEngine.run() on the card, and wavefront sweeps of every
@@ -59,8 +67,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (215x256x256, 91 wavelengths, float64), disk centre (theta 180)
      and slanted (theta 135), with seconds, peak memory, launch counts,
      finite non-negative intensities, a line centre brighter than the
-     far wing and its brightness temperature; one xy_plane call of the
-     first and one march_plane call of the second held against the
+     far wing and its brightness temperature; one xy_segment call of
+     the first and one march_plane call of the second held against the
      plain versions on their own inputs; then the continuum_study
      driver on the production atmosphere (skips 1-4, STUDY_SITES
      sites);
@@ -69,7 +77,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      both on cuda:0) each run one streamed iteration of phase 5's
      configuration on its block of the 91 wavelengths padded to 92,
      with seconds, collective seconds, peak memory and launch counts a
-     rank; one xy_plane and one march_plane call of a rank's last
+     rank; one xy_segment and one march_plane call of a rank's last
      lambda chunk (B = 28) held against the plain versions; the S rows
      at the block edges and the populations against phase 5's, with
      the cell and level of the largest populations difference; then
@@ -89,9 +97,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
  15. float32 production (Config(dtype="float32"), the JAX package's
      production mode): one streamed iteration of phase 5's
      configuration in float32, with seconds, the J-pass share, peak
-     memory and launch counts (equal to phase 5's), the 100th K1 and
-     K2 call on the production batch (52 planes) held against the plain
-     versions at TOL["float32"], and S and the populations held against
+     memory and launch counts (K2's equal to phase 5's, xy_segment's
+     one a piece), the second xy_segment and the 100th K2 call on the
+     production batch (52 planes) held against the plain versions at
+     TOL["float32"], and S and the populations held against
      phase 5's float64 result at the bar of
      tests/test_f32_physics.py::test_nlte_iteration_f32_vs_f64 (rtol
      5e-3 plus 5e-3 of the float64 array's largest magnitude), with the
@@ -130,14 +139,14 @@ PROD = dict(nz=215, nx=256, ny=256, nlam_bb=51, nlam_bf=20,
 VOR_SITES = 442_368
 # phase 12: site counts of the continuum study (each pays a tessellation
 # and six inverse-distance resamplings onto the 14M-point grid, on the
-# host); which xy_plane / march_plane call of a synthesis is held
-# against the plain version
+# host); which march_plane call of a synthesis is held against the plain
+# version (and XY_SEG_CALL's xy_segment call)
 STUDY_SITES = "1e5"
 SYNTH_CALL = 100
-# phase 13: ranks, and which xy_plane and march_plane call of a rank's
-# iteration is held against the plain version: the 100th on the batch of
-# the block's last lambda chunk (7 wavelengths at 2 ranks: 28 planes,
-# which phase 2 does not check)
+# phase 13: ranks, and which march_plane call of a rank's iteration is
+# held against the plain version: the 100th on the batch of the block's
+# last lambda chunk (7 wavelengths at 2 ranks: 28 planes, which phase 2
+# does not check); its xy_segment call there is XY_SEG_CALL's
 LAM_RANKS = 2
 LAM_CALL = 100
 # phase 14: ranks of the y axis, and which K1 call (on a padded tile) and
@@ -146,9 +155,32 @@ MESH_RANKS = 2
 MESH_CALL = 100
 TOL = {"float64": dict(rtol=1e-12, atol=0.0),
        "float32": dict(rtol=2e-5, atol=1e-6)}
-# the hand-written kernels of the regular path; march_plane is K2 as the
+# which xy_segment call (a piece of an xy segment) of phases 12, 13 and
+# 15 is held against the plain version: the second, whose carried plane
+# is not the boundary's
+XY_SEG_CALL = 2
+# the hand-written kernels of the regular path: K1 as xy_segment (the
+# unsplit sweep) and xy_plane (the split sweep); march_plane is K2 as the
 # composition of march_coeffs and march_chain
-KERNELS = ("xy_plane", "march_plane", "march_coeffs", "march_chain")
+KERNELS = ("xy_segment", "xy_plane", "march_plane", "march_coeffs",
+           "march_chain")
+# the kernels that take one plane a launch
+PLANE_KERNELS = KERNELS[1:]
+# phase 2's plane shapes (B, Nx, Ny): the production group plane (4
+# angles x lambda_chunk), a smaller full plane, a ragged one, the
+# per-angle plane of the Bezier iteration (lambda_chunk) and the
+# continuum iteration's (one)
+PHASE2_SHAPES = ((4 * PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
+                 (16, 256, 256), (5, 37, 29),
+                 (PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
+                 (1, PROD["nx"], PROD["ny"]))
+# the kernels an unsplit linear regular sweep launches
+UNSPLIT = ("xy_segment", "march_plane", "march_coeffs", "march_chain")
+# phase 2: xy segment lengths held against the plain version and the
+# per-plane kernel (214: a whole production segment), and the length
+# and piece of the segment cut into pieces
+SEG_LENGTHS = (1, 2, 7, 214)
+SEG_CUT = (23, 5)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 # floating-point operations a second outside the tensor cores, the same
 OPS_PER_S = {"float64": 34e12, "float32": 67e12}
@@ -212,7 +244,8 @@ def _compare(name, got, want, dtype_name):
 
 
 def check_kernels():
-    """Phase 2: each kernel against its plain version on the card; K2 as
+    """Phase 2a: each per-plane kernel against its plain version on the
+    card, at PHASE2_SHAPES; K2 as
     its two kernels, march_coeffs and march_chain (on the kernel's own
     scratch), and as their composition march_plane.  Returns {dtype
     name: {kernel: max abs err}}."""
@@ -220,19 +253,12 @@ def check_kernels():
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
-    worst = {d: dict.fromkeys(KERNELS, 0.0) for d in TOL}
+    worst = {d: dict.fromkeys(PLANE_KERNELS, 0.0) for d in TOL}
     gen = torch.Generator().manual_seed(2024)
-    # the production group-plane shape (4 angles x lambda_chunk), a
-    # smaller full plane, a ragged one, the per-angle plane of the Bezier
-    # iteration (lambda_chunk) and the continuum iteration's (one)
-    shapes = ((4 * PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
-              (16, 256, 256), (5, 37, 29),
-              (PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
-              (1, PROD["nx"], PROD["ny"]))
     for dtype_name, dtype in (("float64", torch.float64),
                               ("float32", torch.float32)):
-        for (B, nx, ny) in shapes:
-            err = dict.fromkeys(KERNELS, (0.0, 0.0))
+        for (B, nx, ny) in PHASE2_SHAPES:
+            err = dict.fromkeys(PLANE_KERNELS, (0.0, 0.0))
 
             def compare(name, got, want):
                 torch.cuda.synchronize()
@@ -274,9 +300,192 @@ def check_kernels():
             print(f"  {dtype_name} B={B} {nx}x{ny}: max abs err (rel) "
                   + "; ".join(f"{k} {a:.3e} ({b:.3e})"
                               for k, (a, b) in err.items()), flush=True)
-            for k in KERNELS:
+            for k in PLANE_KERNELS:
                 worst[dtype_name][k] = max(worst[dtype_name][k], err[k][0])
     return worst
+
+
+def _seg_fields(gen, nz, B, nx, ny, dtype):
+    """alpha (7 decades), S and I0 for an xy segment, made on the card
+    from `gen` (a CUDA generator): the production fields are 5.9 GB each
+    in float64."""
+    import torch
+    u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda",
+                                  dtype=torch.float64)
+    alpha = (10.0 ** (-5.0 + 7.0 * u(nz, B, nx, ny))).to(dtype)
+    S = (0.1 + 0.9 * u(nz, B, nx, ny)).to(dtype)
+    return alpha, S, u(B, nx, ny).to(dtype)
+
+
+def _seg_geometry(gen, n, B, dtype):
+    """Per-step, per-element r, fx, fy; exact 0 and 1 fractions among
+    them."""
+    import torch
+    u = lambda: torch.rand(n, B, generator=gen, device="cuda",
+                           dtype=torch.float64)
+    r = (10.0 ** (-1.0 + 2.0 * u())).to(dtype)
+    fx, fy = u().to(dtype), u().to(dtype)
+    fx[0, 0], fy[0, -1], fx[-1, -1] = 0.0, 1.0, 1.0
+    return r, fx, fy
+
+
+def _seg_steps(nz, dirn, n):
+    return (list(range(1, n + 1)) if dirn == 1
+            else list(range(nz - 2, nz - 2 - n, -1)))
+
+
+def _hold_segment(args, out, against_k1=False):
+    """out, the planes an xy_segment call made from `args`, against its
+    plain version on the same inputs, step by step (the plain planes are
+    made one at a time, so no second stack of planes is held), at TOL of
+    the dtype; with against_k1, against a loop of the per-plane kernel
+    xy_plane too, bit for bit.  The steps' errors stay on the card until
+    the end.  Returns the max abs and rel error against the plain
+    version."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+    alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys_ = args[:10]
+    dtype_name = str(out.dtype).replace("torch.", "")
+    tol = TOL[dtype_name]
+    errs, bad, k1_off = [], [], []
+    I = K = I0
+    for j, t in enumerate(steps):
+        planes = (alpha[t - dirn], alpha[t], S[t - dirn], S[t])
+        geom = (r[j], fx[j], fy[j], sxs, sys_)
+        I = xp.xy_plane_plain(*planes, I, *geom)
+        e = (out[j] - I).abs()
+        errs.append(torch.stack([e.max(), (e / I.abs()).max()]))
+        bad.append((e > tol["atol"] + tol["rtol"] * I.abs()).any()
+                   | ~torch.isfinite(out[j]).all())
+        if against_k1:
+            K = xp.xy_plane(*planes, K, *geom)
+            k1_off.append((out[j] != K).any())
+    e_abs, e_rel = (float(v) for v in torch.stack(errs).max(0).values)
+    require(not bool(torch.stack(bad).any()),
+            f"xy_segment disagrees with its plain version (or is not "
+            f"finite): max abs err {e_abs:.3e}, max rel err {e_rel:.3e} "
+            f"({dtype_name})")
+    require(not (k1_off and bool(torch.stack(k1_off).any())),
+            "xy_segment differs from a loop of the per-plane kernel")
+    return e_abs, e_rel
+
+
+def check_xy_segment(shapes):
+    """Phase 2b: xy_segment on the card against its plain version and a
+    loop of the per-plane kernel, bit for bit, at `shapes`, a plane
+    larger than a cluster's shared memory holds (the kernel's global
+    placement) and one a single column wide (the y wrap onto itself),
+    float64 and float32, over every shift pair, both directions and
+    SEG_LENGTHS; a segment of SEG_CUT[0] planes cut into pieces of
+    SEG_CUT[1] against the whole one.  Returns {dtype name: max abs
+    err}."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_segment as xs
+
+    nz = max(SEG_LENGTHS) + 1
+    worst = dict.fromkeys(TOL, 0.0)
+    for dtype_name, dtype in (("float64", torch.float64),
+                              ("float32", torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(2025)
+        for (B, nx, ny) in shapes + ((2, 320, 320), (3, 6, 1)):
+            alpha, S, I0 = _seg_fields(gen, nz, B, nx, ny, dtype)
+            lay = xs.layout(nx, ny, dtype)
+            runs = 0
+            for sxs in (0, -1):
+                for sys_ in (0, -1):
+                    for dirn in (1, -1):
+                        for n in SEG_LENGTHS:
+                            steps = _seg_steps(nz, dirn, n)
+                            geom = _seg_geometry(gen, n, B, dtype)
+                            args = (alpha, S, I0, steps, dirn, *geom, sxs,
+                                    sys_)
+                            out = torch.empty((n, B, nx, ny), dtype=dtype,
+                                              device="cuda")
+                            xs.xy_segment(*args, out)
+                            torch.cuda.synchronize()
+                            e = _hold_segment(args, out, True)
+                            require(e[0] == 0.0, "xy_segment differs from "
+                                                 "its plain version")
+                            runs += 1
+                            del out
+            # a segment cut into pieces, each from the last plane of the
+            # one before, against the whole segment
+            n, k = SEG_CUT
+            steps = _seg_steps(nz, -1, n)
+            r, fx, fy = _seg_geometry(gen, n, B, dtype)
+            whole = xs.xy_segment(alpha, S, I0, steps, -1, r, fx, fy, -1, 0,
+                                  torch.empty((n, B, nx, ny), dtype=dtype,
+                                              device="cuda"))
+            carry, pieces = I0, []
+            for j0 in range(0, n, k):
+                sl = slice(j0, j0 + k)
+                p = xs.xy_segment(alpha, S, carry, steps[sl], -1, r[sl],
+                                  fx[sl], fy[sl], -1, 0,
+                                  torch.empty((len(steps[sl]), B, nx, ny),
+                                              dtype=dtype, device="cuda"))
+                pieces.append(p)
+                carry = p[-1].clone()
+            torch.cuda.synchronize()
+            require(torch.equal(torch.cat(pieces), whole),
+                    "xy_segment in pieces differs from the whole segment")
+            print(f"  xy_segment {dtype_name} B={B} {nx}x{ny} ({lay}): "
+                  f"{runs} segments of lengths {SEG_LENGTHS}, 4 shift "
+                  f"pairs, both directions: bit-equal to the plain version "
+                  f"and to the per-plane kernel; {n} planes in pieces of "
+                  f"{k} bit-equal to one call", flush=True)
+            del alpha, S, I0, whole, pieces, carry
+            torch.cuda.empty_cache()
+    return worst
+
+
+def time_segment(B, dtype_name):
+    """A 214-plane xy segment at (B, 256, 256) in `dtype_name` (in pieces
+    of at most piece_steps planes, as the sweep cuts it): the kernel's
+    ms a step, the plain version's, the per-plane kernel's on the same
+    inputs, and the bound of a step (three planes).  Returns (ms, plain
+    ms, K1 ms, bound ms, bound_by)."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_plane as xp
+    from voronoirt_tpu_torch.solvers import xy_segment as xs
+
+    nx, ny = PROD["nx"], PROD["ny"]
+    dtype = getattr(torch, dtype_name)
+    n = PROD["nz"] - 1
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    alpha, S, I0 = _seg_fields(gen, PROD["nz"], B, nx, ny, dtype)
+    r, fx, fy = _seg_geometry(gen, n, B, dtype)
+    steps = list(range(1, n + 1))
+    k = min(n, xs.piece_steps(B, nx, ny, dtype))
+    buf = torch.empty((k, B, nx, ny), dtype=dtype, device="cuda")
+
+    def segment():
+        carry = I0
+        for j0 in range(0, n, k):
+            j1 = min(j0 + k, n)
+            out = xs.xy_segment(alpha, S, carry, steps[j0:j1], 1, r[j0:j1],
+                                fx[j0:j1], fy[j0:j1], -1, 0, buf[:j1 - j0])
+            carry = out[-1].clone()
+
+    def per_plane(step):
+        def run():
+            I = I0
+            for j, t in enumerate(steps):
+                I = step(alpha[t - 1], alpha[t], S[t - 1], S[t], I, r[j],
+                         fx[j], fy[j], -1, 0)
+        return run
+
+    ms = _time_ms(segment, 5) / n
+    k1 = _time_ms(per_plane(xp.xy_plane), 3) / n
+    plain = _time_ms(per_plane(xp.xy_plane_plain), 1) / n
+    bound, by = _bounds(B, nx, ny, dtype_name=dtype_name)["xy_segment"]
+    print(f"  xy_segment, {n} planes at (B={B}, {nx}x{ny}, {dtype_name}) in "
+          f"pieces of {k}: {ms:.5f} ms a step; per-plane K1 on the same "
+          f"inputs {k1:.5f} ms; plain {plain:.4f} ms; bound {bound:.5f} ms "
+          f"({by}, three planes), {100 * bound / ms:.1f} % of it; "
+          f"{xs.layout(nx, ny, dtype)}", flush=True)
+    del alpha, S, I0, buf
+    torch.cuda.empty_cache()
+    return ms, plain, k1, bound, by
 
 
 def _time_ms(fn, reps):
@@ -305,6 +514,8 @@ def _bounds(B, nx, ny, n_sweeps=3, dtype_name="float64"):
     pts = B * nx * ny
     plane = ELEMENT_BYTES[dtype_name] * pts
     work = {"xy_plane": (6 * plane, 60 * pts),
+            # a step of a segment: alpha[t] and S[t] read, I[t] written
+            "xy_segment": (3 * plane, 60 * pts),
             "march_coeffs": (7 * plane, 50 * pts),
             "march_chain": (3 * plane, 5 * n_sweeps * pts),
             "march_plane": (6 * plane, (50 + 5 * n_sweeps) * pts)}
@@ -430,12 +641,40 @@ def _launch_counts(reset=False):
     """The kernel wrappers' launch counters; reset=True sets them to 0."""
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
+    from voronoirt_tpu_torch.solvers import xy_segment as xs
     if reset:
-        xp.LAUNCHES = 0
+        xp.LAUNCHES = xs.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
-    return {"xy_plane": xp.LAUNCHES, "march_plane": mp.LAUNCHES,
-            "march_coeffs": mp.COEFFS_LAUNCHES,
+    return {"xy_segment": xs.LAUNCHES, "xy_plane": xp.LAUNCHES,
+            "march_plane": mp.LAUNCHES, "march_coeffs": mp.COEFFS_LAUNCHES,
             "march_chain": mp.CHAIN_LAUNCHES}
+
+
+def _require_path(launches, used, what):
+    """Every kernel in `used` launched on the path, and no other."""
+    for name, n in launches.items():
+        if name in used:
+            require(n > 0, f"{name}: no launch in {what}")
+        else:
+            require(n == 0, f"{name}: {n} launches in {what}, which should "
+                            f"not reach it")
+
+
+def _xy_pieces(eng, dtype):
+    """xy_segment launches one streamed iteration of `eng` makes: a piece
+    of at most piece_steps planes of every xy segment of every group, in
+    every lambda chunk."""
+    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
+    chunk = eng.cfg.lambda_chunk
+    n = 0
+    for lo in range(0, eng.line.n_lambda, chunk):
+        b = min(chunk, eng.line.n_lambda - lo)
+        for g in eng.plan_groups:
+            B = b * len(g)
+            n += sum(-(-len(s.steps) // piece_steps(B, *eng.atmos.shape[1:],
+                                                    dtype))
+                     for s in g[0][1].segments if s.case == "xy")
+    return n
 
 
 def _edge_rows(n_lambda, n_ranks):
@@ -518,9 +757,12 @@ def _production_iteration(atmos, dtype_name):
           f"(max_memory_allocated); criterion {res.convergence}; "
           f"S, populations finite: {finite}; sum(populations)/n_H - 1 "
           f"max {mass:.3e}", flush=True)
-    print(f"  launches during the iteration: {launches}", flush=True)
-    for name, n in launches.items():
-        require(n > 0, f"{name}: no launch on the main path")
+    pieces = _xy_pieces(eng, T.dtype)
+    print(f"  launches during the iteration: {launches} (xy_segment: one a "
+          f"piece of an xy segment, {pieces} expected)", flush=True)
+    _require_path(launches, UNSPLIT, "the streamed iteration")
+    require(launches["xy_segment"] == pieces,
+            f"xy_segment: {launches['xy_segment']} launches, not {pieces}")
     return res, eng, launches, mass
 
 
@@ -849,10 +1091,9 @@ def check_bezier_sweeps():
     require(worst["linear"] <= 1e-12 and worst["bezier"] <= 1e-10,
             f"sweeps card vs CPU: {worst}")
     require(differs > 1e-3, "the Bezier sweep equals the linear one")
-    # the Bezier xy step bypasses K1 (only the linear sweeps launch it);
-    # the marching segments of both go through K2
-    require(launches["march_plane"] > 0 and launches["xy_plane"] > 0,
-            f"launches {launches}")
+    # the Bezier xy step bypasses K1 (only the linear sweeps launch it,
+    # as xy_segment); the marching segments of both go through K2
+    _require_path(launches, UNSPLIT, "the sweeps")
 
 
 def _time_bezier_step(B):
@@ -891,21 +1132,35 @@ K2_CALL = 1000
 @contextmanager
 def _keep_call(name, n, batch=None, shape=None):
     """Keep the arguments and result of the n-th call that the regular
-    sweep makes of the kernel wrapper `name` ('xy_plane' or
+    sweep makes of the kernel wrapper `name` ('xy_segment', 'xy_plane' or
     'march_plane'), to hold against the plain version afterwards; with
     `batch`, the n-th call on a batch of that many planes; with `shape`,
-    the n-th call on planes of that shape."""
+    the n-th call on planes of that shape.  An xy_segment call is held
+    at once, inside the sweep, before the next piece reuses its planes:
+    its inputs are the whole fields, too large to copy."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
     fn, kept = getattr(sr, name), {"seen": 0}
+    # the batch plane: I0 of a segment, the first plane of a plane call
+    plane_of = (lambda args: args[2]) if name == "xy_segment" else \
+        (lambda args: args[0])
 
     def keeping(*args, **kwargs):
-        if ((batch is not None and args[0].shape[0] != batch)
-                or (shape is not None and tuple(args[0].shape) != shape)):
+        plane = plane_of(args)
+        if ((batch is not None and plane.shape[0] != batch)
+                or (shape is not None and tuple(plane.shape) != shape)):
             return fn(*args, **kwargs)
         kept["seen"] += 1
         if kept["seen"] != n:
             return fn(*args, **kwargs)
+        if name == "xy_segment":
+            out = fn(*args, **kwargs)
+            kept["err"] = _hold_segment(args, out)
+            kept["shape"], kept["dtype"] = tuple(out.shape), out.dtype
+            kept["statics"] = {"steps": f"{args[3][0]}..{args[3][-1]}",
+                               "dirn": args[4], "sxs": args[8],
+                               "sys": args[9]}
+            return out
         kept["args"] = tuple(a.clone() if torch.is_tensor(a) else a
                              for a in args)
         kept["statics"] = kwargs
@@ -913,6 +1168,7 @@ def _keep_call(name, n, batch=None, shape=None):
         # a copy: on a split grid the sweep refills the output's halo in
         # place
         kept["out"] = out.clone()
+        kept["shape"], kept["dtype"] = tuple(out.shape), out.dtype
         return out
 
     setattr(sr, name, keeping)
@@ -928,17 +1184,20 @@ def _hold_kept(name, kept, n, what):
     error."""
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
-    plain = {"xy_plane": xp.xy_plane_plain,
-             "march_plane": mp.march_plane_plain}[name]
-    require("out" in kept, f"{what} made {kept['seen']} {name} calls, "
-                           f"fewer than {n}")
-    dtype_name = str(kept["out"].dtype).replace("torch.", "")
-    e_abs, e_rel = _compare(name, kept["out"],
-                            plain(*kept["args"], **kept["statics"]),
-                            dtype_name)
-    print(f"  {name} call {n} of {what}, {tuple(kept['out'].shape)} "
-          f"{dtype_name}, {kept['statics']}: against the plain version on "
-          f"the same inputs max abs err {e_abs:.3e} (rel {e_rel:.3e}, "
+    require("shape" in kept, f"{what} made {kept['seen']} {name} calls, "
+                             f"fewer than {n}")
+    dtype_name = str(kept["dtype"]).replace("torch.", "")
+    if name == "xy_segment":
+        e_abs, e_rel = kept["err"]
+    else:
+        plain = {"xy_plane": xp.xy_plane_plain,
+                 "march_plane": mp.march_plane_plain}[name]
+        e_abs, e_rel = _compare(name, kept["out"],
+                                plain(*kept["args"], **kept["statics"]),
+                                dtype_name)
+    print(f"  {name} call {n} of {what}, {kept['shape']} {dtype_name}, "
+          f"{kept['statics']}: against the plain version on the same "
+          f"inputs max abs err {e_abs:.3e} (rel {e_rel:.3e}, "
           f"{TOL[dtype_name]})", flush=True)
     return e_abs
 
@@ -1015,11 +1274,8 @@ def run_bezier_production(atmos):
           f"{launches}; criterion {res.convergence}; peak device memory "
           f"{peak / 2**30:.3f} GiB (max_memory_allocated); "
           f"sum(populations)/n_H - 1 max {mass:.3e}", flush=True)
-    require(launches["xy_plane"] == 0,
-            "the Bezier iteration launched the linear xy kernel")
-    for name in ("march_plane", "march_coeffs", "march_chain"):
-        require(launches[name] > 0, f"{name}: no launch in the Bezier "
-                                    f"iteration")
+    _require_path(launches, ("march_plane", "march_coeffs", "march_chain"),
+                  "the Bezier iteration")
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
@@ -1134,8 +1390,7 @@ def run_continuum(atmos, sites):
           f"iterations and the set-up, {wall / 3:.4f} s an iteration; "
           f"history {hist}; launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    for name, n in launches.items():
-        require(n > 0, f"{name}: no launch in the continuum iteration")
+    _require_path(launches, UNSPLIT, "the continuum iteration")
     del S, J
 
     line_v = line_for(sites.temperature, "cuda")
@@ -1266,7 +1521,7 @@ def check_device_trace():
     nan_guard("traced J", J)
     events = prof.key_averages()
     ours = sorted(e.key for e in events
-                  if "xy_plane" in e.key or "march_" in e.key)
+                  if "xy_" in e.key or "march_" in e.key)
     print(f"  device_trace over one J pass at {tuple(J.shape)}: trace.json "
           f"{trace_bytes} bytes, {len(events)} kinds of event; hand-written "
           f"kernels among them: {ours}", flush=True)
@@ -1309,13 +1564,14 @@ def run_synthesis(atmos, ref):
              "wavelength": np.asarray(ref["lam"]) * 1e9}
     atmos_s, pops, lam = syn._load_regular(store)
     out = {}
-    for theta, name in ((180.0, "xy_plane"), (135.0, "march_plane")):
+    for theta, name, call in ((180.0, "xy_segment", XY_SEG_CALL),
+                              (135.0, "march_plane", SYNTH_CALL)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         timer = _card_timer()
         _launch_counts(reset=True)
-        with _keep_call(name, SYNTH_CALL) as kept, timer.phase("synth"):
+        with _keep_call(name, call) as kept, timer.phase("synth"):
             I, line = syn.synthesize(atmos_s, pops, lam, theta=theta,
                                      n_bb=PROD["nlam_bb"],
                                      n_bf=PROD["nlam_bf"])
@@ -1340,8 +1596,12 @@ def run_synthesis(atmos, ref):
                                f"than the far wing")
         if theta == 180.0:
             require(3000.0 < Tb < 50000.0, f"T_b centre {Tb:.1f} K")
-        require(out[theta][name] > 0, f"{name}: no launch in the synthesis")
-        _hold_kept(name, kept, SYNTH_CALL, f"the synthesis at theta {theta:g}")
+        # disk centre looks straight down (xy segments only); slanted,
+        # at this grid, marches in yz only
+        _require_path(out[theta], ("xy_segment",) if theta == 180.0 else
+                      ("march_plane", "march_coeffs", "march_chain"),
+                      f"the synthesis at theta {theta:g}")
+        _hold_kept(name, kept, call, f"the synthesis at theta {theta:g}")
     return out
 
 
@@ -1376,7 +1636,8 @@ def run_study():
             and all(r["rel_l1_vs_full"] < 0.5
                     for r in res["voronoi"].values()),
             "continuum study: an image is 50 % off the full regular one")
-    require(launches["xy_plane"] > 0, "xy_plane: no launch in the study")
+    # the study's regular images look straight down: xy segments only
+    _require_path(launches, ("xy_segment",), "the study")
     return launches
 
 
@@ -1414,15 +1675,16 @@ def _phase13_rank(group, call_n):
     B = ((hi - lo) % cfg.lambda_chunk or cfg.lambda_chunk) \
         * cfg.group_max_angles
     _launch_counts(reset=True)
-    with _keep_call("xy_plane", call_n, B) as k1, \
+    with _keep_call("xy_segment", XY_SEG_CALL, B) as k1, \
             _keep_call("march_plane", call_n, B) as k2:
         res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    held = {name: {"err": _hold_kept(name, kept, call_n, f"rank "
+    held = {name: {"err": _hold_kept(name, kept, n, f"rank "
                                      f"{group.rank}'s iteration at B = {B}"),
-                   "shape": tuple(kept["out"].shape)}
-            for name, kept in (("xy_plane", k1), ("march_plane", k2))}
+                   "shape": kept["shape"], "call": n}
+            for name, kept, n in (("xy_segment", k1, XY_SEG_CALL),
+                                  ("march_plane", k2, call_n))}
     return {"rank": group.rank, "device": str(dev),
             "name": torch.cuda.get_device_name(dev), "block": (lo, hi),
             "n_lambda": line.n_lambda, "b0_rows": b0_rows, "setup_s": setup,
@@ -1491,7 +1753,7 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
               f"diff {relP:.3e} (<= 1e-8) at cell {at[:-1]}, level n"
               f"{at[-1] + 1} ({share:.3e} of n_H there, T "
               f"{float(temperature[at[:-1]]):.1f} K); "
-              + "; ".join(f"{k} call {LAM_CALL} at {h['shape']}: max abs "
+              + "; ".join(f"{k} call {h['call']} at {h['shape']}: max abs "
                           f"err {h['err']:.3e}" for k, h in o["held"].items()),
               flush=True)
         require(errS <= 1e-12 and errP <= 1e-10 and relP <= 1e-8,
@@ -1499,8 +1761,7 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
         require(np.array_equal(o["populations"], outs[0]["populations"])
                 and o["convergence"] == outs[0]["convergence"],
                 "the ranks' populations or criteria differ")
-        for name, n in o["launches"].items():
-            require(n > 0, f"{name}: no launch on rank {o['rank']}")
+        _require_path(o["launches"], UNSPLIT, f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']}", flush=True)
     t = time.perf_counter()
@@ -1561,7 +1822,7 @@ def _phase14_rank(group, call_n):
     peak = torch.cuda.max_memory_allocated(dev)
     held = {name: {"err": _hold_kept(name, kept, call_n, f"rank "
                                      f"{group.rank}'s y-split iteration"),
-                   "shape": tuple(kept["out"].shape)}
+                   "shape": kept["shape"], "call": call_n}
             for name, kept in (("xy_plane", k1), ("march_plane", k2))}
     rows = sorted(set(_edge_rows(line.n_lambda, LAM_RANKS).values()))
     return {"rank": group.rank, "device": str(dev),
@@ -1627,8 +1888,8 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
                 f"rank {o['rank']} differs from the unsplit iteration")
         require(o["convergence"] == outs[0]["convergence"],
                 "the ranks' criteria differ")
-        for name, n in o["launches"].items():
-            require(n > 0, f"{name}: no launch on rank {o['rank']}")
+        # the split sweep: K1 one plane a launch on padded tiles
+        _require_path(o["launches"], PLANE_KERNELS, f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
           f"iteration)", flush=True)
@@ -1646,8 +1907,9 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
 # float32 value within GATE of the float64 one plus GATE of the float64
 # array's largest magnitude
 GATE = 5e-3
-# which K1 and K2 call of the float32 iteration, on a batch of 52
-# planes (4 angles x lambda_chunk), is held against the plain version
+# which K2 call of the float32 iteration, on a batch of 52 planes (4
+# angles x lambda_chunk), is held against the plain version (and
+# XY_SEG_CALL's xy_segment call)
 F32_CALL = 100
 
 
@@ -1687,25 +1949,28 @@ def _against_gate(what, got, want, scale, names):
 
 def run_f32_production(atmos, ref, launches64):
     """Phase 15a: one streamed iteration of phase 5's configuration in
-    float32, held against phase 5's float64 result; the F32_CALL-th K1
-    and K2 call on the production batch against the plain versions.
+    float32, held against phase 5's float64 result; the XY_SEG_CALL-th
+    xy_segment call and the F32_CALL-th K2 call on the production batch
+    against the plain versions.
     Returns the launch counts and the kept calls' max abs errors."""
     import torch
 
     B = 4 * PROD["lambda_chunk"]
-    with _keep_call("xy_plane", F32_CALL, batch=B) as kept_xy, \
+    with _keep_call("xy_segment", XY_SEG_CALL, batch=B) as kept_xy, \
             _keep_call("march_plane", F32_CALL, batch=B) as kept_m:
         res, _, launches, mass = _production_iteration(atmos, "float32")
     # float32 rounding of the three ratios (physics/stateq.py)
     require(mass < 1e-6, f"populations do not sum to n_H ({mass:.3e})")
-    require(launches == launches64, f"float32 launches {launches}, "
-                                    f"float64 (phase 5) {launches64}")
+    # K2 one launch a plane as in float64; K1's pieces hold twice the
+    # float32 planes, so half the launches
+    require(all(launches[k] == launches64[k] for k in PLANE_KERNELS),
+            f"float32 launches {launches}, float64 (phase 5) {launches64}")
     errs = {}
-    for name, kept in (("xy_plane", kept_xy), ("march_plane", kept_m)):
-        require(kept.get("out") is not None
-                and kept["out"].dtype == torch.float32,
-                f"{name}: no float32 call {F32_CALL} kept")
-        errs[name] = _hold_kept(name, kept, F32_CALL, "the float32 iteration")
+    for name, kept, n in (("xy_segment", kept_xy, XY_SEG_CALL),
+                          ("march_plane", kept_m, F32_CALL)):
+        require(kept.get("dtype") == torch.float32,
+                f"{name}: no float32 call {n} kept")
+        errs[name] = _hold_kept(name, kept, n, "the float32 iteration")
     P64 = ref["populations"]
     _against_gate("S", res.S, ref["S"], ref["S_scale"],
                   ("lambda", "z", "x", "y"))
@@ -1794,10 +2059,17 @@ def main(argv=None):
     if want(2):
         phase("phase 2: kernels vs plain versions on the card")
         errs = check_kernels()
-        times, bounds = time_kernels(4 * PROD["lambda_chunk"])
+        for d, e in check_xy_segment(PHASE2_SHAPES).items():
+            errs[d]["xy_segment"] = e
+        B52, B13 = 4 * PROD["lambda_chunk"], PROD["lambda_chunk"]
+        times, bounds = time_kernels(B52)
         times_b1, bounds_b1 = time_kernels(1)
-        times32, bounds32 = time_kernels(4 * PROD["lambda_chunk"],
-                                         "float32")
+        times32, bounds32 = time_kernels(B52, "float32")
+        seg = {(B, d): time_segment(B, d) for d in ("float64", "float32")
+               for B in (B52, B13, 1)}
+        for t, B, d in ((times, B52, "float64"), (times_b1, 1, "float64"),
+                        (times32, B52, "float32")):
+            t["xy_segment"] = seg[B, d][:2]
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
         check_goldens()
@@ -1867,13 +2139,26 @@ def main(argv=None):
         mesh_shapes["march_plane"]
     mesh_errs = {name: max(o["held"][name]["err"] for o in mesh_ranks)
                  for name in ("xy_plane", "march_plane")}
+    # each kernel's launches on its path: phase 5's streamed iteration,
+    # and for xy_plane, which only the split sweep launches, a rank of
+    # phase 14's
+    path = dict.fromkeys(KERNELS, "phase 5: the streamed iteration")
+    path["xy_plane"] = "phase 14: the y-split iteration, rank 0"
+    path_launches = dict(launches,
+                         xy_plane=mesh_ranks[0]["launches"]["xy_plane"])
+    k1 = "voronoirt_tpu/solvers/pallas_xy.py:65"
     k2 = ("voronoirt_tpu_torch/csrc/march_plane.cu",
           "voronoirt_tpu/solvers/pallas_march.py:89")
-    src = {"xy_plane": ("voronoirt_tpu_torch/csrc/xy_plane.cu",
-                        "voronoirt_tpu/solvers/pallas_xy.py:65"),
+    src = {"xy_segment": ("voronoirt_tpu_torch/csrc/xy_segment.cu", k1),
+           "xy_plane": ("voronoirt_tpu_torch/csrc/xy_plane.cu", k1),
            "march_plane": k2, "march_coeffs": k2, "march_chain": k2}
+    seg_steps = {f"{d}_B{B}": {"ms": v[0], "plain_ms": v[1],
+                               "per_plane_k1_ms": v[2], "bound_ms": v[3],
+                               "bound_by": v[4]}
+                 for (B, d), v in seg.items()}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
-                "replaces": src[name][1], "launches": launches[name],
+                "replaces": src[name][1], "launches": path_launches[name],
+                "launches_path": path[name],
                 "max_abs_err": errs["float64"][name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
@@ -1889,7 +2174,7 @@ def main(argv=None):
                 "launches_lam_ranks": [n[name] for n in launches_lam],
                 "launches_mesh_y_ranks": [o["launches"][name]
                                           for o in mesh_ranks],
-                "shape_mesh_y": mesh_shapes[name],
+                "shape_mesh_y": mesh_shapes.get(name),
                 "max_abs_err_mesh_y": mesh_errs.get(name),
                 "max_abs_err_f32": errs["float32"][name],
                 "ms_f32": times32[name][0], "plain_ms_f32": times32[name][1],
@@ -1898,7 +2183,9 @@ def main(argv=None):
                 "pct_of_bound_f32": 100 * bounds32[name][0]
                 / times32[name][0],
                 "launches_f32_iteration": launches32[name],
-                "max_abs_err_f32_iteration": errs32.get(name)}
+                "max_abs_err_f32_iteration": errs32.get(name),
+                **({"ms_a_step_214_planes": seg_steps}
+                   if name == "xy_segment" else {})}
                for name in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

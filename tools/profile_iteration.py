@@ -2,12 +2,14 @@
 """Where the time of the port's production Lambda iteration goes, on one
 CUDA card.
 
-    python3 tools/profile_iteration.py [--nz 215] [--out profile.json]
+    python3 tools/profile_iteration.py [--nz 215] [--dtype float32]
+                                       [--out profile.json]
 
 Builds the configuration of chip_smoke.py phase 5 (215x256x256 grid, 91
 wavelengths, ul7n12, float64, lambda-streamed, lambda_chunk 13, 4-angle
-groups) and runs three iterations of RegularEngine.iterate_streamed, the
-step RegularEngine.run() repeats:
+groups; --dtype float32 makes it phase 15's, the JAX package's --f32)
+and runs three iterations of RegularEngine.iterate_streamed, the step
+RegularEngine.run() repeats:
 
   1. parts timed: host timers around synchronised calls of each part
      (extinction, each group sweep by plane-cut case, rate accumulation,
@@ -17,11 +19,16 @@ step RegularEngine.run() repeats:
      against the plain iteration's wall gives the device's busy share;
      the kernels are listed by device time.
 
-Then the two hand-written kernels at the production plane shape (B = 52,
-256x256), float64, built as the package builds them (-fmad=false) and
-with multiply-add contraction (-fmad=true), timed in the order A B B A,
-with each variant's largest relative difference from the plain version
-in float64 and float32.
+Then K1 both ways at the production shape in the iteration's dtype: a
+214-plane xy segment (B = 52, 256x256) through xy_segment, in the
+sweep's pieces, against a loop of the per-plane kernel xy_plane on the
+same inputs (tools/profile_xy_segment.py's measure), timed in the order
+A B B A, ms a step, bit-equal.  Then
+the per-plane kernels at the production plane shape (B = 52, 256x256),
+float64, built as the package builds them (-fmad=false) and with
+multiply-add contraction (-fmad=true), timed in the order A B B A, with
+each variant's largest relative difference from the plain version in
+float64 and float32.
 
 Prints a summary; --out also writes it as JSON.
 """
@@ -36,6 +43,7 @@ from collections import defaultdict
 from unittest import mock
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
@@ -46,6 +54,7 @@ from voronoirt_tpu_torch.kernels import build  # noqa: E402
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
 from voronoirt_tpu_torch.solvers import march_plane as mp  # noqa: E402
 from voronoirt_tpu_torch.solvers import xy_plane as xp  # noqa: E402
+from profile_xy_segment import measure as k1_segment_vs_plane  # noqa: E402
 
 
 def _timed(fn, key, acc):
@@ -212,6 +221,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nz", type=int, default=215)
     ap.add_argument("--lambda-chunk", type=int, default=13)
+    ap.add_argument("--dtype", default="float64",
+                    choices=("float64", "float32"))
     ap.add_argument("--out", default=None, help="write the summary as JSON")
     args = ap.parse_args()
     require_cuda()
@@ -223,10 +234,10 @@ def main():
 
     cfg = Config(nlam_bb=51, nlam_bf=20, quadrature="ul7n12",
                  stream_rates=True, lambda_chunk=args.lambda_chunk,
-                 group_max_angles=4, eps=0.0)
+                 group_max_angles=4, eps=0.0, dtype=args.dtype)
+    dtype = getattr(torch, args.dtype)
     atmos = synthetic_atmosphere(nz=args.nz, nx=256, ny=256)
-    T = torch.as_tensor(atmos.temperature, dtype=torch.float64,
-                        device="cuda")
+    T = torch.as_tensor(atmos.temperature, dtype=dtype, device="cuda")
     line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
     eng = RegularEngine(atmos, line, cfg, device="cuda")
     build.library()
@@ -235,8 +246,8 @@ def main():
     n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
 
     S, pops, wall1, parts = parts_timed(eng, S, pops)
-    print(f"iteration 1 (parts timed): {wall1:.4f} s over {n_chunks} "
-          f"chunks", flush=True)
+    print(f"iteration 1 (parts timed, {args.dtype}): {wall1:.4f} s over "
+          f"{n_chunks} chunks", flush=True)
     for k, v in sorted(parts.items(), key=lambda kv: -kv[1]):
         print(f"  {k:26s} {v:9.4f} s/iteration  {v / n_chunks:8.4f} "
               f"s/chunk  {100 * v / wall1:5.1f} %", flush=True)
@@ -256,18 +267,23 @@ def main():
     torch.cuda.empty_cache()
 
     B = 4 * cfg.lambda_chunk
+    k1 = k1_segment_vs_plane(B, dtype, {})
+    print(f"K1 over a 214-plane xy segment at (B={B}, 256x256), "
+          f"{args.dtype}, ms a step (xy_segment in the sweep's pieces, a "
+          f"loop of xy_plane; in the order A B B A): {json.dumps(k1)}",
+          flush=True)
     variants = fmad_variants(B, 256, 256)
     print(f"kernels at (B={B}, 256x256), float64 ms in the order "
           f"fmad=false, fmad=true, fmad=true, fmad=false:", flush=True)
     for kname, v in variants.items():
         print(f"  {kname}: {json.dumps(v)}", flush=True)
 
-    summary = {"device": smi, "nz": args.nz,
+    summary = {"device": smi, "nz": args.nz, "dtype": args.dtype,
                "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
                "iteration_parts_timed_s": wall1, "parts_s": parts,
                "iteration_plain_s": wall2, "kernels_device_s": busy,
                "kernels": kernels[:40], "finite": require_finite,
-               "fmad_variants": variants}
+               "k1_segment_vs_plane": k1, "fmad_variants": variants}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -275,6 +291,8 @@ def main():
             json.dump(summary, f, indent=1)
     if not require_finite:
         raise SystemExit("S or populations not finite")
+    if not k1["kernel_equals_per_plane"]:
+        raise SystemExit("xy_segment differs from the per-plane kernel")
 
 
 if __name__ == "__main__":

@@ -20,8 +20,9 @@
 // consecutive threads on consecutive y, so every tap load of a warp is
 // one or two contiguous segments; the 3x3-neighbourhood re-reads hit L1
 // and L2, so HBM sees each input plane about once.  One launch per
-// z-plane; keeping the carried plane on chip across a z-segment is later
-// work.
+// z-plane: the split sweep's, whose padded tiles need the carried plane's
+// halo refilled after every step; the unsplit sweep runs a whole segment
+// a launch with the carried plane on chip (xy_segment.cu).
 #include "formal.cuh"
 
 template <typename T>

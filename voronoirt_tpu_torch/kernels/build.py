@@ -5,8 +5,9 @@ stream, passes as ctypes.c_void_p, every size as ctypes.c_int, and each
 launch returns cudaGetLastError() for the wrapper to check.  No PyTorch
 header is compiled, so the build takes seconds.
 
-At first use, library() compiles all sources into one shared library
-for sm_90a (Hopper) under <repo>/build/kernels/, named by a hash of the
+At first use, library() compiles each source with its own nvcc, all
+started together, and links the objects into one shared library for
+sm_90a (Hopper) under <repo>/build/kernels/, named by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one
 loads the cached library.
 """
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "vrt_xy_plane": [_P] * 9 + [_I] * 5 + [_P],
     "vrt_march_coeffs": [_P] * 10 + [_I] * 7 + [_P],
     "vrt_march_chain": [_P] * 3 + [_I] * 8 + [_P],
+    "vrt_xy_segment": [_P] * 7 + [_I] * 8 + [_P],
+    "vrt_xy_segment_info": [_I] * 2 + [_P],
 }
 
 
@@ -80,12 +83,23 @@ def library(flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [_nvcc(), *flags, "-o", tmp, *map(str, srcs)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + proc.stdout
-                                   + proc.stderr)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+                compile_flags = [f for f in flags if f != "-shared"]
+                objs = [os.path.join(objdir, p.stem + ".o") for p in srcs]
+                procs = [subprocess.Popen(
+                    [_nvcc(), *compile_flags, "-c", "-o", o, str(p)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True) for p, o in zip(srcs, objs)]
+                logs = [proc.communicate()[0] for proc in procs]
+                failed = [f"{p.name}:\n{log}" for p, log, proc
+                          in zip(srcs, logs, procs) if proc.returncode != 0]
+                if not failed:
+                    link = subprocess.run([_nvcc(), *flags, "-o", tmp, *objs],
+                                          capture_output=True, text=True)
+                    if link.returncode != 0:
+                        failed = [link.stdout + link.stderr]
+                if failed:
+                    raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):

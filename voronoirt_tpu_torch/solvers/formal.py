@@ -23,9 +23,15 @@ def linear_weights(dtau):
     alpha_mid = (1.0 - exp_mid) / dt_safe - exp_mid
     beta_mid = 1.0 - alpha_mid - exp_mid
 
+    # dtau / 3 and dtau / 6 as true divisions on every device: PyTorch's
+    # CUDA kernels divide by a Python scalar as a product with its
+    # reciprocal, a rounding off the division that the kernels
+    # (csrc/formal.cuh) and the reference make
+    three, six = (torch.full((), v, dtype=dtau.dtype, device=dtau.device)
+                  for v in (3.0, 6.0))
     exp_small = 1.0 - dtau + 0.5 * dtau * dtau
-    alpha_small = dtau * (0.5 - dtau / 3.0)
-    beta_small = dtau * (0.5 - dtau / 6.0)
+    alpha_small = dtau * (0.5 - dtau / three)
+    beta_small = dtau * (0.5 - dtau / six)
 
     # the reference's large branch divides by the TRUE dtau
     # (functions.jl:491-493), not a clipped one

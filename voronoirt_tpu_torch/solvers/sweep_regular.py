@@ -9,13 +9,16 @@ the tests.
 Field layout: (nz, B, Nx, Ny), B any batch (wavelengths, or angles x
 wavelengths in a group sweep); boundary intensity I0: (B, Nx, Ny).
 
-Every z-step goes through one of the two kernel wrappers:
-  * xy case (upwind point in the previous plane): xy_plane.xy_plane;
+Every z-step goes through one of the kernel wrappers:
+  * xy case (upwind point in the previous plane): xy_segment.xy_segment,
+    one launch a segment, or a piece of one of at most
+    xy_segment.piece_steps() planes (the JAX package's lax.scan over
+    the segment); on a split grid xy_plane.xy_plane, one launch a plane;
   * yz / xz cases (in-plane dependency, the reference's n_sweeps
-    Gauss-Seidel passes with its one-line buffer): march_plane.march_plane.
-Both take the direction geometry per batch element, so the single-
-direction `sweep` is the batched sweep with one plan.  The z loop is a
-Python loop launching one kernel per plane.
+    Gauss-Seidel passes with its one-line buffer): march_plane.march_plane,
+    one launch a plane.
+All take the direction geometry per batch element, so the single-
+direction `sweep` is the batched sweep with one plan.
 
 Reference quirks reproduced (see the JAX module): the yz/xz upwind
 column is at ix + sign while the line buffer holds the previous line;
@@ -48,6 +51,7 @@ import torch
 from .formal import bezier_control, bezier_weights
 from .march_plane import march_plane
 from .xy_plane import stencil_xy, xy_plane
+from .xy_segment import piece_steps, xy_segment
 
 
 # --------------------------------------------------------------- planning
@@ -265,6 +269,28 @@ def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill):
     return carry
 
 
+def _xy_segment_pieces(plan, seg, S, alpha, carry, r, fx, fy, emit):
+    """One linear xy segment on an unsplit grid: one xy_segment launch a
+    piece of at most xy_segment.piece_steps() planes, then emit(t,
+    plane) for each plane made, in step order.  Returns the carried
+    plane after the segment."""
+    dirn = 1 if plan.up else -1
+    L = len(seg.steps)
+    n = min(L, piece_steps(*carry.shape, carry.dtype))
+    buf = torch.empty((n,) + tuple(carry.shape), dtype=carry.dtype,
+                      device=carry.device)
+    for j0 in range(0, L, n):
+        j1 = min(j0 + n, L)
+        out = xy_segment(alpha, S, carry, seg.steps[j0:j1], dirn, r[j0:j1],
+                         fx[j0:j1], fy[j0:j1], plan.sxs, plan.sys,
+                         buf[:j1 - j0])
+        for j in range(j1 - j0):
+            emit(seg.steps[j0 + j], out[j])
+        # the next piece reuses buf: carry a copy of its last plane
+        carry = out[-1].clone() if j1 < L else out[-1]
+    return carry
+
+
 def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                         interpolation="linear", halo=None):
     """Shared body of sweep / sweep_batched / sweep_batched_J.
@@ -298,6 +324,12 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
             r = _per_element([s.r for s in segs_p], B_lam, S)
             fx = _per_element([s.fx for s in segs_p], B_lam, S)
             fy = _per_element([s.fy for s in segs_p], B_lam, S)
+            if halo is None:
+                carry = _xy_segment_pieces(lead, seg, S, alpha, carry, r,
+                                           fx, fy, emit)
+                continue
+            # split grid: one plane a launch, the carried plane's halo
+            # refilled after each (the padded tiles are not periodic)
             for j, t in enumerate(seg.steps):
                 carry = refill(xy_plane(alpha[t - dirn], alpha[t],
                                         S[t - dirn], S[t], carry, r[j],

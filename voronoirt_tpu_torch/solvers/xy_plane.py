@@ -10,7 +10,9 @@ batched group sweep does (sweep_regular.py:706-717):
   I_new  = e(dtau) bil(I_p) + a(dtau) bil(S_p) + b(dtau) S_c
 
 Kernel: csrc/xy_plane.cu, one thread per output point, one launch per
-z-plane.  Its bound on the card is HBM bytes: in float64 it reads five
+z-plane: the split sweep's (its padded tiles need the carried plane's
+halo refilled after every step); the unsplit sweep runs whole segments
+through xy_segment.  Its bound on the card is HBM bytes: in float64 it reads five
 (B, Nx, Ny) planes and writes one, 48 B a point, against ~40 flops and
 one exp; the stencil re-reads are served by L1/L2, so HBM sees each
 plane about once.
