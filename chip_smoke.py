@@ -106,7 +106,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      5e-3 plus 5e-3 of the float64 array's largest magnitude), with the
      worst entry; then two 'layer' iterations in float32 on phase 7's
      sites with phase 7's plans, seconds and peak, held against phase
-     7's float64 result at the same bar.
+     7's float64 result at the same bar;
+ 16. the paper's regular-vs-Voronoi line figures at full width
+     (voronoirt_tpu_torch.analysis.line_figures.figures, no drawing):
+     phase 5's run and phase 7's 442,368 sites, as in-memory mappings
+     in the checkpoint schema, the sites rasterised by inverse distance
+     onto phase 5's 215x256x256 grid, each synthesised at mu 1.0, 0.6
+     and 0.2 (theta 180: xy_segment only; 126.87 and 101.54: yz
+     segments, K2 only), with each synthesis's seconds and launches,
+     the resampling's seconds and the peak memory; one xy_segment and
+     one march_plane call held against the plain versions; every cube
+     finite and >= 0, the line centre brighter than the far wing and its
+     T_b between 3,000 and 50,000 K in each run, the centre's relative
+     difference finite, and, when phase 12 ran, the regular mu = 1 cube
+     equal to phase 12's theta 180 cube bit for bit.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is visible or the package is not beside it, and fails if
@@ -115,7 +128,8 @@ jax or any module of the JAX package (voronoirt_tpu) was imported.
     python3 chip_smoke.py --phases 5,14
 
 runs phase 1 and the phases named (a phase that needs phase 5's result
-needs 5 named too, and phase 15 needs 5 and 7: `--phases 5,7,15`) and
+needs 5 named too, and phases 15 and 16 need 5 and 7: `--phases 5,7,15`,
+`--phases 5,7,16`) and
 prints neither JSON line: a check while the code changes, not the
 smoke's result.
 """
@@ -771,14 +785,18 @@ def run_production(atmos, n_ranks=LAM_RANKS, keep_S=False):
     configuration, float64.  Returns the launch counts and, on the host,
     what phases 12-13 hold against: the populations, the wavelengths and
     the S rows at the edges of n_ranks' lambda blocks; with keep_S, for
-    phase 15, the whole S (10.26 GB) and its largest magnitude too."""
+    phase 15, the whole S (10.26 GB) and its largest magnitude too; for
+    phase 16's checkpoint mapping, the line's wavelength windows, the
+    convergence history and the iteration's seconds."""
     res, eng, launches, mass = _production_iteration(atmos, "float64")
     require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
     n_lambda = res.S.shape[0]
     ref = {"populations": res.populations.cpu().numpy(),
            "lam": eng.line.lam, "temperature": atmos.temperature,
            "S_rows": {row: res.S[row].cpu().numpy() for row in set(
-               _edge_rows(n_lambda, n_ranks).values())}}
+               _edge_rows(n_lambda, n_ranks).values())},
+           "lam_idx": eng.line.lam_idx, "convergence": res.convergence,
+           "time": sum(res.timings)}
     if keep_S:
         ref["S"] = res.S.cpu().numpy()
         ref["S_scale"] = float(res.S.abs().max())
@@ -935,7 +953,8 @@ def _timed_J(eng, lambda_iter, sv):
 def run_voronoi_production(atmos):
     """Phase 7: two 'layer' iterations at VOR_SITES sites, 91
     wavelengths, ul7n12, float64.  Returns the sites and, for phase 15,
-    the plans and the result's S and populations on the host."""
+    the plans and the result's S and populations on the host (the
+    populations, convergence history and seconds for phase 16 too)."""
     import torch
     from voronoirt_tpu_torch import Config, get_quadrature, grid
     from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter
@@ -1012,7 +1031,9 @@ def run_voronoi_production(atmos):
     # phases 8-14, whose spawned ranks need the room
     return sites, {"plans": [dataclasses.replace(p) for p in plans],
                    "S": res.S.cpu().numpy(),
-                   "populations": res.populations.cpu().numpy()}
+                   "populations": res.populations.cpu().numpy(),
+                   "convergence": res.convergence,
+                   "time": sum(res.timings)}
 
 
 # ------------------------------------------------------------ phase 8-11
@@ -1549,20 +1570,26 @@ def run_drivers():
 
 # ------------------------------------------------------------ phase 12-13
 
+def _regular_store(atmos, ref):
+    """Phase 5's run as the datasets of a regular checkpoint that the
+    synthesis reads."""
+    import numpy as np
+    return {"z": atmos.z, "x": atmos.x, "y": atmos.y, **atmos.fields(),
+            "populations": ref["populations"],
+            "wavelength": np.asarray(ref["lam"]) * 1e9}
+
+
 def run_synthesis(atmos, ref):
     """Phase 12a: the synthesize driver's synthesize() on phase 5's
     populations at the production grid, read through its _load_regular
     from an in-memory store of the checkpoint's datasets: disk centre
     (theta 180, xy segments: K1) and slanted (theta 135: K2 too).
-    Returns {theta: launches}."""
+    Returns {theta: launches} and the disk-centre cube."""
     import numpy as np
     import torch
     from voronoirt_tpu_torch.drivers import synthesize as syn
 
-    store = {"z": atmos.z, "x": atmos.x, "y": atmos.y, **atmos.fields(),
-             "populations": ref["populations"],
-             "wavelength": np.asarray(ref["lam"]) * 1e9}
-    atmos_s, pops, lam = syn._load_regular(store)
+    atmos_s, pops, lam = syn._load_regular(_regular_store(atmos, ref))
     out = {}
     for theta, name, call in ((180.0, "xy_segment", XY_SEG_CALL),
                               (135.0, "march_plane", SYNTH_CALL)):
@@ -1602,7 +1629,9 @@ def run_synthesis(atmos, ref):
                       ("march_plane", "march_coeffs", "march_chain"),
                       f"the synthesis at theta {theta:g}")
         _hold_kept(name, kept, call, f"the synthesis at theta {theta:g}")
-    return out
+        if theta == 180.0:
+            disk_centre = I
+    return out, disk_centre
 
 
 def run_study():
@@ -2019,6 +2048,134 @@ def run_f32_voronoi(sites, vor_ref):
                   float(abs(P64).max()), ("site", "level"))
 
 
+# ------------------------------------------------------------ phase 16
+
+# the mus of the paper's figures: disk centre (theta 180, xy segments:
+# K1) and two slanted ones (theta 126.87 and 101.54, yz segments at this
+# grid: K2)
+FIGURE_MUS = (1.0, 0.6, 0.2)
+# the Voronoi run's raster: phase 5's grid, so that the line-centre
+# images of the two runs share a shape and the relative difference exists
+FIGURE_RASTER = (PROD["nz"], PROD["nx"], PROD["ny"])
+
+
+def run_line_figures(atmos, ref, sites, vor_ref, disk_centre=None):
+    """Phase 16: the paper's regular-vs-Voronoi line figures
+    (analysis/line_figures.py's figures(), no drawing) on the card from
+    in-memory mappings in the checkpoint schema: phase 5's regular run
+    and phase 7's Voronoi run rasterised onto phase 5's grid, each
+    synthesised at FIGURE_MUS.  Each synthesis timed with its launches;
+    the XY_SEG_CALL-th xy_segment and SYNTH_CALL-th march_plane call held
+    against the plain versions; disk_centre, phase 12's theta 180 cube
+    when phase 12 ran, against the regular mu = 1 cube bit for bit.
+    Returns {mu: launches summed over the two runs}."""
+    import math
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch.analysis import line_figures as lf
+    from voronoirt_tpu_torch.analysis.plots import brightness_temperature
+
+    lam_idx = ref["lam_idx"]
+    tail = {"wavelength": np.asarray(ref["lam"]) * 1e9,
+            "n_bb": np.array([lam_idx[1]]),
+            "n_bf": np.array([lam_idx[2] - lam_idx[1]])}
+
+    def history(run):
+        return {"convergence": np.array([0.0] + list(run["convergence"])),
+                "time": np.array([run["time"]])}
+
+    regular = {**_regular_store(atmos, ref), **tail, **history(ref)}
+    voronoi = {"positions": sites.positions.T,
+               "boundaries": np.asarray(sites.bounds),
+               **{n: getattr(sites, n) for n in atmos.fields()},
+               "populations": vor_ref["populations"], **tail,
+               **history(vor_ref)}
+    runs = [lf.load_run(regular)]
+    t = time.perf_counter()
+    runs.append(lf.load_run(voronoi, raster=FIGURE_RASTER))
+    resample = time.perf_counter() - t
+    print(f"  Voronoi run rasterised: {sites.n} sites, "
+          f"{len(atmos.fields()) + 3} fields onto "
+          f"{math.prod(FIGURE_RASTER)} points {FIGURE_RASTER} by inverse "
+          f"distance (host) in {resample:.2f} s", flush=True)
+
+    seconds, launches = {}, {}
+    synthesize_mu = lf.synthesize_mu
+
+    def timed(run, mu, **kwargs):
+        torch.cuda.synchronize()
+        _launch_counts(reset=True)
+        t = time.perf_counter()
+        out = synthesize_mu(run, mu, **kwargs)
+        torch.cuda.synchronize()
+        seconds[run["kind"], mu] = time.perf_counter() - t
+        launches[run["kind"], mu] = _launch_counts()
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated: part of the peak, not of the
+    # figures
+    resident = torch.cuda.memory_allocated()
+    lf.synthesize_mu = timed
+    try:
+        with _keep_call("xy_segment", XY_SEG_CALL) as kept_xy, \
+                _keep_call("march_plane", SYNTH_CALL) as kept_m:
+            summary, cubes = lf.figures(runs, FIGURE_MUS, plots=False)
+    finally:
+        lf.synthesize_mu = synthesize_mu
+    peak = torch.cuda.max_memory_allocated()
+    for (kind, mu), sec in seconds.items():
+        print(f"  synthesis {kind} mu={mu:g} (theta "
+              f"{lf.theta_for_mu(mu):.2f}): {sec:.4f} s; launches "
+              f"{launches[kind, mu]}", flush=True)
+    print(f"  six syntheses {sum(seconds.values()):.4f} s; peak device "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated, phase 16; "
+          f"{resident / 2**30:.3f} GiB of it allocated before the phase)",
+          flush=True)
+    print(f"  summary: centre_rel_diff_rms "
+          f"{summary.get('centre_rel_diff_rms')}; iterations "
+          f"{summary['iterations']}; final_diff {summary['final_diff']}",
+          flush=True)
+
+    for (kind, mu), n in launches.items():
+        _require_path(n, ("xy_segment",) if mu == 1.0 else
+                      ("march_plane", "march_coeffs", "march_chain"),
+                      f"the {kind} synthesis at mu {mu:g}")
+    _hold_kept("xy_segment", kept_xy, XY_SEG_CALL, "the line figures")
+    _hold_kept("march_plane", kept_m, SYNTH_CALL, "the line figures")
+    for run in runs:
+        kind, lam = run["kind"], np.asarray(run["lam"])
+        for mu in FIGURE_MUS:
+            I, line = cubes[kind, mu]
+            require(I.shape == (len(lam), PROD["nx"], PROD["ny"]),
+                    f"{kind} mu {mu:g}: cube {I.shape}")
+            require(bool(np.isfinite(I).all()) and I.min() >= 0.0,
+                    f"{kind} mu {mu:g}: intensities not finite and >= 0")
+        I, line = cubes[kind, 1.0]
+        i_centre = int(np.argmin(np.abs(lam - line.lam0)))
+        centre, wing = float(I[i_centre].mean()), float(I[0].mean())
+        Tb = float(np.nanmean(brightness_temperature(
+            I[i_centre], float(lam[i_centre]))))
+        print(f"  {kind} mu=1: mean I centre {centre:.6e}, far wing "
+              f"{wing:.6e}; T_b centre mean {Tb:.2f} K", flush=True)
+        require(centre > wing, f"{kind}: line centre not brighter than the "
+                               f"far wing")
+        require(3000.0 < Tb < 50000.0, f"{kind}: T_b centre {Tb:.1f} K")
+    require("centre_rel_diff_rms" in summary
+            and math.isfinite(summary["centre_rel_diff_rms"]),
+            f"centre_rel_diff_rms {summary.get('centre_rel_diff_rms')}")
+    if disk_centre is not None:
+        same = np.array_equal(cubes["regular", 1.0][0], disk_centre)
+        print(f"  regular mu=1 cube equals phase 12's theta 180 cube bit "
+              f"for bit: {same}", flush=True)
+        require(same, "the regular mu = 1 cube differs from phase 12's")
+    return {mu: {name: sum(launches[kind, mu][name] for kind in
+                           ("regular", "voronoi")) for name in KERNELS}
+            for mu in FIGURE_MUS}
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -2106,7 +2263,7 @@ def main(argv=None):
     if want(12):
         phase("phase 12: the synthesize and continuum_study drivers at full "
               "width")
-        launches_synth = run_synthesis(atmos, ref)
+        launches_synth, synth_disk_centre = run_synthesis(atmos, ref)
         launches_study = run_study()
     if want(13):
         phase(f"phase 13: the lambda-split production iteration, "
@@ -2121,6 +2278,12 @@ def main(argv=None):
               f"the Voronoi iterations at {VOR_SITES} sites")
         launches32, errs32 = run_f32_production(atmos, ref, launches)
         run_f32_voronoi(sites, vor_ref)
+    if want(16):
+        phase("phase 16: the paper's line figures at full width, regular "
+              f"and {VOR_SITES} Voronoi sites, mu {FIGURE_MUS}")
+        launches_figures = run_line_figures(
+            atmos, ref, sites, vor_ref,
+            synth_disk_centre if want(12) else None)
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
@@ -2171,6 +2334,8 @@ def main(argv=None):
                 "launches_synthesize": {f"theta_{t:g}": n[name] for t, n in
                                         launches_synth.items()},
                 "launches_continuum_study": launches_study[name],
+                "launches_line_figures": {f"mu_{mu:g}": n[name] for mu, n in
+                                          launches_figures.items()},
                 "launches_lam_ranks": [n[name] for n in launches_lam],
                 "launches_mesh_y_ranks": [o["launches"][name]
                                           for o in mesh_ranks],

@@ -1,10 +1,10 @@
 """The port's own copies of the JAX package's host modules equal their
 originals: config, constants, quadrature, atmosphere, the Voronoi grid's
 host half (sites, plans, native tessellation, interpolation, the numpy
-sampling densities), the disk cache, utils and the synthesize driver's
-brightness_temperature (analysis/plots.py's).  Each case builds one object in
-each package from the same arguments and numpy arrays and compares them
-array for array."""
+sampling densities), the disk cache, utils and analysis/plots.py's
+brightness_temperature (the one drivers/synthesize.py uses).  Each case
+builds one object in each package from the same arguments and numpy
+arrays and compares them array for array."""
 
 import dataclasses
 import numbers
@@ -29,6 +29,7 @@ from voronoirt_tpu_torch import config as t_config
 from voronoirt_tpu_torch import constants as t_const
 from voronoirt_tpu_torch import quadrature as t_quad
 from voronoirt_tpu_torch import utils as t_utils
+from voronoirt_tpu_torch.analysis import plots as t_plots
 from voronoirt_tpu_torch.drivers import synthesize as t_synth
 from voronoirt_tpu_torch.grid import cache as t_cache
 from voronoirt_tpu_torch.grid import interpolate as t_interp
@@ -289,10 +290,12 @@ def test_utils_read_neighbours_round_trip(tmp_path):
 
 @pytest.mark.parametrize("lam", [121.567e-9, 91.2e-9, 500e-9])
 def test_brightness_temperature(lam):
-    """The synthesize driver's copy of analysis/plots.py
-    brightness_temperature, on intensities over 12 decades and zero."""
+    """The port's one copy of analysis/plots.py brightness_temperature
+    (drivers/synthesize.py's too), on intensities over 12 decades and
+    zero."""
+    assert t_synth.brightness_temperature is t_plots.brightness_temperature
     rng = np.random.default_rng(7)
     I = 10.0 ** rng.uniform(-8.0, 4.0, (6, 5))
     I[0, 0] = 0.0
-    _equal(t_synth.brightness_temperature(I, lam),
+    _equal(t_plots.brightness_temperature(I, lam),
            j_plots.brightness_temperature(I, lam), "T_b")

@@ -13,7 +13,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "voronoirt_tpu" or m.startswith("voronoirt_tpu."))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
 
@@ -24,4 +24,6 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 48, proc.stdout
+    assert n_modules >= 51, proc.stdout
+    for name in ("analysis", "analysis.plots", "analysis.line_figures"):
+        assert f"voronoirt_tpu_torch.{name}" in proc.stdout.split(), name

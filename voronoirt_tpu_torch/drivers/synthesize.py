@@ -36,8 +36,8 @@ import os
 import numpy as np
 import torch
 
+from ..analysis.plots import brightness_temperature, plot_top_intensity
 from ..atmosphere import Atmosphere
-from ..constants import IUNIT_SI, c_0, h, k_B
 from ..grid.interpolate import voronoi_to_raster_inv_dist
 from ..physics.atom import (alpha_line, compute_profile,
                             line_of_sight_velocity, lyman_alpha_line,
@@ -61,15 +61,6 @@ def _direction(theta_deg, phi_deg):
     ph = np.deg2rad(phi_deg)
     return np.array([np.cos(th), np.cos(ph) * np.sin(th),
                      np.sin(ph) * np.sin(th)])
-
-
-def brightness_temperature(I_lam, lam):
-    """Invert Planck: T_b such that B_lambda(lam, T_b) = I, I in IUNIT
-    (kW m^-2 nm^-1).  The port's copy of analysis/plots.py
-    brightness_temperature (python/brightness_temperature.py:5-29)."""
-    I_si = np.asarray(I_lam) * IUNIT_SI
-    arg = 1.0 + 2.0 * h * c_0**2 / (lam**5 * np.maximum(I_si, 1e-300))
-    return h * c_0 / (lam * k_B * np.log(arg))
 
 
 class _RasterSites:
@@ -184,20 +175,6 @@ def synthesize(atmos, populations, lam, theta=180.0, phi=0.0, n_sweeps=3,
     return I_top, line
 
 
-def _plot_top_intensity(I_image, x, y, out_png, title):
-    """analysis/plots.py plot_top_intensity's figure (matplotlib is
-    imported here only)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    fig, ax = plt.subplots(dpi=150)
-    im = ax.pcolormesh(x / 1e6, y / 1e6, I_image.T)
-    fig.colorbar(im, label="I [kW m$^{-2}$ nm$^{-1}$]")
-    ax.set(title=title, xlabel="x [Mm]", ylabel="y [Mm]", aspect="equal")
-    fig.savefig(out_png)
-    plt.close(fig)
-
-
 def _plot_profile(lam_nm, profile, n_bb, kind, out_png):
     import matplotlib
     matplotlib.use("Agg")
@@ -259,10 +236,10 @@ def main(argv=None):
 
     if not args.no_plots:
         for label, idx in (("centre", i_centre), ("wing", i_wing)):
-            _plot_top_intensity(
+            plot_top_intensity(
                 I_top[idx], atmos.x, atmos.y,
-                os.path.join(args.out, f"{kind}_{label}.png"),
-                f"{kind} {label} ({lam_nm[idx]:.4f} nm)")
+                out_png=os.path.join(args.out, f"{kind}_{label}.png"),
+                title=f"{kind} {label} ({lam_nm[idx]:.4f} nm)")
         _plot_profile(lam_nm, profile, n_bb, kind,
                       os.path.join(args.out, f"{kind}_line_profile.png"))
 
