@@ -21,14 +21,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
      timed at the production shape beside their bounds, K2 per march
      axis, and at (1, 256, 256), and at the production shape in float32
      too; a 214-plane xy segment at B = 52, 13 and 1 in both types, ms a
-     step beside its bound and the per-plane K1's time;
+     step beside its bound and the per-plane K1's time; then the
+     extinction's kernels (physics/extinction.py) on phase 5's fields,
+     float64 and float32: alpha_tot at one production angle (215, 13,
+     256, 256) and at B = 1, site-major at (442368, 13) and on a ragged
+     (5, 3, 37, 29) tile (damping rows and no continuum too), voigt_rows
+     over the bound-bound window (51, 215, 256, 256), both at damping
+     rows within 3 ulps of each Humlicek region boundary, each bit-equal
+     to its plain version or within TOL (atol a share of the largest
+     magnitude), then timed beside its bound (operations counted by
+     region on the call's data);
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
   5. one Lambda iteration of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
      through RegularEngine.run(), with every kernel's launch count
-     (xy_segment one a piece of an xy segment, xy_plane none);
+     (xy_segment one a piece of an xy segment, alpha_tot one a direction
+     and lambda chunk, 84, xy_plane none; every path below launches the
+     extinction's kernels where it makes extinction and never calls the
+     eager Humlicek of the plain versions on the card; after phases 5,
+     7, 8, 12, 15 and 16, every alpha_tot / voigt_rows call shape the
+     path made that no earlier phase held is held against the plain
+     version at that shape, on this phase's fields cut to its cells);
   6. the Voronoi NLTE chain goldens (tests/golden/nlte_fixtures.npz
      vor_*: 500 sites, 'layer' order, 3 iterations) through
      VoronoiEngine.run() on the card, and wavefront sweeps of every
@@ -36,8 +51,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
   7. two Voronoi Lambda iterations ('layer' order) at the reference's
      quarter-resolution production count, 442,368 sites sampled from the
      phase-5 atmosphere, 91 wavelengths, ul7n12, float64; set-up and
-     iteration seconds, per-direction seconds, level steps and peak
-     memory (the 'wavefront' order runs in phase 6 only);
+     iteration seconds, per-direction seconds, level steps, peak memory
+     and launch counts (the 'wavefront' order runs in phase 6 only);
   8. the Bezier formal solution: Bezier (and linear) sweeps of every
      ul7n12 direction at a small size, card against CPU; then one full
      Lambda iteration at the phase-5 grid through RegularEngine.run()
@@ -173,13 +188,17 @@ TOL = {"float64": dict(rtol=1e-12, atol=0.0),
 # 15 is held against the plain version: the second, whose carried plane
 # is not the boundary's
 XY_SEG_CALL = 2
-# the hand-written kernels of the regular path: K1 as xy_segment (the
+# the hand-written kernels of the regular sweep: K1 as xy_segment (the
 # unsplit sweep) and xy_plane (the split sweep); march_plane is K2 as the
 # composition of march_coeffs and march_chain
-KERNELS = ("xy_segment", "xy_plane", "march_plane", "march_coeffs",
-           "march_chain")
+SWEEP_KERNELS = ("xy_segment", "xy_plane", "march_plane", "march_coeffs",
+                 "march_chain")
+# the extinction's (physics/extinction.py, csrc/extinction.cu): a lambda
+# chunk's extinction for one direction, and the rates' bound-bound profile
+EXT_KERNELS = ("alpha_tot", "voigt_rows")
+KERNELS = SWEEP_KERNELS + EXT_KERNELS
 # the kernels that take one plane a launch
-PLANE_KERNELS = KERNELS[1:]
+PLANE_KERNELS = SWEEP_KERNELS[1:]
 # phase 2's plane shapes (B, Nx, Ny): the production group plane (4
 # angles x lambda_chunk), a smaller full plane, a ragged one, the
 # per-angle plane of the Bezier iteration (lambda_chunk) and the
@@ -516,6 +535,14 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def _bound_ms(nbytes, ops, dtype_name):
+    """(ms, 'bytes' | 'operations'): the larger of nbytes over the card's
+    memory rate and ops over its rate for the dtype, and which it is."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ops / OPS_PER_S[dtype_name]
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
 def _bounds(B, nx, ny, n_sweeps=3, dtype_name="float64"):
     """Least time (ms) of each kernel's work at (B, nx, ny) in
     `dtype_name` on an H100 SXM: the larger of its bytes (each input
@@ -533,12 +560,8 @@ def _bounds(B, nx, ny, n_sweeps=3, dtype_name="float64"):
             "march_coeffs": (7 * plane, 50 * pts),
             "march_chain": (3 * plane, 5 * n_sweeps * pts),
             "march_plane": (6 * plane, (50 + 5 * n_sweeps) * pts)}
-    out = {}
-    for k, (nbytes, ops) in work.items():
-        t_b = nbytes / HBM_BYTES_PER_S
-        t_o = ops / OPS_PER_S[dtype_name]
-        out[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
-    return out
+    return {k: _bound_ms(nbytes, ops, dtype_name)
+            for k, (nbytes, ops) in work.items()}
 
 
 def time_kernels(B, dtype_name="float64"):
@@ -606,6 +629,397 @@ def time_kernels(B, dtype_name="float64"):
     return times, bound
 
 
+# ------------------------------------------------------ phase 2: extinction
+
+# operations of csrc/extinction.cu a point in each Humlicek region (I-IV),
+# the region tests included and only what the real part of w needs, and
+# beside H: E1 a point with the per-cell gamma (with damping rows: 3
+# fewer) and a cell, E2 a point and a cell; an fma counted as two, a
+# division, a reciprocal, an exp or a cos as one
+REGION_OPS = (17, 31, 63, 107)
+ALPHA_OPS = {"point": 10, "rows_point": 7, "cell": 7}
+VOIGT_OPS = {"point": 3, "cell": 1}
+# the bytes of E1 a cell: g (or no field with damping rows), v_los, n_i,
+# n_j, a_cont and dlamD read once
+ALPHA_FIELDS = 6
+# phase 2's extinction shapes: (name, cells, wavelength rows of the line)
+# -- one production angle at a lambda chunk (B = 13) and at B = 1, the
+# production sites site-major, a ragged tile; E2 over the bound-bound
+# window (51 rows) of the production grid
+EXT_SHAPES = (("production angle", None, slice(13, 26)),
+              ("B = 1", None, slice(25, 26)),
+              ("sites", (VOR_SITES,), slice(0, 13)),
+              ("ragged", (5, 37, 29), slice(24, 27)))
+
+
+def _ext_fields(atmos, dtype_name):
+    """Phase 5's per-cell fields on the card in `dtype_name`: the line,
+    the LTE populations, the continuum extinction, the damping rate at
+    those populations and the line-of-sight velocity of a slanted
+    production direction (ul7n12's 6th)."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch import Config, get_quadrature
+    from voronoirt_tpu_torch.engine.lambda_iter import frozen_setup
+    from voronoirt_tpu_torch.physics.atom import (line_of_sight_velocity,
+                                                  lyman_alpha_line)
+    from voronoirt_tpu_torch.physics.broadening import gamma_constant
+    dtype = getattr(torch, dtype_name)
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
+
+    cfg = Config(nlam_bb=PROD["nlam_bb"], nlam_bf=PROD["nlam_bf"],
+                 dtype=dtype_name)
+    T, ne, nH = (f(atmos.temperature), f(atmos.electron_density),
+                 f(atmos.hydrogen_populations))
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the synthetic n_e's warning
+        lte, a_cont = frozen_setup(line, T, ne, nH, cfg,
+                                   block=slice(0, 0))[:2]
+    g = gamma_constant(line, T, lte[..., 0] + lte[..., 1], ne,
+                       cfg.gamma_natural)
+    k = get_quadrature(PROD["quadrature"]).k[5]
+    v_los = line_of_sight_velocity(f(atmos.velocity_zxy()), -np.asarray(k))
+    return {"line": line, "populations": lte.contiguous(), "a_cont": a_cont,
+            "g_cell": g, "v_los": v_los}
+
+
+def _cut_fields(F, cells):
+    """The fields of the first cells of the production grid: a flat
+    block of sites for a 1-d `cells`, a corner tile otherwise."""
+    if len(cells) == 1:
+        n = cells[0]
+        cut = {k: v.reshape(-1)[:n] for k, v in F.items()
+               if k not in ("line", "populations")}
+        cut["populations"] = F["populations"].reshape(-1, 3)[:n]
+        dlamD = F["line"].dlamD.reshape(-1)[:n]
+    else:
+        idx = tuple(slice(0, c) for c in cells)
+        cut = {k: v[idx] for k, v in F.items() if k != "line"}
+        dlamD = F["line"].dlamD[idx]
+    cut = {k: v.contiguous() for k, v in cut.items()}
+    cut["line"] = dataclasses.replace(F["line"], dlamD=dlamD.contiguous())
+    return cut
+
+
+def _regions(a, v):
+    """Points in each Humlicek region (I-IV) at damping a and shift v,
+    by physics/voigt.py's tests."""
+    av = v.abs()
+    s = av + a
+    r1 = s >= 15.0
+    r2 = ~r1 & (s >= 5.5)
+    low = s < 5.5
+    r3 = low & (a >= 0.195 * av - 0.176)
+    return (int(r1.sum()), int(r2.sum()), int(r3.sum()),
+            int((low & ~r3).sum()))
+
+
+def _ext_work(kind, F, lam, damp=None):
+    """(bytes, operations) of one call of `kind` ('alpha_tot' with the
+    per-cell gamma or damping rows, 'voigt_rows') on these inputs: each
+    input read once and each output written once; the operations of
+    each point's own Humlicek region, counted on this call's data."""
+    from voronoirt_tpu_torch.constants import c_0
+    from voronoirt_tpu_torch.physics.broadening import damping
+    line = F["line"]
+    cells, es = line.dlamD.numel(), line.dlamD.element_size()
+    regions = [0, 0, 0, 0]
+    shape = (1,) + (1,) * line.dlamD.dim()
+    for j in range(lam.shape[0]):
+        lj = lam[j:j + 1].reshape(shape)
+        if damp is not None:
+            a = damp[j:j + 1]
+        else:
+            a = damping(F["g_cell"][None], lj, line.dlamD[None])
+        if kind == "alpha_tot":
+            v = (lj - line.lam0 + line.lam0 * F["v_los"][None] / c_0) \
+                / line.dlamD[None]
+        else:
+            v = (lj - line.lam0) / line.dlamD[None]
+        regions = [r + n for r, n in zip(regions, _regions(a, v))]
+        del a, v
+    points = lam.shape[0] * cells
+    h_ops = sum(n * o for n, o in zip(regions, REGION_OPS))
+    if kind == "alpha_tot":
+        fields = ALPHA_FIELDS - (damp is not None)
+        nbytes = es * (fields * cells + (damp is not None) * points + points)
+        ops = h_ops + ALPHA_OPS["cell"] * cells + points * (
+            ALPHA_OPS["rows_point"] if damp is not None
+            else ALPHA_OPS["point"])
+    else:
+        nbytes = es * (cells + 2 * points)
+        ops = h_ops + VOIGT_OPS["cell"] * cells + VOIGT_OPS["point"] * points
+    return nbytes, ops, regions
+
+
+def _hold_ext(name, got, want, dtype_name, err):
+    """got (the kernel's) against want (the plain version's) on the
+    card: bit-equal, or within TOL with atol a share of want's largest
+    magnitude; the largest differences and bit-equality into err."""
+    import torch
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"{name} output not finite")
+    tol = TOL[dtype_name]
+    d = (got - want).abs()
+    bad = d > tol["atol"] * float(want.abs().max()) + tol["rtol"] * want.abs()
+    require(not bool(bad.any()),
+            f"{name} disagrees with its plain version: max abs err "
+            f"{float(d.max()):.3e} ({dtype_name})")
+    nz = want != 0
+    rel = float((d[nz] / want[nz].abs()).max()) if bool(nz.any()) else 0.0
+    e = err.setdefault(name, {"abs": 0.0, "rel": 0.0, "equal": True})
+    e["abs"], e["rel"] = max(e["abs"], float(d.max())), max(e["rel"], rel)
+    e["equal"] = e["equal"] and torch.equal(got, want)
+    return torch.equal(got, want)
+
+
+def _boundary_rows(v, ulps=3):
+    """Damping rows that put s = |v| + a on each Humlicek region
+    boundary (15 and 5.5) and a on the line a = 0.195 |v| - 0.176, each
+    nudged by -ulps .. ulps units in the last place (a target below 0
+    taken as its absolute value)."""
+    import torch
+    av = v.abs()
+    rows = []
+    for a in (15.0 - av, 5.5 - av, 0.195 * av - 0.176):
+        a = a.abs()
+        for k in range(-ulps, ulps + 1):
+            b = a
+            to = torch.full_like(a, float("inf") if k > 0 else 0.0)
+            for _ in range(abs(k)):
+                b = torch.nextafter(b, to)
+            rows.append(b)
+    return torch.stack(rows)
+
+
+def check_extinction(atmos):
+    """Phase 2c: alpha_tot (E1) and voigt_rows (E2) against their plain
+    versions on the card, float64 and float32, on phase 5's fields at
+    EXT_SHAPES (per-cell gamma; the ragged tile with damping rows and
+    without the continuum too), E2 over the production bound-bound
+    window, and points within a few ulps of each region boundary; then
+    each timed at its production shape beside its bound.  Returns
+    ({dtype: {kernel: err}}, {dtype: {kernel: (ms, plain ms, bound ms,
+    bound by)}})."""
+    import torch
+    from voronoirt_tpu_torch.physics import extinction as ex
+    from voronoirt_tpu_torch.physics.broadening import damping
+
+    errs, times = {}, {}
+    for dtype_name in ("float64", "float32"):
+        err = errs.setdefault(dtype_name, {})
+        F = _ext_fields(atmos, dtype_name)
+        lam_all = F["line"].lam_tensor()
+        for name, cells, rows in EXT_SHAPES:
+            G = F if cells is None else _cut_fields(F, cells)
+            lam = lam_all[rows]
+            args = (G["line"], lam, G["v_los"], G["populations"])
+            kws = [dict(g_cell=G["g_cell"])]
+            if name == "ragged":
+                kws.append(dict(damp=damping(
+                    G["g_cell"][None], lam.reshape((-1, 1, 1, 1)),
+                    G["line"].dlamD[None]).contiguous()))
+            equal = []
+            for kw in kws:
+                for a_c in ((G["a_cont"], None) if name == "ragged"
+                            else (G["a_cont"],)):
+                    got = ex.alpha_tot(*args, a_c, **kw)
+                    want = ex.alpha_tot_plain(*args, a_c, **kw)
+                    equal.append(_hold_ext("alpha_tot", got, want,
+                                           dtype_name, err))
+                    del got, want
+            print(f"  alpha_tot {dtype_name} {name}: out "
+                  f"{ex.out_shape(tuple(G['v_los'].shape), lam.shape[0])}, "
+                  f"bit-equal to the plain version: {all(equal)}",
+                  flush=True)
+            del G
+        # E2 over the bound-bound window of the production grid
+        line = F["line"]
+        lam_bb = lam_all[line.lam_idx[0]:line.lam_idx[1]]
+        damp = damping(F["g_cell"][None], lam_bb.reshape(-1, 1, 1, 1),
+                       line.dlamD[None]).contiguous()
+        eq = _hold_ext("voigt_rows", ex.voigt_rows(line, lam_bb, damp),
+                       ex.voigt_rows_plain(line, lam_bb, damp), dtype_name,
+                       err)
+        print(f"  voigt_rows {dtype_name}: out {tuple(damp.shape)}, "
+              f"bit-equal to the plain version: {eq}", flush=True)
+        # the region boundaries: one wavelength, no line-of-sight
+        # velocity, a block of 4096 cells, both kernels
+        G = _cut_fields(F, (4096,))
+        G["v_los"] = torch.zeros_like(G["v_los"])
+        eq = []
+        for off in (1.0, 4.0, 9.0, 14.0):
+            lam1 = (line.lam0 + off * G["line"].dlamD.median()).reshape(1)
+            v = (lam1 - G["line"].lam0) / G["line"].dlamD
+            for row in _boundary_rows(v):
+                d1 = row[None].contiguous()
+                eq.append(_hold_ext("voigt_rows", ex.voigt_rows(
+                    G["line"], lam1, d1), ex.voigt_rows_plain(
+                    G["line"], lam1, d1), dtype_name, err))
+                a_args = (G["line"], lam1, G["v_los"], G["populations"],
+                          G["a_cont"])
+                eq.append(_hold_ext("alpha_tot", ex.alpha_tot(
+                    *a_args, damp=d1), ex.alpha_tot_plain(*a_args, damp=d1),
+                    dtype_name, err))
+        print(f"  {dtype_name} region boundaries ({len(eq) // 2} damping "
+              f"rows of 4096 cells, each kernel): bit-equal: {all(eq)}",
+              flush=True)
+        # times at the production shapes
+        lam13 = lam_all[EXT_SHAPES[0][2]]
+        a_args = (line, lam13, F["v_los"], F["populations"], F["a_cont"])
+        t = {}
+        nbytes, ops, reg = _ext_work("alpha_tot", F, lam13)
+        t["alpha_tot"] = (
+            _time_ms(lambda: ex.alpha_tot(*a_args, g_cell=F["g_cell"]), 20),
+            _time_ms(lambda: ex.alpha_tot_plain(*a_args,
+                                                g_cell=F["g_cell"]), 2),
+            *_bound_ms(nbytes, ops, dtype_name))
+        print(f"  alpha_tot {dtype_name} at one production angle (215, 13, "
+              f"256, 256): kernel {t['alpha_tot'][0]:.4f} ms, plain "
+              f"{t['alpha_tot'][1]:.4f} ms, bound {t['alpha_tot'][2]:.4f} "
+              f"ms ({t['alpha_tot'][3]}: {nbytes / 1e9:.4f} GB, "
+              f"{ops / 1e9:.4f} G operations; points by region I-IV "
+              f"{reg}), {100 * t['alpha_tot'][2] / t['alpha_tot'][0]:.1f} "
+              f"% of it", flush=True)
+        nbytes, ops, reg = _ext_work("voigt_rows", F, lam_bb, damp)
+        t["voigt_rows"] = (
+            _time_ms(lambda: ex.voigt_rows(line, lam_bb, damp), 10),
+            _time_ms(lambda: ex.voigt_rows_plain(line, lam_bb, damp), 1),
+            *_bound_ms(nbytes, ops, dtype_name))
+        print(f"  voigt_rows {dtype_name} over the bound-bound window (51, "
+              f"215, 256, 256): kernel {t['voigt_rows'][0]:.4f} ms, plain "
+              f"{t['voigt_rows'][1]:.4f} ms, bound "
+              f"{t['voigt_rows'][2]:.4f} ms ({t['voigt_rows'][3]}: "
+              f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.4f} G operations; points "
+              f"by region I-IV {reg}), "
+              f"{100 * t['voigt_rows'][2] / t['voigt_rows'][0]:.1f} % of it",
+              flush=True)
+        times[dtype_name] = t
+        for k, e in err.items():
+            print(f"  {k} {dtype_name}: max abs err {e['abs']:.3e}, max rel "
+                  f"err {e['rel']:.3e}, bit-equal everywhere: {e['equal']} "
+                  f"(TOL rtol {TOL[dtype_name]['rtol']:g}, atol "
+                  f"{TOL[dtype_name]['atol']:g} of the largest magnitude)",
+                  flush=True)
+        del F, damp, G
+        gc.collect()
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+# the modules that call the extinction's wrappers, by the name each
+# imported: the engines, synthesize, the rates, and phase 2 itself
+_EXT_CALLERS = (("voronoirt_tpu_torch.engine.lambda_iter", "alpha_tot"),
+                ("voronoirt_tpu_torch.drivers.synthesize", "alpha_tot"),
+                ("voronoirt_tpu_torch.physics.rates", "voigt_rows"),
+                ("voronoirt_tpu_torch.physics.extinction", "alpha_tot"),
+                ("voronoirt_tpu_torch.physics.extinction", "voigt_rows"))
+# the call signatures already held against the plain versions
+_EXT_HELD = set()
+
+
+def _ext_sig(name, args, kwargs):
+    """A wrapper call's signature: (kernel, dtype, cells, B, levels,
+    continuum, damping rows) for alpha_tot, (kernel, dtype, cells, nb)
+    for voigt_rows -- all that sets the kernel's layout and strides
+    (its inputs are contiguous)."""
+    lam = args[1]
+    dtype_name = str(lam.dtype).replace("torch.", "")
+    if name == "voigt_rows":
+        damp = args[2] if len(args) > 2 else kwargs["damp"]
+        return (name, dtype_name, tuple(damp.shape[1:]), lam.shape[0])
+    a_cont = args[4] if len(args) > 4 else kwargs.get("a_cont")
+    return (name, dtype_name, tuple(args[2].shape), lam.shape[0],
+            args[3].shape[-1], a_cont is not None,
+            kwargs.get("damp") is not None)
+
+
+@contextmanager
+def _record_ext():
+    """Record the signature of every alpha_tot / voigt_rows call made on
+    the card: yields {signature: that call's wavelengths}.  The calls
+    run as they are (the wavelengths are kept as a copy on the card, so
+    nothing waits for it)."""
+    import importlib
+    seen, saved = {}, []
+
+    def recording(name, fn):
+        def recorded(*args, **kwargs):
+            if args[1].is_cuda:
+                sig = _ext_sig(name, args, kwargs)
+                if sig not in seen:
+                    seen[sig] = args[1].clone()
+            return fn(*args, **kwargs)
+        return recorded
+
+    for mod_name, name in _EXT_CALLERS:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, recording(name, saved[-1][2]))
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def _hold_recorded(atmos, seen, what, errs):
+    """Each alpha_tot / voigt_rows call signature that `what` made on the
+    card and that no earlier phase held: the kernel against its plain
+    version at that signature, on phase 5's fields cut to its cells (a
+    flat block of sites, a corner tile of the grid), at the path's own
+    wavelengths and damping source; the errors into errs[dtype]."""
+    import torch
+    from voronoirt_tpu_torch.physics import extinction as ex
+    from voronoirt_tpu_torch.physics.broadening import damping
+    new = [sig for sig in seen if sig not in _EXT_HELD]
+    print(f"  {what}: {len(seen)} extinction call shapes on the card, "
+          f"{len(seen) - len(new)} held by an earlier phase", flush=True)
+    for dtype_name in sorted({sig[1] for sig in new}):
+        F = _ext_fields(atmos, dtype_name)
+        full = tuple(F["v_los"].shape)
+        err = errs.setdefault(dtype_name, {})
+        for sig in (sig for sig in new if sig[1] == dtype_name):
+            name, _, cells, B = sig[:4]
+            require(len(cells) in (1, len(full)) and all(
+                c <= f for c, f in zip(cells, full if len(cells) > 1 else
+                                       (len(F["g_cell"].reshape(-1)),))),
+                f"{what}: cells {cells} are not a cut of the grid {full}")
+            G = _cut_fields(F, cells)
+            lam = seen[sig]
+            rows = damping(G["g_cell"][None],
+                           lam.reshape((-1,) + (1,) * len(cells)),
+                           G["line"].dlamD[None]).contiguous()
+            if name == "alpha_tot":
+                levels, cont, by_rows = sig[4:]
+                require(levels <= G["populations"].shape[-1],
+                        f"{what}: {levels} levels")
+                args = (G["line"], lam, G["v_los"],
+                        G["populations"][..., :levels].contiguous(),
+                        G["a_cont"] if cont else None)
+                kw = dict(damp=rows) if by_rows else dict(g_cell=G["g_cell"])
+                got, want = ex.alpha_tot(*args, **kw), \
+                    ex.alpha_tot_plain(*args, **kw)
+                how = (f"B = {B}, {'damping rows' if by_rows else 'g_cell'}, "
+                       f"{'with' if cont else 'no'} continuum")
+            else:
+                got = ex.voigt_rows(G["line"], lam, rows)
+                want = ex.voigt_rows_plain(G["line"], lam, rows)
+                how = f"nb = {B}"
+            eq = _hold_ext(name, got, want, dtype_name, err)
+            print(f"  {name} {dtype_name} as {what} calls it: cells {cells}, "
+                  f"{how}; out {tuple(got.shape)}, bit-equal to the plain "
+                  f"version: {eq}", flush=True)
+            _EXT_HELD.add(sig)
+            del got, want, rows, G
+        del F
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 3-4
 
 def check_goldens():
@@ -651,21 +1065,50 @@ def check_entry():
 
 # ------------------------------------------------------------ phase 5
 
+# calls of the eager Humlicek (physics/voigt.py humlicek_w, the plain
+# versions' Voigt) on CUDA tensors, which no path on the card makes
+EAGER_VOIGT = "eager humlicek_w on the card"
+_eager_voigt = [0]
+
+
+def _count_eager_voigt():
+    """Count humlicek_w's calls on CUDA tensors from here on (once a
+    process: spawned ranks count their own)."""
+    from voronoirt_tpu_torch.physics import voigt
+    if hasattr(voigt.humlicek_w, "plain"):
+        return
+    plain = voigt.humlicek_w
+
+    def counted(a, v):
+        if any(getattr(x, "is_cuda", False) for x in (a, v)):
+            _eager_voigt[0] += 1
+        return plain(a, v)
+
+    counted.plain = plain
+    voigt.humlicek_w = counted
+
+
 def _launch_counts(reset=False):
-    """The kernel wrappers' launch counters; reset=True sets them to 0."""
+    """The kernel wrappers' launch counters and the eager Voigt's calls
+    on the card; reset=True sets them to 0."""
+    from voronoirt_tpu_torch.physics import extinction as ex
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     from voronoirt_tpu_torch.solvers import xy_segment as xs
+    _count_eager_voigt()
     if reset:
         xp.LAUNCHES = xs.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
+        ex.LAUNCHES = ex.VOIGT_LAUNCHES = _eager_voigt[0] = 0
     return {"xy_segment": xs.LAUNCHES, "xy_plane": xp.LAUNCHES,
             "march_plane": mp.LAUNCHES, "march_coeffs": mp.COEFFS_LAUNCHES,
-            "march_chain": mp.CHAIN_LAUNCHES}
+            "march_chain": mp.CHAIN_LAUNCHES, "alpha_tot": ex.LAUNCHES,
+            "voigt_rows": ex.VOIGT_LAUNCHES, EAGER_VOIGT: _eager_voigt[0]}
 
 
 def _require_path(launches, used, what):
-    """Every kernel in `used` launched on the path, and no other."""
+    """Every kernel in `used` launched on the path, and no other (nor
+    the eager Voigt on the card)."""
     for name, n in launches.items():
         if name in used:
             require(n > 0, f"{name}: no launch in {what}")
@@ -772,11 +1215,15 @@ def _production_iteration(atmos, dtype_name):
           f"S, populations finite: {finite}; sum(populations)/n_H - 1 "
           f"max {mass:.3e}", flush=True)
     pieces = _xy_pieces(eng, T.dtype)
+    n_ext = eng.quad.n_angles * -(-line.n_lambda // cfg.lambda_chunk)
     print(f"  launches during the iteration: {launches} (xy_segment: one a "
-          f"piece of an xy segment, {pieces} expected)", flush=True)
-    _require_path(launches, UNSPLIT, "the streamed iteration")
+          f"piece of an xy segment, {pieces} expected; alpha_tot: one a "
+          f"direction and lambda chunk, {n_ext} expected)", flush=True)
+    _require_path(launches, UNSPLIT + EXT_KERNELS, "the streamed iteration")
     require(launches["xy_segment"] == pieces,
             f"xy_segment: {launches['xy_segment']} launches, not {pieces}")
+    require(launches["alpha_tot"] == n_ext,
+            f"alpha_tot: {launches['alpha_tot']} launches, not {n_ext}")
     return res, eng, launches, mass
 
 
@@ -994,10 +1441,19 @@ def run_voronoi_production(atmos):
           f"{quad.n_angles} directions; set-up seconds "
           f"{ {k: round(v, 4) for k, v in setup.items()} }", flush=True)
 
+    _launch_counts(reset=True)
     with _timed_J(eng, lambda_iter, sv) as rec:
         res = eng.run()
+    launches = _launch_counts()
     require(res.iterations == 2 and len(res.timings) == 2,
             f"expected 2 iterations, ran {res.iterations}")
+    n_ext = 2 * quad.n_angles * len(lambda_iter._lambda_chunks(
+        line.n_lambda, cfg.lambda_chunk))
+    print(f"  launches during the two iterations: {launches} (alpha_tot: "
+          f"one a direction and lambda chunk, {n_ext} expected)", flush=True)
+    _require_path(launches, EXT_KERNELS, "the Voronoi iterations")
+    require(launches["alpha_tot"] == n_ext,
+            f"alpha_tot: {launches['alpha_tot']} launches, not {n_ext}")
     n, nlam = sites.n, line.n_lambda
     require(tuple(res.S.shape) == (nlam, n) and res.S.is_cuda,
             f"S shape {tuple(res.S.shape)} on {res.S.device}")
@@ -1030,7 +1486,7 @@ def run_voronoi_production(atmos):
     # the engine cached on the originals would stay on the card through
     # phases 8-14, whose spawned ranks need the room
     return sites, {"plans": [dataclasses.replace(p) for p in plans],
-                   "S": res.S.cpu().numpy(),
+                   "launches": launches, "S": res.S.cpu().numpy(),
                    "populations": res.populations.cpu().numpy(),
                    "convergence": res.convergence,
                    "time": sum(res.timings)}
@@ -1295,8 +1751,8 @@ def run_bezier_production(atmos):
           f"{launches}; criterion {res.convergence}; peak device memory "
           f"{peak / 2**30:.3f} GiB (max_memory_allocated); "
           f"sum(populations)/n_H - 1 max {mass:.3e}", flush=True)
-    _require_path(launches, ("march_plane", "march_coeffs", "march_chain"),
-                  "the Bezier iteration")
+    _require_path(launches, ("march_plane", "march_coeffs", "march_chain")
+                  + EXT_KERNELS, "the Bezier iteration")
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
@@ -1625,9 +2081,14 @@ def run_synthesis(atmos, ref):
             require(3000.0 < Tb < 50000.0, f"T_b centre {Tb:.1f} K")
         # disk centre looks straight down (xy segments only); slanted,
         # at this grid, marches in yz only
-        _require_path(out[theta], ("xy_segment",) if theta == 180.0 else
-                      ("march_plane", "march_coeffs", "march_chain"),
+        n_blocks = -(-len(lam) // syn.LAMBDA_BLOCK)
+        _require_path(out[theta], ("alpha_tot",) + (
+                      ("xy_segment",) if theta == 180.0 else
+                      ("march_plane", "march_coeffs", "march_chain")),
                       f"the synthesis at theta {theta:g}")
+        require(out[theta]["alpha_tot"] == n_blocks,
+                f"alpha_tot: {out[theta]['alpha_tot']} launches in the "
+                f"synthesis, not one a block ({n_blocks})")
         _hold_kept(name, kept, call, f"the synthesis at theta {theta:g}")
         if theta == 180.0:
             disk_centre = I
@@ -1790,7 +2251,8 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
         require(np.array_equal(o["populations"], outs[0]["populations"])
                 and o["convergence"] == outs[0]["convergence"],
                 "the ranks' populations or criteria differ")
-        _require_path(o["launches"], UNSPLIT, f"rank {o['rank']}")
+        _require_path(o["launches"], UNSPLIT + EXT_KERNELS,
+                      f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']}", flush=True)
     t = time.perf_counter()
@@ -1918,7 +2380,8 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
         require(o["convergence"] == outs[0]["convergence"],
                 "the ranks' criteria differ")
         # the split sweep: K1 one plane a launch on padded tiles
-        _require_path(o["launches"], PLANE_KERNELS, f"rank {o['rank']}")
+        _require_path(o["launches"], PLANE_KERNELS + EXT_KERNELS,
+                      f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
           f"iteration)", flush=True)
@@ -1992,7 +2455,8 @@ def run_f32_production(atmos, ref, launches64):
     require(mass < 1e-6, f"populations do not sum to n_H ({mass:.3e})")
     # K2 one launch a plane as in float64; K1's pieces hold twice the
     # float32 planes, so half the launches
-    require(all(launches[k] == launches64[k] for k in PLANE_KERNELS),
+    require(all(launches[k] == launches64[k]
+                for k in PLANE_KERNELS + EXT_KERNELS),
             f"float32 launches {launches}, float64 (phase 5) {launches64}")
     errs = {}
     for name, kept, n in (("xy_segment", kept_xy, XY_SEG_CALL),
@@ -2140,8 +2604,9 @@ def run_line_figures(atmos, ref, sites, vor_ref, disk_centre=None):
           flush=True)
 
     for (kind, mu), n in launches.items():
-        _require_path(n, ("xy_segment",) if mu == 1.0 else
-                      ("march_plane", "march_coeffs", "march_chain"),
+        _require_path(n, ("alpha_tot",) + (
+                      ("xy_segment",) if mu == 1.0 else
+                      ("march_plane", "march_coeffs", "march_chain")),
                       f"the {kind} synthesis at mu {mu:g}")
     _hold_kept("xy_segment", kept_xy, XY_SEG_CALL, "the line figures")
     _hold_kept("march_plane", kept_m, SYNTH_CALL, "the line figures")
@@ -2213,6 +2678,18 @@ def main(argv=None):
         gc.collect()
         print(f"{title} (at {time.perf_counter() - t0:.1f} s)", flush=True)
 
+    atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
+    ext_errs = {}
+
+    def held(run, what):
+        # run a driven path, then hold each extinction call shape it made
+        # against the plain version (after the path: its times and peak
+        # memory are its own)
+        with _record_ext() as seen:
+            out = run()
+        _hold_recorded(atmos, seen, what, ext_errs)
+        return out
+
     if want(2):
         phase("phase 2: kernels vs plain versions on the card")
         errs = check_kernels()
@@ -2227,28 +2704,33 @@ def main(argv=None):
         for t, B, d in ((times, B52, "float64"), (times_b1, 1, "float64"),
                         (times32, B52, "float32")):
             t["xy_segment"] = seg[B, d][:2]
+        with _record_ext() as seen:
+            ext_errs, ext_times = check_extinction(atmos)
+        _EXT_HELD.update(seen)
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
         check_goldens()
     if want(4):
         phase("phase 4: small entry step, card vs CPU")
         check_entry()
-    atmos = synthetic_atmosphere(nz=PROD["nz"], nx=PROD["nx"], ny=PROD["ny"])
     if want(5):
         phase("phase 5: production iteration")
-        launches, ref = run_production(atmos, keep_S=want(15))
+        launches, ref = held(lambda: run_production(atmos, keep_S=want(15)),
+                             "phase 5")
     if want(6):
         phase("phase 6: Voronoi goldens on the card, wavefront sweeps card "
               "vs CPU")
         check_voronoi_goldens()
     if want(7):
         phase(f"phase 7: Voronoi production, {VOR_SITES} sites")
-        sites, vor_ref = run_voronoi_production(atmos)
+        sites, vor_ref = held(lambda: run_voronoi_production(atmos),
+                              "phase 7")
     if want(8):
         phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
               "iteration")
         check_bezier_sweeps()
-        launches_bezier = run_bezier_production(atmos)
+        launches_bezier = held(lambda: run_bezier_production(atmos),
+                               "phase 8")
     if want(9):
         phase("phase 9: angle distribution, serial vs two slots on the card")
         check_angle_distribution()
@@ -2263,7 +2745,8 @@ def main(argv=None):
     if want(12):
         phase("phase 12: the synthesize and continuum_study drivers at full "
               "width")
-        launches_synth, synth_disk_centre = run_synthesis(atmos, ref)
+        launches_synth, synth_disk_centre = held(
+            lambda: run_synthesis(atmos, ref), "phase 12")
         launches_study = run_study()
     if want(13):
         phase(f"phase 13: the lambda-split production iteration, "
@@ -2276,14 +2759,15 @@ def main(argv=None):
     if want(15):
         phase("phase 15: float32 production, the streamed iteration and "
               f"the Voronoi iterations at {VOR_SITES} sites")
-        launches32, errs32 = run_f32_production(atmos, ref, launches)
-        run_f32_voronoi(sites, vor_ref)
+        launches32, errs32 = held(
+            lambda: run_f32_production(atmos, ref, launches), "phase 15")
+        held(lambda: run_f32_voronoi(sites, vor_ref), "phase 15 (Voronoi)")
     if want(16):
         phase("phase 16: the paper's line figures at full width, regular "
               f"and {VOR_SITES} Voronoi sites, mu {FIGURE_MUS}")
-        launches_figures = run_line_figures(
+        launches_figures = held(lambda: run_line_figures(
             atmos, ref, sites, vor_ref,
-            synth_disk_centre if want(12) else None)
+            synth_disk_centre if want(12) else None), "phase 16")
     phase("done")
 
     require("jax" not in sys.modules, "jax was imported")
@@ -2351,7 +2835,38 @@ def main(argv=None):
                 "max_abs_err_f32_iteration": errs32.get(name),
                 **({"ms_a_step_214_planes": seg_steps}
                    if name == "xy_segment" else {})}
-               for name in KERNELS]
+               for name in SWEEP_KERNELS]
+    # the extinction's kernels: what they replace is the JAX package's
+    # jitted XLA program, not a Pallas kernel
+    ext_src = {"alpha_tot": "voronoirt_tpu/engine/lambda_iter.py:130",
+               "voigt_rows": "voronoirt_tpu/physics/rates.py:37"}
+    for name in EXT_KERNELS:
+        (e64, e32), (t64, t32) = ((d["float64"][name], d["float32"][name])
+                                  for d in (ext_errs, ext_times))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "voronoirt_tpu_torch/csrc/extinction.cu",
+            "replaces": ext_src[name], "replaces_a_tpu_kernel": False,
+            "launches": launches[name], "launches_path": path[name],
+            "max_abs_err": e64["abs"], "max_rel_err": e64["rel"],
+            "bit_equal": e64["equal"], "ms": t64[0], "plain_ms": t64[1],
+            "bound_ms": t64[2], "bound_by": t64[3],
+            "pct_of_bound": 100 * t64[2] / t64[0], "library_ms": None,
+            "launches_voronoi_iterations": vor_ref["launches"][name],
+            "launches_bezier_iteration": launches_bezier[name],
+            "launches_continuum": launches_continuum[name],
+            "launches_synthesize": {f"theta_{t:g}": n[name] for t, n in
+                                    launches_synth.items()},
+            "launches_line_figures": {f"mu_{mu:g}": n[name] for mu, n in
+                                      launches_figures.items()},
+            "launches_lam_ranks": [n[name] for n in launches_lam],
+            "launches_mesh_y_ranks": [o["launches"][name]
+                                      for o in mesh_ranks],
+            "max_abs_err_f32": e32["abs"], "max_rel_err_f32": e32["rel"],
+            "bit_equal_f32": e32["equal"], "ms_f32": t32[0],
+            "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],
+            "bound_by_f32": t32[3], "pct_of_bound_f32": 100 * t32[2] / t32[0],
+            "launches_f32_iteration": launches32[name]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -153,6 +153,14 @@ def test_numpy_density_and_rejection_sampling(atmos_pair, density):
            j_samp.rejection_sampling(400, ja, q_j, seed=11), "positions")
 
 
+def test_density_ionised_hydrogen(atmos_pair):
+    """The numpy density of the LTE proton populations."""
+    ta, ja = atmos_pair
+    pops = 10.0 ** np.random.default_rng(6).uniform(10, 20, ta.shape + (3,))
+    _equal(t_samp.density_ionised_hydrogen(ta, pops),
+           j_samp.density_ionised_hydrogen(ja, pops), "ionised_hydrogen")
+
+
 def test_initialise_sites(atmos_pair):
     ta, ja = atmos_pair
     pos = t_samp.sample_sites(ta, 300, seed=3)

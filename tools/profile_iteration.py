@@ -12,8 +12,10 @@ and runs three iterations of RegularEngine.iterate_streamed, the step
 RegularEngine.run() repeats:
 
   1. parts timed: host timers around synchronised calls of each part
-     (extinction, each group sweep by plane-cut case, rate accumulation,
-     S update, statistical equilibrium);
+     (the extinction's alpha_tot wrapper, each group sweep by plane-cut
+     case, rate accumulation, S update, statistical equilibrium; and
+     inside the rates, not added to the parts, their bound-bound
+     profile's voigt_rows wrapper);
   2. plain: the iteration's wall seconds, as run() times it;
   3. profiled under torch.profiler: the kernels' summed device time
      against the plain iteration's wall gives the device's busy share;
@@ -51,6 +53,7 @@ from voronoirt_tpu_torch import Config, require_cuda, synthetic_atmosphere  # no
 from voronoirt_tpu_torch.engine import RegularEngine  # noqa: E402
 from voronoirt_tpu_torch.engine import lambda_iter  # noqa: E402
 from voronoirt_tpu_torch.kernels import build  # noqa: E402
+from voronoirt_tpu_torch.physics import rates  # noqa: E402
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
 from voronoirt_tpu_torch.solvers import march_plane as mp  # noqa: E402
 from voronoirt_tpu_torch.solvers import xy_plane as xp  # noqa: E402
@@ -72,12 +75,18 @@ def _case(plans, *_):
     return "sweep " + "+".join(sorted({s.case for s in plans[0].segments}))
 
 
+# a part timed inside another: reported, not added to the parts
+NESTED = "voigt_rows (inside rates)"
+
+
 def parts_timed(eng, S, pops):
     """One iteration with every part behind synchronised host timers."""
     acc = defaultdict(float)
     patches = [
-        mock.patch.object(eng, "_alpha_tot_t",
-                          _timed(eng._alpha_tot_t, "extinction", acc)),
+        mock.patch.object(lambda_iter, "alpha_tot",
+                          _timed(lambda_iter.alpha_tot, "extinction", acc)),
+        mock.patch.object(rates, "voigt_rows",
+                          _timed(rates.voigt_rows, NESTED, acc)),
         mock.patch.object(lambda_iter, "sweep_group_J",
                           _timed(lambda_iter.sweep_group_J, _case, acc)),
         mock.patch.object(lambda_iter, "sweep",
@@ -102,7 +111,8 @@ def parts_timed(eng, S, pops):
     finally:
         for p in patches:
             p.stop()
-    acc["other (unwrapped)"] = wall - sum(acc.values())
+    acc["other (unwrapped)"] = wall - sum(v for k, v in acc.items()
+                                          if k != NESTED)
     return S, pops, wall, dict(acc)
 
 

@@ -15,9 +15,10 @@ a_c), alpha_tot = a_l + a_c, then one upward formal solution with the
 bottom S_lambda plane as boundary.  JAX builds every (nlam, nz, nx, ny)
 cube in one jitted call (10.26 GB each in float64 at 215x256x256 and 91
 wavelengths); the port streams LAMBDA_BLOCK wavelengths at a time
-through that chain and one sweep, and makes each block's extinction one
-wavelength at a time.  Every operation is pointwise in wavelength, so
-the values are those of the whole-array expression.
+through that chain and one sweep, each block's line extinction in one
+alpha_tot call (physics/extinction.py: its kernel on the card).  Every
+operation is pointwise in wavelength, so the values are those of the
+whole-array expression.
 
 The checkpoint is read by key from any mapping of its datasets: an
 h5py.File, or a dict of numpy arrays.
@@ -39,10 +40,10 @@ import torch
 from ..analysis.plots import brightness_temperature, plot_top_intensity
 from ..atmosphere import Atmosphere
 from ..grid.interpolate import voronoi_to_raster_inv_dist
-from ..physics.atom import (alpha_line, compute_profile,
-                            line_of_sight_velocity, lyman_alpha_line,
+from ..physics.atom import (line_of_sight_velocity, lyman_alpha_line,
                             source_line)
-from ..physics.broadening import damping, gamma_constant
+from ..physics.broadening import gamma_constant
+from ..physics.extinction import alpha_tot
 from ..physics.lte import lte_populations
 from ..physics.opacity import alpha_absorption, alpha_scattering
 from ..physics.planck import B_lambda
@@ -158,16 +159,14 @@ def synthesize(atmos, populations, lam, theta=180.0, phi=0.0, n_sweeps=3,
         # the sweep's z-major layout (nz, block, nx, ny)
         S_t = torch.empty((nz, lam_b.shape[0], nx, ny), dtype=T.dtype,
                           device=device)
-        a_t = torch.empty_like(S_t)
+        # the block's line extinction in one alpha_tot call, made
+        # alpha_tot = a_l + a_c in place plane by plane
+        a_t = alpha_tot(line, lam_b, v_los, pops, g_cell=gam)
         for j in range(lam_b.shape[0]):
-            lam_j = lam_b[j:j + 1]
-            damp = damping(gam[None], lam_j.reshape(-1, 1, 1, 1),
-                           line.dlamD[None])
-            a_l = alpha_line(line, compute_profile(line, lam_j, damp, v_los),
-                             pops[..., 1], pops[..., 0])[0]
-            S_c = B_lambda(lam_j.reshape(-1, 1, 1, 1), T[None])[0]
-            a_t[:, j] = a_l + a_c
-            S_t[:, j] = (a_l * S_l + a_c * S_c) / a_t[:, j]
+            a_l = a_t[:, j]
+            S_c = B_lambda(lam_b[j:j + 1].reshape(-1, 1, 1, 1), T[None])[0]
+            num = a_l * S_l + a_c * S_c
+            S_t[:, j] = num / a_l.add_(a_c)
         # the boundary is the bottom S_lambda plane
         I = sweep(plan, S_t, a_t, S_t[0], n_sweeps=n_sweeps)
         I_top[b0:b0 + lam_b.shape[0]] = I[-1].cpu().numpy()

@@ -53,9 +53,9 @@ from ..grid.voronoi import build_voronoi_plan
 from ..parallel import angles as _ang
 from ..parallel import lam as _lam
 from ..parallel.mesh import gather_space
-from ..physics.atom import (alpha_line, compute_profile, destruction,
-                            line_of_sight_velocity)
+from ..physics.atom import destruction, line_of_sight_velocity
 from ..physics.broadening import damping, gamma_constant
+from ..physics.extinction import alpha_tot
 from ..physics.lte import lte_populations
 from ..physics.opacity import (alpha_absorption, alpha_scattering,
                                warn_charge_inconsistency)
@@ -411,6 +411,25 @@ class _Engine:
                               populations[..., 0] + populations[..., 1],
                               self.ne, self.cfg.gamma_natural)
 
+    def _alpha_tot(self, k, lam_c, populations, damp_c=None, g_cell=None,
+                   static=None):
+        """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c in
+        the sweep's layout, the wavelength axis second: (nz, nlam, nx,
+        ny) on the regular grid, (n, nlam) on the sites.  One alpha_tot
+        call (physics/extinction.py), the counterpart of the JAX package's
+        _alpha_tot_g_t and _alpha_tot_g_T.
+        damp_c: the chunk's damping rows, or None to compute them from
+        the per-cell g_cell; static: an angle slot's copies of the
+        velocity, the continuum extinction and the line
+        (parallel/angles.py), else the engine's own."""
+        v, a_cont, line = (
+            (static["v"], static["a_cont"], static["line"]) if static
+            else (self.v, self.a_cont, self.line))
+        v_los = line_of_sight_velocity(v, -np.asarray(k))
+        return alpha_tot(line, lam_c, v_los, populations.contiguous(),
+                         a_cont, g_cell=g_cell if damp_c is None else None,
+                         damp=damp_c)
+
     def damping_lam(self, populations):
         """The (nlam, ...) damping cube of the lambda block."""
         lam = self.block_lam().reshape((-1,) + (1,) * self.T.dim())
@@ -477,39 +496,6 @@ class RegularEngine(_Engine):
     def _strip(self, A):
         return self.halo.strip(A) if self.halo is not None else A
 
-    # ---- extinction
-
-    def _alpha_tot_t(self, k, lam_c, populations, damp_c=None, g_cell=None,
-                     static=None):
-        """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c, in
-        the z-major sweep layout (nz, nlam, nx, ny).
-
-        One wavelength at a time: the values are those of the whole-chunk
-        expression (every op is pointwise), while the Voigt temporaries
-        stay one wavelength plane in size.  damp_c: the chunk's damping
-        rows, or None to compute them from the per-cell g_cell.  static:
-        an angle slot's copies of the velocity, the continuum extinction
-        and the line (parallel/angles.py), else the engine's own.
-        """
-        v, a_cont, line = (
-            (static["v"], static["a_cont"], static["line"]) if static
-            else (self.v, self.a_cont, self.line))
-        v_los = line_of_sight_velocity(v, -np.asarray(k))
-        nz, nx, ny = self.T.shape
-        out = torch.empty((nz, lam_c.shape[0], nx, ny), dtype=self.dtype,
-                          device=v.device)
-        n_i, n_j = populations[..., 0], populations[..., 1]
-        for j in range(lam_c.shape[0]):
-            lam_j = lam_c[j:j + 1]
-            if damp_c is not None:
-                damp = damp_c[j:j + 1]
-            else:
-                damp = damping(g_cell[None], lam_j.reshape(-1, 1, 1, 1),
-                               line.dlamD[None])
-            profile = compute_profile(line, lam_j, damp, v_los)
-            out[:, j] = alpha_line(line, profile, n_j, n_i)[0] + a_cont
-        return out
-
     def _I0(self, lam_c, up, static=None):
         """Boundary plane: hot bottom B(T_bottom) for up sweeps, dark top
         for down sweeps (lambda_iteration.jl:38-52)."""
@@ -568,7 +554,7 @@ class RegularEngine(_Engine):
         for i, plan in enumerate(self.plans):
             slot = _ang.angle_device(self, i) if self.angle_devices else 0
             st, dst = state[slot], static[slot]
-            a_t = self._pad(self._alpha_tot_t(
+            a_t = self._pad(self._alpha_tot(
                 quad.k[i], st["lam"], st["populations"], st["damping"],
                 g_cell, static=dst))
             I = sweep(plan, st["S_t"], a_t,
@@ -597,16 +583,16 @@ class RegularEngine(_Engine):
             if len(group) == 1:
                 (i, _, _) = group[0]
                 plan = self.plans[i]
-                a_t = pad(self._alpha_tot_t(quad.k[i], lam_c, populations,
-                                            damp_c, g_cell))
+                a_t = pad(self._alpha_tot(quad.k[i], lam_c, populations,
+                                          damp_c, g_cell))
                 I = sweep(plan, S_t, a_t, pad(self._I0(lam_c, plan.up)),
                           n_sweeps=self.cfg.n_sweeps, halo=self.halo)
                 # in-place J accumulation
                 Jc.add_(float(quad.weights[i])
                         * self._strip(I).transpose(0, 1))
                 continue
-            a_list = [pad(self._alpha_tot_t(quad.k[i], lam_c, populations,
-                                            damp_c, g_cell))
+            a_list = [pad(self._alpha_tot(quad.k[i], lam_c, populations,
+                                          damp_c, g_cell))
                       for (i, _, _) in group]
             # the boundary follows the ORIGINAL direction (fz = originally
             # down, z-flip-canonicalized)
@@ -672,11 +658,6 @@ class RegularEngine(_Engine):
 
 # --------------------------------------------------------- voronoi grid
 
-# points per block of the Voronoi extinction: the eager Voigt's complex
-# temporaries stay one voigt_H slab in size
-_EXT_POINTS = 1 << 24
-
-
 class VoronoiEngine(_Engine):
     """Lambda iteration on the irregular grid (J_lambda_voronoi,
     Lambda_voronoi).
@@ -737,36 +718,11 @@ class VoronoiEngine(_Engine):
             n_sweeps=cfg.n_sweeps, cache_dir=cfg.cache_dir)
             for i in range(quad.n_angles)]
 
-    def _alpha_tot_T(self, k, lam_c, populations, damp_c=None,
-                     g_cell=None, static=None):
-        """alpha_line(profile(-k)) + alpha_cont for wavelengths lam_c,
-        site-major (n, B): the counterpart of the JAX package's
-        _alpha_tot_g_T.  Computed in blocks of wavelengths of about
-        _EXT_POINTS points (every op is pointwise, so the values are
-        those of the whole-chunk expression); damp_c: the chunk's damping
-        rows, or None to compute them from the per-site g_cell; static:
-        an angle slot's copies (parallel/angles.py), else the engine's
-        own."""
-        v, a_cont, line = (
-            (static["v"], static["a_cont"], static["line"]) if static
-            else (self.v, self.a_cont, self.line))
-        v_los = line_of_sight_velocity(v, -np.asarray(k))
-        n, nlam = self.T.shape[0], lam_c.shape[0]
-        out = torch.empty((n, nlam), dtype=self.dtype, device=v.device)
-        n_i, n_j = populations[..., 0], populations[..., 1]
-        step = max(1, _EXT_POINTS // max(n, 1))
-        for j0 in range(0, nlam, step):
-            j1 = min(j0 + step, nlam)
-            lam_j = lam_c[j0:j1]
-            if damp_c is not None:
-                damp = damp_c[j0:j1]
-            else:
-                damp = damping(g_cell[None], lam_j[:, None],
-                               line.dlamD[None])
-            profile = compute_profile(line, lam_j, damp, v_los)
-            out[:, j0:j1] = (alpha_line(line, profile, n_j, n_i)
-                             + a_cont).T
-        return out
+    def _alpha_tot_T(self, *args, **kwargs):
+        """The extinction site-major, (n, nlam), the counterpart of the
+        JAX package's _alpha_tot_g_T: compute_J's one call of it, which
+        tools/profile_voronoi.py times apart."""
+        return self._alpha_tot(*args, **kwargs)
 
     def _I0(self, i, lam_c, static=None):
         """Boundary intensity on plan i's bc sites: B(T) at the bottom

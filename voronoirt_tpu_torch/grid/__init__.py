@@ -6,7 +6,7 @@ original): the sites container and the per-direction sweep plans
 (voronoi.py), the native tessellation library and BFS layering behind
 them (neighbors.py, which builds the repo's native/ sources with make),
 trilinear site initialisation (interpolate.py), rejection sampling with
-the four numpy densities (sampling.py) and the disk cache (cache.py).
+the five numpy densities (sampling.py) and the disk cache (cache.py).
 The densities that evaluate the physics run on the port's torch physics
 (sampling.py).  `build_native` runs make on native/ and returns the
 loaded library, or None; without it build_sites falls back to scipy, a

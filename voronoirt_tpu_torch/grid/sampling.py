@@ -2,7 +2,7 @@
 
 Port of voronoirt_tpu/grid/sampling.py (reference src/sample_grids.jl
 and src/functions.jl:79-197 `rejection_sampling`).  The numpy half --
-`rejection_sampling` and the four numpy densities, the paper's
+`rejection_sampling` and the five numpy densities, the paper's
 production `density_invNH_invT` among them -- is copied from the JAX
 module (tests/test_torch_host_copies.py holds the copies equal).  The
 four physics densities (`density_extinction`, `density_destruction`,
@@ -93,6 +93,11 @@ def density_temp_gradient(atmos):
     g[:-1] = (T[1:] - T[:-1]) / (z[1:] - z[:-1])[:, None, None]
     g[-1] = (T[-1] - T[-2]) / (z[-1] - z[-2])
     return np.abs(g)
+
+
+def density_ionised_hydrogen(atmos, lte_pops):
+    """log10(n_HII) in LTE (sample_grids.jl:123-134)."""
+    return np.log10(lte_pops[..., 2])
 
 
 # ---------------------------------------------- physics densities (torch)

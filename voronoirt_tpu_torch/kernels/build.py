@@ -1,8 +1,9 @@
 """nvcc build and ctypes loader for voronoirt_tpu_torch/csrc/*.cu.
 
 The kernels have a plain C interface: every pointer, and the CUDA
-stream, passes as ctypes.c_void_p, every size as ctypes.c_int, and each
-launch returns cudaGetLastError() for the wrapper to check.  No PyTorch
+stream, passes as ctypes.c_void_p, every size as ctypes.c_int, every
+physical constant as ctypes.c_double, and each launch returns
+cudaGetLastError() for the wrapper to check.  No PyTorch
 header is compiled, so the build takes seconds.
 
 At first use, library() compiles each source with its own nvcc, all
@@ -31,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # (name, argtypes) of every exported launch function
 _SIGNATURES = {
     "vrt_xy_plane": [_P] * 9 + [_I] * 5 + [_P],
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "vrt_march_chain": [_P] * 3 + [_I] * 8 + [_P],
     "vrt_xy_segment": [_P] * 7 + [_I] * 8 + [_P],
     "vrt_xy_segment_info": [_I] * 2 + [_P],
+    "vrt_alpha_tot": [_P] * 8 + [_I] * 4 + [_D] * 7 + [_P],
+    "vrt_voigt_rows": [_P] * 4 + [_I] * 2 + [_D] * 2 + [_P],
 }
 
 

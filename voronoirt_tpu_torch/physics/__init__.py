@@ -13,3 +13,9 @@ def tensors(*xs):
         ref = torch.empty((), dtype=torch.float64, device=require_cuda())
     return tuple(torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
                  for x in xs)
+
+
+
+# after `tensors`, which the modules import; the JAX package exports it
+# from its physics package too
+from .voigt import doppler_profile  # noqa: E402

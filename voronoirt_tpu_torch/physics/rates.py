@@ -16,7 +16,7 @@ import torch
 from ..constants import (h, c_0, e, eps_0, m_e, hc, R_inf, E_inf, IUNIT_SI,
                          k_B)
 
-from .voigt import voigt_profile
+from .extinction import voigt_rows
 from .broadening import damping
 from .collisions import coll_exc_hydrogen_johnson, coll_ion_hydrogen_johnson
 
@@ -37,12 +37,10 @@ def gaunt_bf(lam, charge, n_eff):
 
 def sigma_ij_bb(line, lam, damping_lam):
     """Bound-bound cross-section [m^2] per (lam, cell) (rates.jl:374-413);
-    no Doppler shift, as in the reference's rate integral."""
+    no Doppler shift, as in the reference's rate integral.  The profile
+    is voigt_rows' (physics/extinction.py): its kernel on the card."""
     sigma_const = hc / (4.0 * np.pi * line.lam0) * line.Bij
-    lam_b = _lam(lam, line.dlamD).reshape((-1,) + (1,) * line.dlamD.dim())
-    v = (lam_b - line.lam0) / line.dlamD[None]
-    profile = voigt_profile(damping_lam, v, line.dlamD[None])
-    return sigma_const * profile
+    return sigma_const * voigt_rows(line, _lam(lam, line.dlamD), damping_lam)
 
 
 def sigma_ic(level, line, lam, compat="reference"):

@@ -72,3 +72,9 @@ def voigt_profile(a, v, dlamD):
     """Normalized Voigt profile [1/m]: H(a, v) / (sqrt(pi) dlamD)."""
     return voigt_H(a, v) / (_SQRT_PI * dlamD)
 
+
+
+def doppler_profile(dlam, dlamD):
+    """Pure Doppler profile [1/m] (src/line.jl:165-167)."""
+    dlam, dlamD = tensors(dlam, dlamD)
+    return torch.exp(-((dlam / dlamD) ** 2)) / (_SQRT_PI * dlamD)
