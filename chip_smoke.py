@@ -23,27 +23,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
      too; a 214-plane xy segment at B = 52, 13 and 1 in both types, ms a
      step beside its bound and the per-plane K1's time; then the
      extinction's kernels (physics/extinction.py) on phase 5's fields,
-     float64 and float32: alpha_tot at one production angle (215, 13,
-     256, 256) and at B = 1, site-major at (442368, 13) and on a ragged
-     (5, 3, 37, 29) tile (damping rows and no continuum too), voigt_rows
-     over the bound-bound window (51, 215, 256, 256), both at damping
-     rows within 3 ulps of each Humlicek region boundary, each bit-equal
-     to its plain version or within TOL (atol a share of the largest
-     magnitude), then timed beside its bound (operations counted by
-     region on the call's data);
+     float64 and float32: alpha_tot_group at the production group (the
+     first ul7n12 group's 4 angles and flips, (215, 52, 256, 256)), at
+     one angle with its flips and on a ragged (5, 37, 29) tile (damping
+     rows and no continuum too); alpha_tot at one production angle (215,
+     13, 256, 256) and at B = 1, site-major at (442368, 13) and on the
+     ragged tile; voigt_rows over the bound-bound window (51, 215, 256,
+     256); all three at damping rows within 3 ulps of each Humlicek
+     region boundary, each bit-equal to its plain version or within TOL
+     (atol a share of the largest magnitude), then timed beside its
+     bound (operations counted by region on the call's data), the group
+     beside four per-angle launches, with the share of warps whose
+     points span two regions and, from tools/e1_sass.py, E1's
+     instructions a point in each region and the time the SMs need to
+     issue its double-precision (float32: single) instructions;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
   5. one Lambda iteration of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
      through RegularEngine.run(), with every kernel's launch count
-     (xy_segment one a piece of an xy segment, alpha_tot one a direction
-     and lambda chunk, 84, xy_plane none; every path below launches the
-     extinction's kernels where it makes extinction and never calls the
-     eager Humlicek of the plain versions on the card; after phases 5,
-     7, 8, 12, 15 and 16, every alpha_tot / voigt_rows call shape the
-     path made that no earlier phase held is held against the plain
-     version at that shape, on this phase's fields cut to its cells);
+     (xy_segment one a piece of an xy segment, alpha_tot_group one a
+     mirror group and lambda chunk, 21, alpha_tot and xy_plane none;
+     every path below launches the extinction's kernels where it makes
+     extinction -- the unsplit grouped path alpha_tot_group, the
+     per-direction paths alpha_tot -- and never calls the eager
+     Humlicek of the plain versions on the card; after phases 5, 7, 8,
+     12, 15 and 16, every alpha_tot_group / alpha_tot / voigt_rows call
+     shape the path made that no earlier phase held is held against the
+     plain version at that shape, on this phase's fields cut to its
+     cells);
   6. the Voronoi NLTE chain goldens (tests/golden/nlte_fixtures.npz
      vor_*: 500 sites, 'layer' order, 3 iterations) through
      VoronoiEngine.run() on the card, and wavefront sweeps of every
@@ -92,7 +101,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      both on cuda:0) each run one streamed iteration of phase 5's
      configuration on its block of the 91 wavelengths padded to 92,
      with seconds, collective seconds, peak memory and launch counts a
-     rank; one xy_segment and one march_plane call of a rank's last
+     rank (alpha_tot_group 3 a lambda chunk of the rank's block, no
+     alpha_tot); one xy_segment and one march_plane call of a rank's last
      lambda chunk (B = 28) held against the plain versions; the S rows
      at the block edges and the populations against phase 5's, with
      the cell and level of the largest populations difference; then
@@ -104,7 +114,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      iteration of phase 5's configuration on their half of the grid in
      y, K1 on halo-padded tiles and K2 on gathered march planes, with
      seconds, the halo and gather calls, bytes and seconds, peak memory
-     and launch counts a rank; one xy_plane call on a padded tile and
+     and launch counts a rank (the extinction per angle, alpha_tot, on
+     the padded tiles); one xy_plane call on a padded tile and
      one march_plane call on a gathered plane of a rank held against
      the plain versions; S at phase 13's rows and the populations
      against phase 5's at phase 13's bars; then dryrun_multichip(4)
@@ -194,9 +205,14 @@ XY_SEG_CALL = 2
 SWEEP_KERNELS = ("xy_segment", "xy_plane", "march_plane", "march_coeffs",
                  "march_chain")
 # the extinction's (physics/extinction.py, csrc/extinction.cu): a lambda
-# chunk's extinction for one direction, and the rates' bound-bound profile
-EXT_KERNELS = ("alpha_tot", "voigt_rows")
+# chunk's extinction for a mirror group into its flipped stack and for
+# one direction, and the rates' bound-bound profile
+EXT_KERNELS = ("alpha_tot_group", "alpha_tot", "voigt_rows")
 KERNELS = SWEEP_KERNELS + EXT_KERNELS
+# those of the unsplit grouped regular path (phases 5, 13, 15) and of
+# the per-direction paths (Voronoi, Bezier, the split grid)
+GROUPED_EXT = ("alpha_tot_group", "voigt_rows")
+PER_ANGLE_EXT = ("alpha_tot", "voigt_rows")
 # the kernels that take one plane a launch
 PLANE_KERNELS = SWEEP_KERNELS[1:]
 # phase 2's plane shapes (B, Nx, Ny): the production group plane (4
@@ -632,16 +648,21 @@ def time_kernels(B, dtype_name="float64"):
 # ------------------------------------------------------ phase 2: extinction
 
 # operations of csrc/extinction.cu a point in each Humlicek region (I-IV),
-# the region tests included and only what the real part of w needs, and
-# beside H: E1 a point with the per-cell gamma (with damping rows: 3
-# fewer) and a cell, E2 a point and a cell; an fma counted as two, a
-# division, a reciprocal, an exp or a cos as one
+# the region tests included and only what the real part of w needs: E2's
+# evaluator (humlicek_H) and E1's (e1_H: regions III's and IV's real part
+# with one division, 3 operations fewer); and beside H: E1 a point with
+# the per-cell gamma (with damping rows: 3 fewer), a cell, and a cell and
+# angle (the shift; with the velocity, v . k too), E2 a point and a cell;
+# an fma counted as two, a division, a reciprocal, an exp or a cos as one
 REGION_OPS = (17, 31, 63, 107)
-ALPHA_OPS = {"point": 10, "rows_point": 7, "cell": 7}
+E1_REGION_OPS = (17, 31, 60, 104)
+ALPHA_OPS = {"point": 8, "rows_point": 5, "cell": 7, "angle": 2,
+             "angle_velocity": 7}
 VOIGT_OPS = {"point": 3, "cell": 1}
-# the bytes of E1 a cell: g (or no field with damping rows), v_los, n_i,
-# n_j, a_cont and dlamD read once
-ALPHA_FIELDS = 6
+# the fields E1 reads once a cell: g (none with damping rows), n_i, n_j,
+# a_cont and dlamD, and v_los (alpha_tot) or the velocity's 3 components
+# (alpha_tot_group)
+ALPHA_FIELDS = {"alpha_tot": 6, "alpha_tot_group": 8}
 # phase 2's extinction shapes: (name, cells, wavelength rows of the line)
 # -- one production angle at a lambda chunk (B = 13) and at B = 1, the
 # production sites site-major, a ragged tile; E2 over the bound-bound
@@ -650,13 +671,32 @@ EXT_SHAPES = (("production angle", None, slice(13, 26)),
               ("B = 1", None, slice(25, 26)),
               ("sites", (VOR_SITES,), slice(0, 13)),
               ("ragged", (5, 37, 29), slice(24, 27)))
+# alpha_tot_group's: (name, cells, wavelength rows, angles of the first
+# production group taken) -- the production group at a lambda chunk, its
+# first angle alone, a ragged tile
+GROUP_SHAPES = (("production group", None, slice(13, 26), 4),
+                ("one angle", None, slice(13, 26), 1),
+                ("ragged", (5, 37, 29), slice(24, 27), 4))
+
+
+def _production_group(atmos):
+    """The first mirror group of ul7n12 on the production grid, as
+    (ks, flips): what phase 5's first alpha_tot_group call takes."""
+    import numpy as np
+    from voronoirt_tpu_torch import get_quadrature
+    from voronoirt_tpu_torch.solvers.sweep_regular import group_plans
+    quad = get_quadrature(PROD["quadrature"])
+    g = group_plans(quad.k, quad.is_up, np.asarray(atmos.z), atmos.dx,
+                    atmos.dy, max_group=PROD["group_max_angles"])[0]
+    return [quad.k[i] for i, _, _ in g], [f for _, _, f in g]
 
 
 def _ext_fields(atmos, dtype_name):
     """Phase 5's per-cell fields on the card in `dtype_name`: the line,
     the LTE populations, the continuum extinction, the damping rate at
-    those populations and the line-of-sight velocity of a slanted
-    production direction (ul7n12's 6th)."""
+    those populations, the velocity, the line-of-sight velocity of a
+    slanted production direction (ul7n12's 6th) and the first
+    production group's ks and flips."""
     import numpy as np
     import torch
     from voronoirt_tpu_torch import Config, get_quadrature
@@ -681,9 +721,11 @@ def _ext_fields(atmos, dtype_name):
     g = gamma_constant(line, T, lte[..., 0] + lte[..., 1], ne,
                        cfg.gamma_natural)
     k = get_quadrature(PROD["quadrature"]).k[5]
-    v_los = line_of_sight_velocity(f(atmos.velocity_zxy()), -np.asarray(k))
+    velocity = f(atmos.velocity_zxy()).contiguous()
+    v_los = line_of_sight_velocity(velocity, -np.asarray(k))
     return {"line": line, "populations": lte.contiguous(), "a_cont": a_cont,
-            "g_cell": g, "v_los": v_los}
+            "g_cell": g, "v_los": v_los, "velocity": velocity,
+            "group": _production_group(atmos)}
 
 
 def _cut_fields(F, cells):
@@ -691,68 +733,126 @@ def _cut_fields(F, cells):
     block of sites for a 1-d `cells`, a corner tile otherwise."""
     if len(cells) == 1:
         n = cells[0]
-        cut = {k: v.reshape(-1)[:n] for k, v in F.items()
-               if k not in ("line", "populations")}
-        cut["populations"] = F["populations"].reshape(-1, 3)[:n]
+        cut = {k: F[k].reshape(-1)[:n] for k in ("a_cont", "g_cell", "v_los")}
+        for k in ("populations", "velocity"):
+            cut[k] = F[k].reshape(-1, 3)[:n]
         dlamD = F["line"].dlamD.reshape(-1)[:n]
     else:
         idx = tuple(slice(0, c) for c in cells)
-        cut = {k: v[idx] for k, v in F.items() if k != "line"}
+        cut = {k: F[k][idx] for k in ("a_cont", "g_cell", "v_los",
+                                      "populations", "velocity")}
         dlamD = F["line"].dlamD[idx]
     cut = {k: v.contiguous() for k, v in cut.items()}
     cut["line"] = dataclasses.replace(F["line"], dlamD=dlamD.contiguous())
+    cut["group"] = F["group"]
     return cut
 
 
-def _regions(a, v):
-    """Points in each Humlicek region (I-IV) at damping a and shift v,
+def _region_map(a, v):
+    """The Humlicek region (1-4) of each point at damping a and shift v,
     by physics/voigt.py's tests."""
+    import torch
     av = v.abs()
     s = av + a
-    r1 = s >= 15.0
-    r2 = ~r1 & (s >= 5.5)
-    low = s < 5.5
-    r3 = low & (a >= 0.195 * av - 0.176)
-    return (int(r1.sum()), int(r2.sum()), int(r3.sum()),
-            int((low & ~r3).sum()))
+    r = torch.where(a >= 0.195 * av - 0.176, 3, 4).to(torch.int8)
+    r = torch.where(s >= 5.5, 2, r).to(torch.int8)
+    return torch.where(s >= 15.0, 1, r).to(torch.int8)
 
 
-def _ext_work(kind, F, lam, damp=None):
-    """(bytes, operations) of one call of `kind` ('alpha_tot' with the
-    per-cell gamma or damping rows, 'voigt_rows') on these inputs: each
-    input read once and each output written once; the operations of
-    each point's own Humlicek region, counted on this call's data."""
+def _tally(r, acc):
+    """Add a plane of regions r, in the kernel's thread order, to acc:
+    the points of each region, the points each region's warps issue (a
+    warp of 32 consecutive cells runs every region among its points, for
+    all 32), the warps, and those whose points span two regions or more."""
+    import torch
+    flat = r.reshape(-1)
+    pad = (-flat.numel()) % 32
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    warps = flat.reshape(-1, 32)
+    present = torch.stack([(warps == k).any(1) for k in (1, 2, 3, 4)])
+    for k in range(4):
+        acc["points"][k] += int((flat == k + 1).sum())
+        acc["issued"][k] += 32 * int(present[k].sum())
+    acc["warps"] += warps.shape[0]
+    acc["mixed"] += int((present.sum(0) > 1).sum())
+
+
+def _ext_work(kind, F, lam, damp=None, angles=None):
+    """(bytes, operations, region tally) of one call of `kind`
+    ('alpha_tot' or 'alpha_tot_group' with the per-cell gamma or damping
+    rows, 'voigt_rows') on these inputs, for alpha_tot_group on the
+    angles' ks: each input read once and each output written once; the
+    operations of each point's own Humlicek region, counted on this
+    call's data."""
+    import numpy as np
     from voronoirt_tpu_torch.constants import c_0
+    from voronoirt_tpu_torch.physics.atom import line_of_sight_velocity
     from voronoirt_tpu_torch.physics.broadening import damping
     line = F["line"]
     cells, es = line.dlamD.numel(), line.dlamD.element_size()
-    regions = [0, 0, 0, 0]
+    acc = {"points": [0] * 4, "issued": [0] * 4, "warps": 0, "mixed": 0}
     shape = (1,) + (1,) * line.dlamD.dim()
-    for j in range(lam.shape[0]):
-        lj = lam[j:j + 1].reshape(shape)
-        if damp is not None:
-            a = damp[j:j + 1]
-        else:
-            a = damping(F["g_cell"][None], lj, line.dlamD[None])
-        if kind == "alpha_tot":
-            v = (lj - line.lam0 + line.lam0 * F["v_los"][None] / c_0) \
-                / line.dlamD[None]
-        else:
-            v = (lj - line.lam0) / line.dlamD[None]
-        regions = [r + n for r, n in zip(regions, _regions(a, v))]
-        del a, v
-    points = lam.shape[0] * cells
-    h_ops = sum(n * o for n, o in zip(regions, REGION_OPS))
-    if kind == "alpha_tot":
-        fields = ALPHA_FIELDS - (damp is not None)
-        nbytes = es * (fields * cells + (damp is not None) * points + points)
-        ops = h_ops + ALPHA_OPS["cell"] * cells + points * (
-            ALPHA_OPS["rows_point"] if damp is not None
-            else ALPHA_OPS["point"])
+    if kind == "alpha_tot_group":
+        v_loses = [line_of_sight_velocity(F["velocity"], -np.asarray(k))
+                   for k in angles]
     else:
+        v_loses = [F["v_los"] if kind == "alpha_tot" else None]
+    for v_los in v_loses:
+        for j in range(lam.shape[0]):
+            lj = lam[j:j + 1].reshape(shape)
+            if damp is not None:
+                a = damp[j:j + 1]
+            else:
+                a = damping(F["g_cell"][None], lj, line.dlamD[None])
+            if v_los is not None:
+                v = (lj - line.lam0 + line.lam0 * v_los[None] / c_0) \
+                    / line.dlamD[None]
+            else:
+                v = (lj - line.lam0) / line.dlamD[None]
+            _tally(_region_map(a, v), acc)
+            del a, v
+    P = len(v_loses)
+    points = P * lam.shape[0] * cells
+    if kind == "voigt_rows":
+        h_ops = sum(n * o for n, o in zip(acc["points"], REGION_OPS))
         nbytes = es * (cells + 2 * points)
         ops = h_ops + VOIGT_OPS["cell"] * cells + VOIGT_OPS["point"] * points
-    return nbytes, ops, regions
+        return nbytes, ops, acc
+    h_ops = sum(n * o for n, o in zip(acc["points"], E1_REGION_OPS))
+    fields = ALPHA_FIELDS[kind] - (damp is not None)
+    nbytes = es * (fields * cells + (damp is not None) * lam.shape[0] * cells
+                   + points)
+    per_angle = ALPHA_OPS["angle_velocity" if kind == "alpha_tot_group"
+                          else "angle"]
+    ops = h_ops + (ALPHA_OPS["cell"] + P * per_angle) * cells + points * (
+        ALPHA_OPS["rows_point"] if damp is not None else ALPHA_OPS["point"])
+    return nbytes, ops, acc
+
+
+_SASS = {}
+
+
+def _e1_issue(acc, dtype_name):
+    """E1's instructions a point by region, from the code nvcc compiled
+    (tools/e1_sass.py, the group kernel's instance of the dtype; counted
+    once a process), and the least time the SMs need to issue them for
+    the warps of `acc` at the card's largest SM clock: (ms, 'pipe' |
+    'mufu', {region: counts}, the clock in MHz)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import e1_sass
+    if not _SASS:
+        _SASS.update(e1_sass.count())
+    tag = {"float64": "alpha_tot_kernelIdLb1", "float32":
+           "alpha_tot_kernelIfLb1"}[dtype_name]
+    (rec,) = [r for name, r in _SASS.items() if tag in name]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    issued = {k + 1: n for k, n in enumerate(acc["issued"])}
+    ms, by = e1_sass.issue_ms(rec["regions"], issued, dtype_name, mhz * 1e6)
+    return ms, by, rec["regions"], mhz
 
 
 def _hold_ext(name, got, want, dtype_name, err):
@@ -796,32 +896,66 @@ def _boundary_rows(v, ulps=3):
 
 
 def check_extinction(atmos):
-    """Phase 2c: alpha_tot (E1) and voigt_rows (E2) against their plain
-    versions on the card, float64 and float32, on phase 5's fields at
-    EXT_SHAPES (per-cell gamma; the ragged tile with damping rows and
-    without the continuum too), E2 over the production bound-bound
-    window, and points within a few ulps of each region boundary; then
-    each timed at its production shape beside its bound.  Returns
-    ({dtype: {kernel: err}}, {dtype: {kernel: (ms, plain ms, bound ms,
-    bound by)}})."""
+    """Phase 2c: alpha_tot_group and alpha_tot (E1) and voigt_rows (E2)
+    against their plain versions on the card, float64 and float32, on
+    phase 5's fields at GROUP_SHAPES and EXT_SHAPES (per-cell gamma; the
+    ragged tiles with damping rows and without the continuum too), E2
+    over the production bound-bound window, and points within a few ulps
+    of each region boundary; then each timed at its production shape
+    beside its bound, the group beside four per-angle launches and
+    beside the path it replaces (four eager v_los, four launches, their
+    flips and the stack's cat), with its warps' region mix and its
+    instructions a point from the compiled code.  Returns ({dtype:
+    {kernel: err}}, {dtype: {kernel: (ms, plain ms, bound ms, bound
+    by)}}, {dtype: the group's other numbers})."""
+    import numpy as np
     import torch
     from voronoirt_tpu_torch.physics import extinction as ex
+    from voronoirt_tpu_torch.physics.atom import line_of_sight_velocity
     from voronoirt_tpu_torch.physics.broadening import damping
+    from voronoirt_tpu_torch.solvers.sweep_regular import flip_field
 
-    errs, times = {}, {}
+    errs, times, info = {}, {}, {}
     for dtype_name in ("float64", "float32"):
         err = errs.setdefault(dtype_name, {})
         F = _ext_fields(atmos, dtype_name)
         lam_all = F["line"].lam_tensor()
+
+        def rows_of(G, lam):
+            return damping(G["g_cell"][None], lam.reshape(
+                (-1,) + (1,) * G["g_cell"].dim()),
+                G["line"].dlamD[None]).contiguous()
+
+        for name, cells, rows, P in GROUP_SHAPES:
+            G = F if cells is None else _cut_fields(F, cells)
+            lam = lam_all[rows]
+            ks, flips = (x[:P] for x in G["group"])
+            args = (G["line"], lam, G["velocity"], ks, flips,
+                    G["populations"])
+            kws = [dict(g_cell=G["g_cell"])]
+            if name == "ragged":
+                kws.append(dict(damp=rows_of(G, lam)))
+            equal = []
+            for kw in kws:
+                for a_c in ((G["a_cont"], None) if name == "ragged"
+                            else (G["a_cont"],)):
+                    got = ex.alpha_tot_group(*args, a_c, **kw)
+                    want = ex.alpha_tot_group_plain(*args, a_c, **kw)
+                    equal.append(_hold_ext("alpha_tot_group", got, want,
+                                           dtype_name, err))
+                    del got, want
+            shape = ex.out_shape(tuple(G["v_los"].shape), P * lam.shape[0])
+            print(f"  alpha_tot_group {dtype_name} {name} (flips {flips}): "
+                  f"out {shape}, bit-equal to the plain version: "
+                  f"{all(equal)}", flush=True)
+            del G
         for name, cells, rows in EXT_SHAPES:
             G = F if cells is None else _cut_fields(F, cells)
             lam = lam_all[rows]
             args = (G["line"], lam, G["v_los"], G["populations"])
             kws = [dict(g_cell=G["g_cell"])]
             if name == "ragged":
-                kws.append(dict(damp=damping(
-                    G["g_cell"][None], lam.reshape((-1, 1, 1, 1)),
-                    G["line"].dlamD[None]).contiguous()))
+                kws.append(dict(damp=rows_of(G, lam)))
             equal = []
             for kw in kws:
                 for a_c in ((G["a_cont"], None) if name == "ragged"
@@ -839,17 +973,19 @@ def check_extinction(atmos):
         # E2 over the bound-bound window of the production grid
         line = F["line"]
         lam_bb = lam_all[line.lam_idx[0]:line.lam_idx[1]]
-        damp = damping(F["g_cell"][None], lam_bb.reshape(-1, 1, 1, 1),
-                       line.dlamD[None]).contiguous()
+        damp = rows_of(F, lam_bb)
         eq = _hold_ext("voigt_rows", ex.voigt_rows(line, lam_bb, damp),
                        ex.voigt_rows_plain(line, lam_bb, damp), dtype_name,
                        err)
         print(f"  voigt_rows {dtype_name}: out {tuple(damp.shape)}, "
               f"bit-equal to the plain version: {eq}", flush=True)
-        # the region boundaries: one wavelength, no line-of-sight
-        # velocity, a block of 4096 cells, both kernels
+        # the region boundaries: one wavelength, no velocity, 4096 cells
+        # (a block of sites for alpha_tot and voigt_rows, a 1 x 16 x 256
+        # tile for the group), every kernel
         G = _cut_fields(F, (4096,))
         G["v_los"] = torch.zeros_like(G["v_los"])
+        T = _cut_fields(F, (1, 16, 256))
+        T["velocity"] = torch.zeros_like(T["velocity"])
         eq = []
         for off in (1.0, 4.0, 9.0, 14.0):
             lam1 = (line.lam0 + off * G["line"].dlamD.median()).reshape(1)
@@ -864,27 +1000,86 @@ def check_extinction(atmos):
                 eq.append(_hold_ext("alpha_tot", ex.alpha_tot(
                     *a_args, damp=d1), ex.alpha_tot_plain(*a_args, damp=d1),
                     dtype_name, err))
-        print(f"  {dtype_name} region boundaries ({len(eq) // 2} damping "
+            v = (lam1 - T["line"].lam0) / T["line"].dlamD
+            for row in _boundary_rows(v):
+                d1 = row[None].contiguous()
+                g_args = (T["line"], lam1, T["velocity"], *T["group"],
+                          T["populations"], T["a_cont"])
+                eq.append(_hold_ext("alpha_tot_group", ex.alpha_tot_group(
+                    *g_args, damp=d1), ex.alpha_tot_group_plain(
+                    *g_args, damp=d1), dtype_name, err))
+        print(f"  {dtype_name} region boundaries ({len(eq) // 3} damping "
               f"rows of 4096 cells, each kernel): bit-equal: {all(eq)}",
               flush=True)
+        del G, T
         # times at the production shapes
         lam13 = lam_all[EXT_SHAPES[0][2]]
-        a_args = (line, lam13, F["v_los"], F["populations"], F["a_cont"])
         t = {}
-        nbytes, ops, reg = _ext_work("alpha_tot", F, lam13)
+        ks, flips = F["group"]
+        g_args = (line, lam13, F["velocity"], ks, flips, F["populations"],
+                  F["a_cont"])
+        g_kw = dict(g_cell=F["g_cell"])
+        nbytes, ops, acc = _ext_work("alpha_tot_group", F, lam13,
+                                     angles=ks)
+        t["alpha_tot_group"] = (
+            _time_ms(lambda: ex.alpha_tot_group(*g_args, **g_kw), 10),
+            _time_ms(lambda: ex.alpha_tot_group_plain(*g_args, **g_kw), 1),
+            *_bound_ms(nbytes, ops, dtype_name))
+        v_loses = [line_of_sight_velocity(F["velocity"], -np.asarray(k))
+                   for k in ks]
+        four = _time_ms(lambda: [ex.alpha_tot(
+            line, lam13, v, F["populations"], F["a_cont"], **g_kw)
+            for v in v_loses], 5)
+        # what the group launch replaces: four eager line-of-sight
+        # velocities and per-angle launches, flipped and stacked by cat
+        old = _time_ms(lambda: torch.cat([flip_field(ex.alpha_tot(
+            line, lam13, line_of_sight_velocity(F["velocity"], -np.asarray(k)),
+            F["populations"], F["a_cont"], **g_kw), *f)
+            for k, f in zip(ks, flips)], dim=1), 5)
+        issue, issue_by, sass, mhz = _e1_issue(acc, dtype_name)
+        mix = acc["mixed"] / acc["warps"]
+        ms = t["alpha_tot_group"][0]
+        print(f"  alpha_tot_group {dtype_name} at the production group "
+              f"(215, 4 x 13, 256, 256): kernel {ms:.4f} ms, plain "
+              f"{t['alpha_tot_group'][1]:.4f} ms, bound "
+              f"{t['alpha_tot_group'][2]:.4f} ms "
+              f"({t['alpha_tot_group'][3]}: {nbytes / 1e9:.4f} GB, "
+              f"{ops / 1e9:.4f} G operations), "
+              f"{100 * t['alpha_tot_group'][2] / ms:.1f} % of it; four "
+              f"alpha_tot launches {four:.4f} ms; the path it replaces "
+              f"(eager v_los, four launches, flips, cat) {old:.4f} ms",
+              flush=True)
+        print(f"  E1 {dtype_name} at the production group: points by region "
+              f"I-IV {acc['points']}, issued by warps {acc['issued']}; "
+              f"warps whose points span two regions or more "
+              f"{acc['mixed']} of {acc['warps']} ({100 * mix:.2f} %)",
+              flush=True)
+        for r in sorted(sass):
+            print(f"  E1 {dtype_name} SASS a region {r} point: "
+                  f"{json.dumps(sass[r])}", flush=True)
+        print(f"  E1 {dtype_name} issue bound at {mhz:.0f} MHz (the "
+              f"{'FP64' if dtype_name == 'float64' else 'FP32'} pipe and "
+              f"MUFU on {132} SMs, the warps' issued points): {issue:.4f} ms "
+              f"({issue_by}), {100 * issue / ms:.1f} % of the kernel's time",
+              flush=True)
+        info[dtype_name] = {"four_alpha_tot_ms": four,
+                            "replaced_path_ms": old}
+        a_args = (line, lam13, F["v_los"], F["populations"], F["a_cont"])
+        nbytes, ops, acc = _ext_work("alpha_tot", F, lam13)
         t["alpha_tot"] = (
-            _time_ms(lambda: ex.alpha_tot(*a_args, g_cell=F["g_cell"]), 20),
-            _time_ms(lambda: ex.alpha_tot_plain(*a_args,
-                                                g_cell=F["g_cell"]), 2),
+            _time_ms(lambda: ex.alpha_tot(*a_args, **g_kw), 20),
+            _time_ms(lambda: ex.alpha_tot_plain(*a_args, **g_kw), 2),
             *_bound_ms(nbytes, ops, dtype_name))
         print(f"  alpha_tot {dtype_name} at one production angle (215, 13, "
               f"256, 256): kernel {t['alpha_tot'][0]:.4f} ms, plain "
               f"{t['alpha_tot'][1]:.4f} ms, bound {t['alpha_tot'][2]:.4f} "
               f"ms ({t['alpha_tot'][3]}: {nbytes / 1e9:.4f} GB, "
               f"{ops / 1e9:.4f} G operations; points by region I-IV "
-              f"{reg}), {100 * t['alpha_tot'][2] / t['alpha_tot'][0]:.1f} "
-              f"% of it", flush=True)
-        nbytes, ops, reg = _ext_work("voigt_rows", F, lam_bb, damp)
+              f"{acc['points']}; warps of two regions or more "
+              f"{100 * acc['mixed'] / acc['warps']:.2f} %), "
+              f"{100 * t['alpha_tot'][2] / t['alpha_tot'][0]:.1f} % of it",
+              flush=True)
+        nbytes, ops, acc = _ext_work("voigt_rows", F, lam_bb, damp)
         t["voigt_rows"] = (
             _time_ms(lambda: ex.voigt_rows(line, lam_bb, damp), 10),
             _time_ms(lambda: ex.voigt_rows_plain(line, lam_bb, damp), 1),
@@ -894,7 +1089,7 @@ def check_extinction(atmos):
               f"{t['voigt_rows'][1]:.4f} ms, bound "
               f"{t['voigt_rows'][2]:.4f} ms ({t['voigt_rows'][3]}: "
               f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.4f} G operations; points "
-              f"by region I-IV {reg}), "
+              f"by region I-IV {acc['points']}), "
               f"{100 * t['voigt_rows'][2] / t['voigt_rows'][0]:.1f} % of it",
               flush=True)
         times[dtype_name] = t
@@ -904,18 +1099,22 @@ def check_extinction(atmos):
                   f"(TOL rtol {TOL[dtype_name]['rtol']:g}, atol "
                   f"{TOL[dtype_name]['atol']:g} of the largest magnitude)",
                   flush=True)
-        del F, damp, G
+        del F, damp, v_loses
         gc.collect()
         torch.cuda.empty_cache()
-    return errs, times
+    return errs, times, info
 
 
 # the modules that call the extinction's wrappers, by the name each
 # imported: the engines, synthesize, the rates, and phase 2 itself
 _EXT_CALLERS = (("voronoirt_tpu_torch.engine.lambda_iter", "alpha_tot"),
+                ("voronoirt_tpu_torch.engine.lambda_iter",
+                 "alpha_tot_group"),
                 ("voronoirt_tpu_torch.drivers.synthesize", "alpha_tot"),
                 ("voronoirt_tpu_torch.physics.rates", "voigt_rows"),
                 ("voronoirt_tpu_torch.physics.extinction", "alpha_tot"),
+                ("voronoirt_tpu_torch.physics.extinction",
+                 "alpha_tot_group"),
                 ("voronoirt_tpu_torch.physics.extinction", "voigt_rows"))
 # the call signatures already held against the plain versions
 _EXT_HELD = set()
@@ -923,24 +1122,32 @@ _EXT_HELD = set()
 
 def _ext_sig(name, args, kwargs):
     """A wrapper call's signature: (kernel, dtype, cells, B, levels,
-    continuum, damping rows) for alpha_tot, (kernel, dtype, cells, nb)
-    for voigt_rows -- all that sets the kernel's layout and strides
-    (its inputs are contiguous)."""
+    continuum, damping rows) for alpha_tot, the same and (ks, flips) for
+    alpha_tot_group, (kernel, dtype, cells, nb) for voigt_rows -- all
+    that sets the kernel's layout and strides (its inputs are
+    contiguous) and, for a group, its angles."""
     lam = args[1]
     dtype_name = str(lam.dtype).replace("torch.", "")
     if name == "voigt_rows":
         damp = args[2] if len(args) > 2 else kwargs["damp"]
         return (name, dtype_name, tuple(damp.shape[1:]), lam.shape[0])
-    a_cont = args[4] if len(args) > 4 else kwargs.get("a_cont")
-    return (name, dtype_name, tuple(args[2].shape), lam.shape[0],
-            args[3].shape[-1], a_cont is not None,
-            kwargs.get("damp") is not None)
+    group = name == "alpha_tot_group"
+    pops, n_cont = (args[5], 6) if group else (args[3], 4)
+    a_cont = args[n_cont] if len(args) > n_cont else kwargs.get("a_cont")
+    cells = tuple(args[2].shape[:-1] if group else args[2].shape)
+    sig = (name, dtype_name, cells, lam.shape[0], pops.shape[-1],
+           a_cont is not None, kwargs.get("damp") is not None)
+    if group:
+        sig += (tuple(tuple(float(c) for c in k) for k in args[3]),
+                tuple(tuple(bool(b) for b in f) for f in args[4]))
+    return sig
 
 
 @contextmanager
 def _record_ext():
-    """Record the signature of every alpha_tot / voigt_rows call made on
-    the card: yields {signature: that call's wavelengths}.  The calls
+    """Record the signature of every alpha_tot_group / alpha_tot /
+    voigt_rows call made on the card: yields {signature: that call's
+    wavelengths}.  The calls
     run as they are (the wavelengths are kept as a copy on the card, so
     nothing waits for it)."""
     import importlib
@@ -967,11 +1174,12 @@ def _record_ext():
 
 
 def _hold_recorded(atmos, seen, what, errs):
-    """Each alpha_tot / voigt_rows call signature that `what` made on the
-    card and that no earlier phase held: the kernel against its plain
-    version at that signature, on phase 5's fields cut to its cells (a
-    flat block of sites, a corner tile of the grid), at the path's own
-    wavelengths and damping source; the errors into errs[dtype]."""
+    """Each alpha_tot_group / alpha_tot / voigt_rows call signature that
+    `what` made on the card and that no earlier phase held: the kernel
+    against its plain version at that signature, on phase 5's fields cut
+    to its cells (a flat block of sites, a corner tile of the grid), at
+    the path's own wavelengths, damping source and, for a group, angles
+    and flips; the errors into errs[dtype]."""
     import torch
     from voronoirt_tpu_torch.physics import extinction as ex
     from voronoirt_tpu_torch.physics.broadening import damping
@@ -993,18 +1201,26 @@ def _hold_recorded(atmos, seen, what, errs):
             rows = damping(G["g_cell"][None],
                            lam.reshape((-1,) + (1,) * len(cells)),
                            G["line"].dlamD[None]).contiguous()
-            if name == "alpha_tot":
-                levels, cont, by_rows = sig[4:]
+            if name in ("alpha_tot", "alpha_tot_group"):
+                levels, cont, by_rows = sig[4:7]
                 require(levels <= G["populations"].shape[-1],
                         f"{what}: {levels} levels")
-                args = (G["line"], lam, G["v_los"],
-                        G["populations"][..., :levels].contiguous(),
-                        G["a_cont"] if cont else None)
+                pops = G["populations"][..., :levels].contiguous()
+                a_c = G["a_cont"] if cont else None
                 kw = dict(damp=rows) if by_rows else dict(g_cell=G["g_cell"])
-                got, want = ex.alpha_tot(*args, **kw), \
-                    ex.alpha_tot_plain(*args, **kw)
                 how = (f"B = {B}, {'damping rows' if by_rows else 'g_cell'}, "
                        f"{'with' if cont else 'no'} continuum")
+                if name == "alpha_tot":
+                    args = (G["line"], lam, G["v_los"], pops, a_c)
+                    got, want = ex.alpha_tot(*args, **kw), \
+                        ex.alpha_tot_plain(*args, **kw)
+                else:
+                    ks, flips = sig[7:]
+                    args = (G["line"], lam, G["velocity"], ks, flips, pops,
+                            a_c)
+                    got, want = ex.alpha_tot_group(*args, **kw), \
+                        ex.alpha_tot_group_plain(*args, **kw)
+                    how += f", {len(ks)} angles, flips {flips}"
             else:
                 got = ex.voigt_rows(G["line"], lam, rows)
                 want = ex.voigt_rows_plain(G["line"], lam, rows)
@@ -1099,10 +1315,12 @@ def _launch_counts(reset=False):
     if reset:
         xp.LAUNCHES = xs.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
-        ex.LAUNCHES = ex.VOIGT_LAUNCHES = _eager_voigt[0] = 0
+        ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
+        _eager_voigt[0] = 0
     return {"xy_segment": xs.LAUNCHES, "xy_plane": xp.LAUNCHES,
             "march_plane": mp.LAUNCHES, "march_coeffs": mp.COEFFS_LAUNCHES,
-            "march_chain": mp.CHAIN_LAUNCHES, "alpha_tot": ex.LAUNCHES,
+            "march_chain": mp.CHAIN_LAUNCHES,
+            "alpha_tot_group": ex.GROUP_LAUNCHES, "alpha_tot": ex.LAUNCHES,
             "voigt_rows": ex.VOIGT_LAUNCHES, EAGER_VOIGT: _eager_voigt[0]}
 
 
@@ -1132,6 +1350,16 @@ def _xy_pieces(eng, dtype):
                                                     dtype))
                      for s in g[0][1].segments if s.case == "xy")
     return n
+
+
+def _group_launches(eng):
+    """alpha_tot_group launches one streamed iteration of `eng` makes:
+    one a mirror group and lambda chunk of the engine's block (every
+    production group holds four angles, so no per-angle alpha_tot)."""
+    require(all(len(g) > 1 for g in eng.plan_groups),
+            f"a singleton group: {[len(g) for g in eng.plan_groups]}")
+    n_lambda = eng.lam_block.stop - eng.lam_block.start
+    return len(eng.plan_groups) * -(-n_lambda // eng.cfg.lambda_chunk)
 
 
 def _edge_rows(n_lambda, n_ranks):
@@ -1215,15 +1443,17 @@ def _production_iteration(atmos, dtype_name):
           f"S, populations finite: {finite}; sum(populations)/n_H - 1 "
           f"max {mass:.3e}", flush=True)
     pieces = _xy_pieces(eng, T.dtype)
-    n_ext = eng.quad.n_angles * -(-line.n_lambda // cfg.lambda_chunk)
+    n_ext = _group_launches(eng)
     print(f"  launches during the iteration: {launches} (xy_segment: one a "
-          f"piece of an xy segment, {pieces} expected; alpha_tot: one a "
-          f"direction and lambda chunk, {n_ext} expected)", flush=True)
-    _require_path(launches, UNSPLIT + EXT_KERNELS, "the streamed iteration")
+          f"piece of an xy segment, {pieces} expected; alpha_tot_group: one "
+          f"a mirror group and lambda chunk, {n_ext} expected; alpha_tot: "
+          f"none)", flush=True)
+    _require_path(launches, UNSPLIT + GROUPED_EXT, "the streamed iteration")
     require(launches["xy_segment"] == pieces,
             f"xy_segment: {launches['xy_segment']} launches, not {pieces}")
-    require(launches["alpha_tot"] == n_ext,
-            f"alpha_tot: {launches['alpha_tot']} launches, not {n_ext}")
+    require(launches["alpha_tot_group"] == n_ext,
+            f"alpha_tot_group: {launches['alpha_tot_group']} launches, not "
+            f"{n_ext}")
     return res, eng, launches, mass
 
 
@@ -1451,7 +1681,7 @@ def run_voronoi_production(atmos):
         line.n_lambda, cfg.lambda_chunk))
     print(f"  launches during the two iterations: {launches} (alpha_tot: "
           f"one a direction and lambda chunk, {n_ext} expected)", flush=True)
-    _require_path(launches, EXT_KERNELS, "the Voronoi iterations")
+    _require_path(launches, PER_ANGLE_EXT, "the Voronoi iterations")
     require(launches["alpha_tot"] == n_ext,
             f"alpha_tot: {launches['alpha_tot']} launches, not {n_ext}")
     n, nlam = sites.n, line.n_lambda
@@ -1752,7 +1982,7 @@ def run_bezier_production(atmos):
           f"{peak / 2**30:.3f} GiB (max_memory_allocated); "
           f"sum(populations)/n_H - 1 max {mass:.3e}", flush=True)
     _require_path(launches, ("march_plane", "march_coeffs", "march_chain")
-                  + EXT_KERNELS, "the Bezier iteration")
+                  + PER_ANGLE_EXT, "the Bezier iteration")
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
@@ -2170,6 +2400,7 @@ def _phase13_rank(group, call_n):
         res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    n_ext = _group_launches(eng)
     held = {name: {"err": _hold_kept(name, kept, n, f"rank "
                                      f"{group.rank}'s iteration at B = {B}"),
                    "shape": kept["shape"], "call": n}
@@ -2180,7 +2411,7 @@ def _phase13_rank(group, call_n):
             "n_lambda": line.n_lambda, "b0_rows": b0_rows, "setup_s": setup,
             "iteration_s": res.timings[0], "collective_s": group.seconds,
             "collectives": group.calls, "peak_gib": peak / 2**30,
-            "launches": launches, "held": held,
+            "launches": launches, "held": held, "group_launches": n_ext,
             "convergence": res.convergence,
             "S_edges": {lo: res.S[0].cpu().numpy(),
                         hi - 1: res.S[-1].cpu().numpy()},
@@ -2251,8 +2482,13 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
         require(np.array_equal(o["populations"], outs[0]["populations"])
                 and o["convergence"] == outs[0]["convergence"],
                 "the ranks' populations or criteria differ")
-        _require_path(o["launches"], UNSPLIT + EXT_KERNELS,
+        # the grid is whole: the grouped path, a group's stack a launch
+        _require_path(o["launches"], UNSPLIT + GROUPED_EXT,
                       f"rank {o['rank']}")
+        require(o["launches"]["alpha_tot_group"] == o["group_launches"],
+                f"rank {o['rank']}: alpha_tot_group "
+                f"{o['launches']['alpha_tot_group']} launches, not "
+                f"{o['group_launches']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']}", flush=True)
     t = time.perf_counter()
@@ -2379,8 +2615,9 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
                 f"rank {o['rank']} differs from the unsplit iteration")
         require(o["convergence"] == outs[0]["convergence"],
                 "the ranks' criteria differ")
-        # the split sweep: K1 one plane a launch on padded tiles
-        _require_path(o["launches"], PLANE_KERNELS + EXT_KERNELS,
+        # the split sweep: K1 one plane a launch on padded tiles, the
+        # extinction per angle on padded tiles
+        _require_path(o["launches"], PLANE_KERNELS + PER_ANGLE_EXT,
                       f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
@@ -2705,7 +2942,7 @@ def main(argv=None):
                         (times32, B52, "float32")):
             t["xy_segment"] = seg[B, d][:2]
         with _record_ext() as seen:
-            ext_errs, ext_times = check_extinction(atmos)
+            ext_errs, ext_times, ext_info = check_extinction(atmos)
         _EXT_HELD.update(seen)
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
@@ -2786,13 +3023,17 @@ def main(argv=None):
         mesh_shapes["march_plane"]
     mesh_errs = {name: max(o["held"][name]["err"] for o in mesh_ranks)
                  for name in ("xy_plane", "march_plane")}
-    # each kernel's launches on its path: phase 5's streamed iteration,
-    # and for xy_plane, which only the split sweep launches, a rank of
-    # phase 14's
+    # each kernel's launches on its path: phase 5's streamed iteration;
+    # for xy_plane, which only the split sweep launches, a rank of phase
+    # 14's; for the per-direction alpha_tot, which the unsplit grouped
+    # path no longer launches, phase 8's Bezier iteration, which calls it
+    # at the shape phase 2 times
     path = dict.fromkeys(KERNELS, "phase 5: the streamed iteration")
     path["xy_plane"] = "phase 14: the y-split iteration, rank 0"
+    path["alpha_tot"] = "phase 8: the Bezier iteration"
     path_launches = dict(launches,
-                         xy_plane=mesh_ranks[0]["launches"]["xy_plane"])
+                         xy_plane=mesh_ranks[0]["launches"]["xy_plane"],
+                         alpha_tot=launches_bezier["alpha_tot"])
     k1 = "voronoirt_tpu/solvers/pallas_xy.py:65"
     k2 = ("voronoirt_tpu_torch/csrc/march_plane.cu",
           "voronoirt_tpu/solvers/pallas_march.py:89")
@@ -2838,7 +3079,8 @@ def main(argv=None):
                for name in SWEEP_KERNELS]
     # the extinction's kernels: what they replace is the JAX package's
     # jitted XLA program, not a Pallas kernel
-    ext_src = {"alpha_tot": "voronoirt_tpu/engine/lambda_iter.py:130",
+    ext_src = {"alpha_tot_group": "voronoirt_tpu/engine/lambda_iter.py:130",
+               "alpha_tot": "voronoirt_tpu/engine/lambda_iter.py:130",
                "voigt_rows": "voronoirt_tpu/physics/rates.py:37"}
     for name in EXT_KERNELS:
         (e64, e32), (t64, t32) = ((d["float64"][name], d["float32"][name])
@@ -2847,7 +3089,8 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": "voronoirt_tpu_torch/csrc/extinction.cu",
             "replaces": ext_src[name], "replaces_a_tpu_kernel": False,
-            "launches": launches[name], "launches_path": path[name],
+            "launches": path_launches[name], "launches_path": path[name],
+            "launches_streamed_iteration": launches[name],
             "max_abs_err": e64["abs"], "max_rel_err": e64["rel"],
             "bit_equal": e64["equal"], "ms": t64[0], "plain_ms": t64[1],
             "bound_ms": t64[2], "bound_by": t64[3],
@@ -2866,7 +3109,9 @@ def main(argv=None):
             "bit_equal_f32": e32["equal"], "ms_f32": t32[0],
             "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],
             "bound_by_f32": t32[3], "pct_of_bound_f32": 100 * t32[2] / t32[0],
-            "launches_f32_iteration": launches32[name]})
+            "launches_f32_iteration": launches32[name],
+            **({"f64": ext_info["float64"], "f32": ext_info["float32"]}
+               if name == "alpha_tot_group" else {})})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

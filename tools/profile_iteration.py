@@ -12,14 +12,16 @@ and runs three iterations of RegularEngine.iterate_streamed, the step
 RegularEngine.run() repeats:
 
   1. parts timed: host timers around synchronised calls of each part
-     (the extinction's alpha_tot wrapper, each group sweep by plane-cut
-     case, rate accumulation, S update, statistical equilibrium; and
-     inside the rates, not added to the parts, their bound-bound
-     profile's voigt_rows wrapper);
+     (the extinction's alpha_tot_group wrapper -- a mirror group's stack
+     a launch -- and its per-direction alpha_tot, each group sweep by
+     plane-cut case, rate accumulation, S update, statistical
+     equilibrium; and inside the rates, not added to the parts, their
+     bound-bound profile's voigt_rows wrapper);
   2. plain: the iteration's wall seconds, as run() times it;
   3. profiled under torch.profiler: the kernels' summed device time
      against the plain iteration's wall gives the device's busy share;
-     the kernels are listed by device time.
+     the kernels are listed by device time, and the extinction's kernels
+     and the stack copies (torch.cat) are summed apart.
 
 Then K1 both ways at the production shape in the iteration's dtype: a
 214-plane xy segment (B = 52, 256x256) through xy_segment, in the
@@ -83,12 +85,19 @@ def parts_timed(eng, S, pops):
     """One iteration with every part behind synchronised host timers."""
     acc = defaultdict(float)
     patches = [
+        mock.patch.object(lambda_iter, "alpha_tot_group",
+                          _timed(lambda_iter.alpha_tot_group,
+                                 "extinction (alpha_tot_group)", acc)),
         mock.patch.object(lambda_iter, "alpha_tot",
-                          _timed(lambda_iter.alpha_tot, "extinction", acc)),
+                          _timed(lambda_iter.alpha_tot,
+                                 "extinction (alpha_tot)", acc)),
         mock.patch.object(rates, "voigt_rows",
                           _timed(rates.voigt_rows, NESTED, acc)),
         mock.patch.object(lambda_iter, "sweep_group_J",
                           _timed(lambda_iter.sweep_group_J, _case, acc)),
+        mock.patch.object(lambda_iter, "sweep_group_J_stack",
+                          _timed(lambda_iter.sweep_group_J_stack, _case,
+                                 acc)),
         mock.patch.object(lambda_iter, "sweep",
                           _timed(lambda_iter.sweep, "sweep single", acc)),
         mock.patch.object(lambda_iter, "_rates_accum",
@@ -142,6 +151,29 @@ def profiled(eng, S, pops):
         kernels.append((e.key, e.count, us * 1e-6))
     kernels.sort(key=lambda k: -k[2])
     return S, pops, kernels
+
+
+# the kernels summed apart, by a pattern of their name (mangled or
+# demangled): E1 (the alpha_tot_kernel instance for a group and the one
+# for a direction), E2, and PyTorch's cat, whose copies build the group
+# stacks
+NAMED = {"alpha_tot_group (E1, a group)":
+         r"alpha_tot_kernel(I.Lb1|<\w+, true>)",
+         "alpha_tot (E1, a direction)":
+         r"alpha_tot_kernel(I.Lb0|<\w+, false>)",
+         "voigt_rows (E2)": r"voigt_rows_kernel",
+         "cat (stack copies)": r"CatArrayBatchedCopy"}
+
+
+def named_kernels(kernels):
+    """{label: (launches, device seconds)} of NAMED's kernels in a
+    profiled iteration's list."""
+    import re
+    out = {}
+    for label, pat in NAMED.items():
+        hits = [(c, s) for name, c, s in kernels if re.search(pat, name)]
+        out[label] = (sum(c for c, _ in hits), sum(s for _, s in hits))
+    return out
 
 
 def _rand_planes(B, nx, ny, dtype, seed):
@@ -270,6 +302,10 @@ def main():
           flush=True)
     for name, count, s in kernels[:15]:
         print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
+    named = named_kernels(kernels)
+    for what, (count, s) in named.items():
+        print(f"  {what}: {count} launches, {s:.4f} s of device time",
+              flush=True)
     require_finite = bool(torch.isfinite(S).all()) and bool(
         torch.isfinite(pops).all())
     print(f"S, populations finite: {require_finite}", flush=True)
@@ -292,7 +328,9 @@ def main():
                "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
                "iteration_parts_timed_s": wall1, "parts_s": parts,
                "iteration_plain_s": wall2, "kernels_device_s": busy,
-               "kernels": kernels[:40], "finite": require_finite,
+               "kernels": kernels[:40],
+               "named_kernels": named_kernels(kernels),
+               "finite": require_finite,
                "k1_segment_vs_plane": k1, "fmad_variants": variants}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

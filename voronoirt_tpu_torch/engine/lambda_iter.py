@@ -55,7 +55,7 @@ from ..parallel import lam as _lam
 from ..parallel.mesh import gather_space
 from ..physics.atom import destruction, line_of_sight_velocity
 from ..physics.broadening import damping, gamma_constant
-from ..physics.extinction import alpha_tot
+from ..physics.extinction import alpha_tot, alpha_tot_group
 from ..physics.lte import lte_populations
 from ..physics.opacity import (alpha_absorption, alpha_scattering,
                                warn_charge_inconsistency)
@@ -64,7 +64,7 @@ from ..physics.rates import calculate_C, calculate_R, calculate_R_chunk
 from ..physics.stateq import get_revised_populations
 from ..quadrature import get_quadrature
 from ..solvers.sweep_regular import (build_plan, group_plans, sweep,
-                                     sweep_group_J)
+                                     sweep_group_J, sweep_group_J_stack)
 from ..solvers.sweep_voronoi import device_plan, sweep_voronoi_t
 
 _C_KEYS = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
@@ -430,6 +430,20 @@ class _Engine:
                          a_cont, g_cell=g_cell if damp_c is None else None,
                          damp=damp_c)
 
+    def _alpha_tot_group(self, group, lam_c, populations, damp_c=None,
+                         g_cell=None):
+        """A mirror group's (group_plans) extinction stack for wavelengths
+        lam_c, (nz, P*nlam, nx, ny), each angle's block flipped into the
+        group's canonical quadrant: one alpha_tot_group call, the
+        counterpart of the JAX package's per-angle _alpha_tot_g_t and the
+        flipped concatenation in its sweep_group_J."""
+        return alpha_tot_group(
+            self.line, lam_c, self.v.contiguous(),
+            [self.quad.k[i] for (i, _, _) in group],
+            [f for (_, _, f) in group], populations.contiguous(),
+            self.a_cont, g_cell=g_cell if damp_c is None else None,
+            damp=damp_c)
+
     def damping_lam(self, populations):
         """The (nlam, ...) damping cube of the lambda block."""
         lam = self.block_lam().reshape((-1,) + (1,) * self.T.dim())
@@ -591,19 +605,29 @@ class RegularEngine(_Engine):
                 Jc.add_(float(quad.weights[i])
                         * self._strip(I).transpose(0, 1))
                 continue
-            a_list = [pad(self._alpha_tot(quad.k[i], lam_c, populations,
-                                          damp_c, g_cell))
-                      for (i, _, _) in group]
             # the boundary follows the ORIGINAL direction (fz = originally
             # down, z-flip-canonicalized)
             I0_list = [pad(self._I0(lam_c, not fz))
                        for (_, _, (_, _, fz)) in group]
-            I_g = sweep_group_J(
-                tuple(p for (_, p, _) in group), S_t, a_list, I0_list,
-                [float(quad.weights[i]) for (i, _, _) in group],
-                n_sweeps=self.cfg.n_sweeps,
-                flips=tuple(f for (_, _, f) in group), halo=self.halo)
-            del a_list      # free before the next group's extinction
+            args = (tuple(p for (_, p, _) in group), S_t)
+            kw = dict(I0_list=I0_list,
+                      w=[float(quad.weights[i]) for (i, _, _) in group],
+                      n_sweeps=self.cfg.n_sweeps,
+                      flips=tuple(f for (_, _, f) in group), halo=self.halo)
+            if self.halo is None:
+                # one launch writes every angle's extinction into its
+                # flipped block of the group's stack, which the sweep
+                # frees (passed as an argument only)
+                I_g = sweep_group_J_stack(*args, self._alpha_tot_group(
+                    group, lam_c, populations, damp_c, g_cell), **kw)
+            else:
+                # a split grid: each angle's tile is padded with its halos
+                # and flipped locally (Halo.with_flips acts per tile), so
+                # the extinctions stay per angle, padded and stacked by
+                # sweep_group_J
+                I_g = sweep_group_J(*args, [pad(self._alpha_tot(
+                    quad.k[i], lam_c, populations, damp_c, g_cell))
+                    for (i, _, _) in group], **kw)
             # in-place J accumulation
             Jc.add_(self._strip(I_g).transpose(0, 1))
         return Jc

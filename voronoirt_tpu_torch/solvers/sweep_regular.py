@@ -460,8 +460,25 @@ def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None,
     orientation.  halo: on a split grid, the grid's parallel/mesh.Halo;
     S, the extinctions, I0 and J are then padded tiles (a padded tile
     flipped locally is the mirrored position's padded tile of the
-    flipped field, so the flips stay local).
+    flipped field, so the flips stay local).  The extinctions are
+    flipped and stacked here; sweep_group_J_stack takes the stack made
+    already (physics/extinction.py alpha_tot_group).
     """
+    if flips is None:
+        flips = tuple((False, False, False) for _ in plans)
+    # the stack passed as an argument only, so the callee frees it
+    return sweep_group_J_stack(
+        plans, S, torch.cat([flip_field(a, *f) for a, f in zip(a_list, flips)],
+                            dim=1), I0_list, w, n_sweeps, flips, halo)
+
+
+def sweep_group_J_stack(plans, S, a_b, I0_list, w, n_sweeps=3, flips=None,
+                        halo=None):
+    """sweep_group_J from the group's extinction stack a_b (nz, P*B, Nx,
+    Ny): angle e's extinction flipped by flips[e], in block [:, e*B:(e +
+    1)*B].  Its last reference is dropped before the J flip allocates,
+    so a caller that passes the stack as an argument expression frees
+    it there."""
     if flips is None:
         flips = tuple((False, False, False) for _ in plans)
     if halo is not None:
@@ -470,8 +487,6 @@ def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None,
                              device=S.device) for a in (0, 1)]
         halo = halo.with_flips(*mask)
     S_b = torch.cat([flip_field(S, *f) for f in flips], dim=1)
-    a_b = torch.cat([flip_field(a, *f) for a, f in zip(a_list, flips)],
-                    dim=1)
     I0_b = torch.cat([flip_field(i0, f[0], f[1])
                       for i0, f in zip(I0_list, flips)], dim=0)
     J_up, J_dn = sweep_batched_J(plans, S_b, a_b, I0_b, w,
