@@ -36,7 +36,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      beside four per-angle launches, with the share of warps whose
      points span two regions and, from tools/e1_sass.py, E1's
      instructions a point in each region and the time the SMs need to
-     issue its double-precision (float32: single) instructions;
+     issue its double-precision (float32: single) instructions; then
+     V1, the Voronoi level steps (solvers/voronoi_level.py): every
+     stage kind ('gs', 'layer' with three Jacobi passes, 'exact',
+     'relax' as a plain lap, a lap with its change, a hoisted lap with
+     and without) through the kernel and the plain level loop, bit for
+     bit, the folded change too, float64 and float32, at B = 91, 13
+     and 1 on V1_SMALL_SITES-site plans of two directions, and on
+     direction 8 of the production sites (VOR_SITES, built here for
+     phase 7 too) at B = 91 (the line's batch) and, on its gs stage,
+     B = 1 (the continuum's);
+     then a level step of that direction's gs stage timed beside its
+     bytes bound at B = 91 (both types) and B = 1;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
@@ -57,11 +68,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      vor_*: 500 sites, 'layer' order, 3 iterations) through
      VoronoiEngine.run() on the card, and wavefront sweeps of every
      ul7n12 direction with the adaptive relax exit, card against CPU;
+     both launch V1 and never the plain level loop on the card (as
+     every Voronoi path below: phases 7, 9, 10, 11, 13, 14, 15);
   7. two Voronoi Lambda iterations ('layer' order) at the reference's
      quarter-resolution production count, 442,368 sites sampled from the
      phase-5 atmosphere, 91 wavelengths, ul7n12, float64; set-up and
      iteration seconds, per-direction seconds, level steps, peak memory
-     and launch counts (the 'wavefront' order runs in phase 6 only);
+     and launch counts, V1's equal to the level steps (the 'wavefront'
+     order runs in phase 6 only); the first J pass's direction 8 sweep
+     run again through V1 and through the plain level loop, timed, both
+     bit-equal to the iteration's own output;
   8. the Bezier formal solution: Bezier (and linear) sweeps of every
      ul7n12 direction at a small size, card against CPU; then one full
      Lambda iteration at the phase-5 grid through RegularEngine.run()
@@ -73,19 +89,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      time beside K1's, K1 held against its plain version there too;
   9. angle distribution: compute_J serial against
      distribute_angles(engine, [cuda:0, cuda:0]), regular (linear and
-     Bezier) and Voronoi, at a small size;
+     Bezier) and Voronoi (its launches), at a small size;
  10. the continuum scattering iteration (a batch of ONE wavelength
      through every sweep): card against CPU at a small size, then
      lambda_continuum_regular at the phase-5 grid, 3 iterations, with
      the kernels' launch counts, and lambda_continuum_voronoi on phase
-     7's sites, 2 iterations;
+     7's sites, 2 iterations, a V1 launch a level step;
  11. checkpoint and resume on the card: a small run killed after its
      second write_state and resumed equals the uninterrupted run,
      through a store that keeps the arrays in memory and, where h5py
      imports, through the HDF5 file; one small J pass under
      observability.device_trace; then the searchlight driver (flux kept
-     for all 12 directions) and the line_nlte driver with
-     --interpolation bezier, as a user calls them;
+     for all 12 directions; then --irregular --n 21, through V1) and
+     the line_nlte driver with --interpolation bezier, as a user calls
+     them;
  12. the last two drivers at full width: synthesize() on phase 5's
      populations through the synthesize driver's _load_regular
      (215x256x256, 91 wavelengths, float64), disk centre (theta 180)
@@ -107,7 +124,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      at the block edges and the populations against phase 5's, with
      the cell and level of the largest populations difference; then
      dryrun_multichip(2) on the card, and
-     with one card also dryrun_multichip(1) over NCCL;
+     with one card also dryrun_multichip(1) over NCCL (each reports its
+     split Voronoi iteration's V1 launches on rank 0, required);
  14. the regular iteration split over the y axis of a mesh
      (parallel/mesh.py): two spawned ranks (NCCL on two cards where two
      are visible, else gloo, both on cuda:0) each run one streamed
@@ -119,7 +137,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      one march_plane call on a gathered plane of a rank held against
      the plain versions; S at phase 13's rows and the populations
      against phase 5's at phase 13's bars; then dryrun_multichip(4)
-     (lam 2 x y 2) over gloo on the card;
+     (lam 2 x y 2, and lam 2 x site 2 for the Voronoi engine, whose V1
+     launches on rank 0 are required) over gloo on the card;
  15. float32 production (Config(dtype="float32"), the JAX package's
      production mode): one streamed iteration of phase 5's
      configuration in float32, with seconds, the J-pass share, peak
@@ -131,8 +150,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      tests/test_f32_physics.py::test_nlte_iteration_f32_vs_f64 (rtol
      5e-3 plus 5e-3 of the float64 array's largest magnitude), with the
      worst entry; then two 'layer' iterations in float32 on phase 7's
-     sites with phase 7's plans, seconds and peak, held against phase
-     7's float64 result at the same bar;
+     sites with phase 7's plans, seconds, peak and launches (V1's equal
+     to phase 7's), held against phase 7's float64 result at the same
+     bar;
  16. the paper's regular-vs-Voronoi line figures at full width
      (voronoirt_tpu_torch.analysis.line_figures.figures, no drawing):
      phase 5's run and phase 7's 442,368 sites, as in-memory mappings
@@ -215,6 +235,30 @@ GROUPED_EXT = ("alpha_tot_group", "voigt_rows")
 PER_ANGLE_EXT = ("alpha_tot", "voigt_rows")
 # the kernels that take one plane a launch
 PLANE_KERNELS = SWEEP_KERNELS[1:]
+# V1, the Voronoi level steps (solvers/voronoi_level.py,
+# csrc/voronoi_level.cu): one launch a level and pass; and the count of
+# its plain version's runs on the card, which no path makes
+V1 = "voronoi_stage"
+EAGER_LEVELS = "plain level loop on the card"
+# the kernels of the Voronoi NLTE iteration: a direction's extinction,
+# the rates' profile and the level steps
+VORONOI = PER_ANGLE_EXT + (V1,)
+# phase 2: V1's small plan (sites), its batches and the stage functions
+# a relax stage is held through (a plain lap, a lap with its change, the
+# hoisted lap without and with it); the directions of its holds: ul7n12
+# direction 2 is steep (|mu| 0.888), 8 grazing (0.205)
+V1_SMALL_SITES = 3000
+V1_BATCHES = (91, 13, 1)
+# the production direction's holds, (B, plan label ending): the line's
+# batch at every stage kind, the continuum's at the gs stage ('layer'
+# order's)
+V1_PRODUCTION_BATCHES = ((91, ""), (1, " gs"))
+V1_RELAX_FNS = ("stage", "lap", "hoisted", "hoisted_d")
+V1_DIRECTIONS = (2, 8)
+# phase 7: which sweep of the two iterations is held kernel against plain
+# loop: the 9th, the first J pass's direction 8 (grazing; the first
+# iteration, so the host copies stay out of the second, the one timed)
+V1_CALL = 9
 # phase 2's plane shapes (B, Nx, Ny): the production group plane (4
 # angles x lambda_chunk), a smaller full plane, a ragged one, the
 # per-angle plane of the Bezier iteration (lambda_chunk) and the
@@ -1236,6 +1280,215 @@ def _hold_recorded(atmos, seen, what, errs):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 2: V1
+
+# phase 2 builds the production sites (VOR_SITES) for its 442k-sized
+# direction; phase 7 takes them from here with the seconds they took
+_PRODUCTION_SITES = {}
+
+
+def _production_sites(atmos):
+    """(sites, {'sampling': s, 'tessellation': s}): VOR_SITES sites with
+    the production density, tessellated by the native library; built
+    once a run."""
+    from voronoirt_tpu_torch import grid
+    if not _PRODUCTION_SITES:
+        require(grid.build_native() is not None,
+                "native tessellation library not built")
+        setup = {}
+        t = time.perf_counter()
+        pos, bounds = _sample(atmos, VOR_SITES)
+        setup["sampling"] = time.perf_counter() - t
+        t = time.perf_counter()
+        sites = grid.build_sites(pos, bounds,
+                                 grid.initialise_sites(pos, atmos))
+        setup["tessellation"] = time.perf_counter() - t
+        _PRODUCTION_SITES.update(sites=sites, setup=setup)
+    return _PRODUCTION_SITES["sites"], dict(_PRODUCTION_SITES["setup"])
+
+
+def _v1_plans(sites, directions):
+    """[(label, plan)]: each direction's 'layer' plan (one gs stage), the
+    same plan without its gs schedule (a 'layer' stage, three Jacobi
+    passes a level) and its 'wavefront' plan (exact and relax stages)."""
+    from voronoirt_tpu_torch import get_quadrature, grid
+    quad = get_quadrature("ul7n12")
+    out = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # 'layer' at grazing angles
+        for i in directions:
+            k, up = quad.k[i], bool(quad.is_up[i])
+            gs = grid.build_voronoi_plan(sites, k, up)
+            out += [(f"direction {i} gs", gs),
+                    (f"direction {i} layer", dataclasses.replace(
+                        gs, gs_levels=None, gs_up_occ=None)),
+                    (f"direction {i} wavefront", grid.build_voronoi_plan(
+                        sites, k, up, order="wavefront"))]
+    return out
+
+
+def _v1_inputs(plan, n_rows, B, dtype, seed):
+    """Random I (its dummy row 0), S and an extinction whose dtau = r a
+    spans 1e-4 to 1e2 at the plan's median path length (every branch of
+    the linear weights), on the card."""
+    import numpy as np
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    r = np.asarray(plan.r)
+    scale = float(np.median(r[r > 0]))
+    S = _rand(gen, (plan.n, B), 0.1, 1.0, dtype)
+    a = _rand(gen, (plan.n, B), -4.0, 2.0, dtype, log=True) / scale
+    I = _rand(gen, (n_rows + 1, B), 0.0, 1.0, dtype)
+    I[-1] = 0.0
+    return I, S, a
+
+
+def _v1_hold(plan, B, dtype, seed):
+    """Every stage of `plan` through V1 and through its plain version on
+    the card, from the same inputs; a relax stage through each of
+    V1_RELAX_FNS.  Raises unless the intensities (and the folded change)
+    are bit-equal.  Returns (stage kinds, holds, max abs err)."""
+    import torch
+    from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
+    from voronoirt_tpu_torch.solvers import voronoi_level as vl
+    stages, _, n_rows = sv.device_plan(plan, 3, "cuda", dtype)
+    I, S, a = _v1_inputs(plan, n_rows, B, dtype, seed)
+    kinds, holds, worst = set(), 0, 0.0
+    for sd in stages:
+        kinds.add(sd.kind)
+        for fn in (V1_RELAX_FNS if sd.kind == "relax" else ("stage",)):
+            lean = (sv._precompute_lean(sd, S, a) if fn.startswith("hoisted")
+                    else None)
+            kw = dict(S_T=S, a_T=a) if lean is None else dict(lean=lean)
+            fold = fn in ("lap", "hoisted_d")
+            out = []
+            for run in (vl.voronoi_stage, vl.voronoi_stage_plain):
+                Ic = I.clone()
+                change = (torch.zeros(2, dtype=dtype, device="cuda") if fold
+                          else None)
+                run(Ic, sd, **kw, change=change)
+                out.append((Ic, change))
+            torch.cuda.synchronize()
+            (Ik, ck), (Ip, cp) = out
+            err = float((Ik - Ip).abs().max())
+            worst = max(worst, err)
+            require(bool(torch.isfinite(Ik).all()),
+                    f"V1 {sd.kind} {fn}: output not finite")
+            require(torch.equal(Ik, Ip) and (not fold or torch.equal(ck, cp)),
+                    f"V1 {sd.kind} {fn} at B = {B}, {dtype}: differs from "
+                    f"the plain version (max abs err {err:.3e}"
+                    + (f"; change {ck.tolist()} against {cp.tolist()}"
+                       if fold else "") + ")")
+            holds += 1
+            del out, lean
+    return kinds, holds, worst
+
+
+def _v1_stage_work(sd, B, esize):
+    """(bytes, operations) that a pass over stage sd's levels in the
+    formal form must move and do: per level, each distinct upwind I row
+    and each distinct site's S and extinction read once, the rows' ids
+    (int64) and geometry read once, the new rows written once, the I
+    rows read and written again on each further pass; 32 operations a
+    row and wavelength (an exp counted as one)."""
+    import numpy as np
+    off = sd.off
+    level = np.repeat(np.arange(len(off) - 1), np.diff(off))
+
+    def distinct(ids):
+        return len(np.unique(level[:, None] * (int(ids.max()) + 1) + ids))
+
+    R = int(off[-1])
+    up_slot = sd.up_slot.cpu().numpy()
+    sites = np.concatenate([sd.up_site.cpu().numpy(),
+                            sd.row_site.cpu().numpy()[:, None]], 1)
+    n_I, n_site = distinct(up_slot), distinct(sites)
+    fields = (2 * n_site * B) * esize + R * (5 * 8 + 4 * esize)
+    rows = (n_I + R) * B * esize
+    return fields + sd.passes * rows, sd.passes * 32 * R * B
+
+
+def _v1_time(plan, B, dtype_name, reps=5):
+    """V1 at plan's one stage (a gs stage: one launch a level): ms a
+    level step, the plain version's ms a step, the bound a step and
+    what sets it, and the stage's level steps."""
+    import torch
+    from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
+    from voronoirt_tpu_torch.solvers import voronoi_level as vl
+    dtype = getattr(torch, dtype_name)
+    stages, _, n_rows = sv.device_plan(plan, 3, "cuda", dtype)
+    (sd,) = stages
+    I, S, a = _v1_inputs(plan, n_rows, B, dtype, 7)
+    steps = (len(sd.off) - 1) * sd.passes
+    ms = _time_ms(lambda: vl.voronoi_stage(I, sd, S, a), reps) / steps
+    plain = _time_ms(lambda: vl.voronoi_stage_plain(I, sd, S, a), 1) / steps
+    nbytes, ops = _v1_stage_work(sd, B, ELEMENT_BYTES[dtype_name])
+    bound, by = _bound_ms(nbytes / steps, ops / steps, dtype_name)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "steps": steps, "rows": int(sd.off[-1]),
+            "bytes_a_step": nbytes / steps}
+
+
+def check_voronoi_level(atmos):
+    """Phase 2, V1: every stage kind through the kernel and its plain
+    version, bit for bit, f64 and f32: at B in V1_BATCHES on the small
+    plans of V1_DIRECTIONS, and on the production sites' direction 8 at
+    the batches the Voronoi paths give it (V1_PRODUCTION_BATCHES: the
+    line's 91 wavelengths at every stage kind, the continuum's one on
+    the gs stage); then a level step of that direction's gs stage timed
+    beside its bound at B = 91 (f64, f32) and B = 1 (f64).  Returns
+    {'errs': {dtype name: max abs err}, 'times': {(dtype name, B):
+    ...}}."""
+    import torch
+    from voronoirt_tpu_torch import grid
+    pos, bounds = _sample(atmos, V1_SMALL_SITES)
+    small = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
+    big, _ = _production_sites(atmos)
+    t = time.perf_counter()
+    cases = ([("small", c) for c in _v1_plans(small, V1_DIRECTIONS)]
+             + [("production", c) for c in _v1_plans(big, V1_DIRECTIONS[1:])])
+    print(f"  V1: {small.n} and {big.n} sites, {len(cases)} plans built in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    out = {"errs": {}, "times": {}}
+    for dtype_name in ("float64", "float32"):
+        worst, holds, kinds = 0.0, 0, set()
+        for B in V1_BATCHES:
+            for j, (size, (label, plan)) in enumerate(cases):
+                if size == "production" and not any(
+                        B == b and label.endswith(end)
+                        for b, end in V1_PRODUCTION_BATCHES):
+                    continue
+                k, h, e = _v1_hold(plan, B, getattr(torch, dtype_name), j)
+                kinds |= k
+                holds += h
+                worst = max(worst, e)
+            gc.collect()
+        out["errs"][dtype_name] = worst
+        print(f"  V1 {dtype_name}: {holds} stage runs (stage kinds "
+              f"{sorted(kinds)}, B {V1_BATCHES} on the small plans, "
+              f"{V1_PRODUCTION_BATCHES} on the production direction) "
+              f"bit-equal to the plain version, the folded change too",
+              flush=True)
+        require(kinds == {"gs", "layer", "exact", "relax"},
+                f"V1 stage kinds held: {kinds}")
+    gs = next(p for size, (label, p) in cases
+              if size == "production" and label.endswith(" gs"))
+    for dtype_name, B in (("float64", 91), ("float32", 91), ("float64", 1)):
+        r = _v1_time(gs, B, dtype_name)
+        out["times"][dtype_name, B] = r
+        print(f"  V1 {dtype_name}, B = {B}, production direction 8 gs stage "
+              f"({r['steps']} level steps, {r['rows']} rows): "
+              f"{1e3 * r['ms']:.3f} us a level step (plain "
+              f"{1e3 * r['plain_ms']:.1f} us); bound {1e3 * r['bound_ms']:.3f}"
+              f" us ({r['bound_by']}: {r['bytes_a_step'] / 1e6:.3f} MB a "
+              f"step), {100 * r['bound_ms'] / r['ms']:.1f} % of it",
+              flush=True)
+    del cases, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ phase 3-4
 
 def check_goldens():
@@ -1309,6 +1562,7 @@ def _launch_counts(reset=False):
     on the card; reset=True sets them to 0."""
     from voronoirt_tpu_torch.physics import extinction as ex
     from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import voronoi_level as vl
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     from voronoirt_tpu_torch.solvers import xy_segment as xs
     _count_eager_voigt()
@@ -1316,17 +1570,19 @@ def _launch_counts(reset=False):
         xp.LAUNCHES = xs.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
         ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
+        vl.LAUNCHES = vl.PLAIN_ON_CARD = 0
         _eager_voigt[0] = 0
     return {"xy_segment": xs.LAUNCHES, "xy_plane": xp.LAUNCHES,
             "march_plane": mp.LAUNCHES, "march_coeffs": mp.COEFFS_LAUNCHES,
             "march_chain": mp.CHAIN_LAUNCHES,
             "alpha_tot_group": ex.GROUP_LAUNCHES, "alpha_tot": ex.LAUNCHES,
-            "voigt_rows": ex.VOIGT_LAUNCHES, EAGER_VOIGT: _eager_voigt[0]}
+            "voigt_rows": ex.VOIGT_LAUNCHES, V1: vl.LAUNCHES,
+            EAGER_VOIGT: _eager_voigt[0], EAGER_LEVELS: vl.PLAIN_ON_CARD}
 
 
 def _require_path(launches, used, what):
     """Every kernel in `used` launched on the path, and no other (nor
-    the eager Voigt on the card)."""
+    the eager Voigt or the plain level loop on the card)."""
     for name, n in launches.items():
         if name in used:
             require(n > 0, f"{name}: no launch in {what}")
@@ -1533,7 +1789,11 @@ def check_voronoi_goldens():
     eng.load_state({"a_cont": fx["vor_alpha_cont"], "eps": fx["vor_eps"],
                     **{f"C_{k}": fx[f"vor_C_{k}"]
                        for k in ("01", "10", "02", "20", "12", "21")}})
+    _launch_counts(reset=True)
     res = eng.run()
+    launches = _launch_counts()
+    print(f"  vor_* chain launches: {launches}", flush=True)
+    _require_path(launches, VORONOI, "the vor_* chain")
     require(res.iterations == 3, f"vor chain ran {res.iterations} iterations")
     for what, got, key, tol in (("J", res.J, "vor_J_2", 1e-8),
                                 ("S", res.S, "vor_S_2", 1e-8),
@@ -1556,6 +1816,7 @@ def check_voronoi_goldens():
     quad = get_quadrature("ul7n12")
     gen = np.random.default_rng(6)
     B, worst, kinds = 8, 0.0, set()
+    _launch_counts(reset=True)
     for i in range(quad.n_angles):
         plan = grid.build_voronoi_plan(wsites, quad.k[i],
                                        bool(quad.is_up[i]),
@@ -1577,9 +1838,12 @@ def check_voronoi_goldens():
                 f"{steps['cpu']} on the CPU")
         worst = max(worst, _rel_err(out["cuda"].cpu(), out["cpu"]))
         kinds |= {st.kind for st in sv.build_slot_plan(plan).stages}
+    launches = _launch_counts()
     print(f"  wavefront sweeps ({wsites.n} sites, B={B}, 12 directions, "
           f"stages {sorted(kinds)}, relax_tol 1e-7): card vs CPU max rel "
-          f"diff {worst:.3e} (<= 1e-10), equal level steps", flush=True)
+          f"diff {worst:.3e} (<= 1e-10), equal level steps; {V1} launches "
+          f"on the card {launches[V1]}", flush=True)
+    _require_path(launches, (V1,), "the wavefront sweeps")
     require(kinds == {"exact", "relax"}, f"stage kinds {kinds}")
     require(worst <= 1e-10, f"wavefront sweep card vs CPU: {worst:.3e}")
 
@@ -1627,27 +1891,77 @@ def _timed_J(eng, lambda_iter, sv):
         lambda_iter.sweep_voronoi_t = sweep_t
 
 
+@contextmanager
+def _keep_sweep(lambda_iter, n):
+    """The n-th sweep_voronoi_t call's plan and keywords, and its inputs
+    and output copied to the host as it returns (before compute_J
+    weights the output in place)."""
+    kept = {}
+    sweep = lambda_iter.sweep_voronoi_t
+    calls = [0]
+
+    def keeping(plan, S_T, a_T, I0, **kwargs):
+        out = sweep(plan, S_T, a_T, I0, **kwargs)
+        calls[0] += 1
+        if calls[0] == n:
+            kept.update(plan=plan, kwargs=kwargs, S_T=S_T.cpu(),
+                        a_T=a_T.cpu(), I0=I0.cpu(), out=out.cpu())
+        return out
+
+    lambda_iter.sweep_voronoi_t = keeping
+    try:
+        yield kept
+    finally:
+        lambda_iter.sweep_voronoi_t = sweep
+
+
+def _hold_production_sweep(kept, sv):
+    """Phase 7: the kept production sweep again on the card through V1
+    and through the plain level loop, timed; both bit-equal to the
+    iteration's own output."""
+    import torch
+    from voronoirt_tpu_torch.solvers import voronoi_level as vl
+    require(bool(kept), f"sweep {V1_CALL} of the iterations not kept")
+    args = (kept["plan"],) + tuple(kept[k].to("cuda")
+                                   for k in ("S_T", "a_T", "I0"))
+    out, secs, steps = {}, {}, {}
+    for name, stage in ((V1, sv.voronoi_stage),
+                        ("plain", vl.voronoi_stage_plain)):
+        real = sv.voronoi_stage
+        sv.voronoi_stage = stage
+        try:
+            s0 = sv.LEVEL_STEPS
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[name] = sv.sweep_voronoi_t(*args, **kept["kwargs"])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            steps[name] = sv.LEVEL_STEPS - s0
+        finally:
+            sv.voronoi_stage = real
+    same = (torch.equal(out[V1], out["plain"])
+            and torch.equal(out[V1].cpu(), kept["out"]))
+    print(f"  sweep {V1_CALL} of the iterations (direction "
+          f"{(V1_CALL - 1) % 12}, (n, B) = {tuple(out[V1].shape)}, "
+          f"{steps[V1]} level steps) again: {V1} {secs[V1]:.4f} s, the plain "
+          f"level loop {secs['plain']:.4f} s; both bit-equal to the "
+          f"iteration's output: {same}", flush=True)
+    require(same, f"sweep {V1_CALL}: {V1} and the plain loop differ")
+
+
 def run_voronoi_production(atmos):
     """Phase 7: two 'layer' iterations at VOR_SITES sites, 91
     wavelengths, ul7n12, float64.  Returns the sites and, for phase 15,
     the plans and the result's S and populations on the host (the
     populations, convergence history and seconds for phase 16 too)."""
     import torch
-    from voronoirt_tpu_torch import Config, get_quadrature, grid
+    from voronoirt_tpu_torch import Config, get_quadrature
     from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
 
     p = PROD
-    setup = {}
-    t = time.perf_counter()
-    pos, bounds = _sample(atmos, VOR_SITES)
-    setup["sampling"] = time.perf_counter() - t
-    require(grid.build_native() is not None,
-            "native tessellation library not built")
-    t = time.perf_counter()
-    sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
-    setup["tessellation"] = time.perf_counter() - t
+    sites, setup = _production_sites(atmos)
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
                  quadrature=p["quadrature"], voronoi_order="layer",
                  maxiter=2, eps=0.0)
@@ -1672,18 +1986,24 @@ def run_voronoi_production(atmos):
           f"{ {k: round(v, 4) for k, v in setup.items()} }", flush=True)
 
     _launch_counts(reset=True)
-    with _timed_J(eng, lambda_iter, sv) as rec:
+    with _timed_J(eng, lambda_iter, sv) as rec, \
+            _keep_sweep(lambda_iter, V1_CALL) as kept:
         res = eng.run()
     launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     require(res.iterations == 2 and len(res.timings) == 2,
             f"expected 2 iterations, ran {res.iterations}")
     n_ext = 2 * quad.n_angles * len(lambda_iter._lambda_chunks(
         line.n_lambda, cfg.lambda_chunk))
     print(f"  launches during the two iterations: {launches} (alpha_tot: "
-          f"one a direction and lambda chunk, {n_ext} expected)", flush=True)
-    _require_path(launches, PER_ANGLE_EXT, "the Voronoi iterations")
+          f"one a direction and lambda chunk, {n_ext} expected; "
+          f"{V1}: one a level and pass, {sum(rec['steps'])} level steps)",
+          flush=True)
+    _require_path(launches, VORONOI, "the Voronoi iterations")
     require(launches["alpha_tot"] == n_ext,
             f"alpha_tot: {launches['alpha_tot']} launches, not {n_ext}")
+    require(launches[V1] == sum(rec["steps"]),
+            f"{V1}: {launches[V1]} launches, {sum(rec['steps'])} level steps")
     n, nlam = sites.n, line.n_lambda
     require(tuple(res.S.shape) == (nlam, n) and res.S.is_cuda,
             f"S shape {tuple(res.S.shape)} on {res.S.device}")
@@ -1710,8 +2030,9 @@ def run_voronoi_production(atmos):
           flush=True)
     print(f"  criterion {res.convergence}; sum(populations)/n_H - 1 max "
           f"{mass:.3e}", flush=True)
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+    print(f"  peak device memory {peak / 2**30:.3f}"
           f" GiB (max_memory_allocated, phase 7)", flush=True)
+    _hold_production_sweep(kept, sv)
     # host copies of the plans for phase 15: the float64 device arrays
     # the engine cached on the originals would stay on the card through
     # phases 8-14, whose spawned ranks need the room
@@ -2036,10 +2357,14 @@ def check_angle_distribution():
     eng = distribute_angles(
         VoronoiEngine(sites, line, cfg, plans=serial.plans, device="cuda"),
         two)
+    _launch_counts(reset=True)
     J1 = eng.compute_J(eng.B0, eng.lte)
+    launches = _launch_counts()
     err = _rel_err(J1, J0)
     print(f"  Voronoi ({sites.n} sites): distributed vs serial J max rel "
-          f"diff {err:.3e} (<= 1e-12)", flush=True)
+          f"diff {err:.3e} (<= 1e-12); the distributed J pass's launches "
+          f"{launches}", flush=True)
+    _require_path(launches, ("alpha_tot", V1), "the distributed J pass")
     require(J1.is_cuda and err <= 1e-12, f"Voronoi distributed J: {err:.3e}")
 
 
@@ -2103,10 +2428,15 @@ def run_continuum(atmos, sites):
     line_v = line_for(sites.temperature, "cuda")
     cfg_v = Config(quadrature=p["quadrature"], maxiter=2, eps=0.0)
     sv.LEVEL_STEPS = 0
+    _launch_counts(reset=True)
     with warnings.catch_warnings(), timer.phase("voronoi"):
         warnings.simplefilter("ignore")     # 'layer' at grazing angles
         S, J, hist = lambda_continuum_voronoi(sites, line_v, cfg_v)
     wall = timer.totals["voronoi"]
+    launches_v = _launch_counts()
+    _require_path(launches_v, (V1,), "the Voronoi continuum iteration")
+    require(launches_v[V1] == sv.LEVEL_STEPS,
+            f"{V1}: {launches_v[V1]} launches, {sv.LEVEL_STEPS} level steps")
     require(S.is_cuda and tuple(S.shape) == (sites.n,),
             f"continuum Voronoi S {tuple(S.shape)} on {S.device}")
     nan_guard("continuum Voronoi S, J", S, J)
@@ -2114,10 +2444,10 @@ def run_continuum(atmos, sites):
             f"continuum Voronoi S not positive, or {len(hist)} iterations")
     print(f"  lambda_continuum_voronoi at {sites.n} sites, 'layer' plans "
           f"built inside, B=1: {wall:.4f} s for the 12 plans, their slot "
-          f"plans and 2 iterations; {sv.LEVEL_STEPS} level steps; history "
-          f"{hist}",
+          f"plans and 2 iterations; {sv.LEVEL_STEPS} level steps, "
+          f"{launches_v[V1]} {V1} launches; history {hist}",
           flush=True)
-    return launches
+    return dict(launches, **{V1: launches_v[V1]})
 
 
 def _memory_store():
@@ -2246,6 +2576,16 @@ def run_drivers():
     print(f"  searchlight --n 51: {len(res)} directions, flux out / flux in "
           f"- 1 max {worst:.3e} (<= 1e-4)", flush=True)
     require(len(res) == 12 and worst <= 1e-4, "searchlight: flux not kept")
+    _launch_counts(reset=True)
+    res = searchlight.main(["--irregular", "--n", "21"])
+    launches = _launch_counts()
+    print(f"  searchlight --irregular --n 21: {len(res)} directions, mean I "
+          f"out {[round(r['mean_out'], 4) for r in res]}; launches "
+          f"{launches}", flush=True)
+    require(len(res) == 12 and all(math.isfinite(r["mean_out"])
+                                   for r in res),
+            "searchlight --irregular: not 12 finite directions")
+    _require_path(launches, (V1,), "searchlight --irregular")
     summary = line_nlte.main(["--interpolation", "bezier", "--maxiter", "3"])
     print(f"  line_nlte --interpolation bezier --maxiter 3: {summary}",
           flush=True)
@@ -2423,6 +2763,17 @@ def _rel_np(got, want):
     return float(np.max(np.abs(got / want - 1.0)))
 
 
+def _dryrun_v1(lines):
+    """The V1 launches that a dry run's Voronoi line reports for rank 0's
+    share of the split iteration; requires some."""
+    (line,) = [x for x in lines
+               if x.startswith("dryrun_multichip voronoi OK")]
+    n = int(line.split(" level-kernel launches")[0].rsplit(" ", 1)[1])
+    require(n > 0, f"no {V1} launch in the dry run's split Voronoi "
+                   f"iteration: {line}")
+    return n
+
+
 def run_lam_production(ref, n_ranks=LAM_RANKS):
     """Phase 13: the lambda-split streamed iteration at the production
     width on n_ranks spawned ranks, held against phase 5's (whose S
@@ -2492,16 +2843,18 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']}", flush=True)
     t = time.perf_counter()
-    dryrun_multichip(n_ranks, backend=backend)
+    v1 = _dryrun_v1(dryrun_multichip(n_ranks, backend=backend))
     print(f"  dryrun_multichip({n_ranks}, backend={backend!r}) on the "
-          f"card: {time.perf_counter() - t:.2f} s", flush=True)
+          f"card: {time.perf_counter() - t:.2f} s; {V1} launches on rank 0 "
+          f"{v1}", flush=True)
     if backend == "gloo":
         # one card: NCCL, the default on cards, still joins and runs its
         # collectives with a single rank
         t = time.perf_counter()
-        dryrun_multichip(1, backend="nccl")
+        v1 = _dryrun_v1(dryrun_multichip(1, backend="nccl"))
         print(f"  dryrun_multichip(1, backend='nccl') on the card: "
-              f"{time.perf_counter() - t:.2f} s", flush=True)
+              f"{time.perf_counter() - t:.2f} s; {V1} launches {v1}",
+              flush=True)
     return [{k: v for k, v in o.items()
              if k not in ("S_edges", "populations")} for o in outs]
 
@@ -2623,9 +2976,10 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
           f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
           f"iteration)", flush=True)
     t = time.perf_counter()
-    dryrun_multichip(4, backend="gloo")
+    v1 = _dryrun_v1(dryrun_multichip(4, backend="gloo"))
     print(f"  dryrun_multichip(4, backend='gloo') on the card: "
-          f"{time.perf_counter() - t:.2f} s", flush=True)
+          f"{time.perf_counter() - t:.2f} s; {V1} launches on rank 0 of the "
+          f"site split {v1}", flush=True)
     return [{k: v for k, v in o.items()
              if k not in ("S_rows", "populations")} for o in outs]
 
@@ -2732,21 +3086,28 @@ def run_f32_voronoi(sites, vor_ref):
                         device="cuda")
     torch.cuda.synchronize()
     setup = time.perf_counter() - t
+    _launch_counts(reset=True)
     res = eng.run()
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    _require_path(launches, VORONOI, "the float32 Voronoi iterations")
+    require(launches[V1] == vor_ref["launches"][V1],
+            f"{V1}: {launches[V1]} launches in float32, "
+            f"{vor_ref['launches'][V1]} in float64 (phase 7)")
     require(res.iterations == 2, f"ran {res.iterations} iterations")
     require(res.S.dtype == res.populations.dtype == torch.float32,
             f"S {res.S.dtype}, populations {res.populations.dtype}")
     print(f"  float32, {sites.n} sites: engine set-up {setup:.2f} s "
           f"(phase 7's plans), iteration seconds "
           f"{[round(x, 4) for x in res.timings]}, peak device memory "
-          f"{peak / 2**30:.3f} GiB; criterion {res.convergence}",
-          flush=True)
+          f"{peak / 2**30:.3f} GiB; criterion {res.convergence}; launches "
+          f"{launches}", flush=True)
     P64 = vor_ref["populations"]
     _against_gate("Voronoi S", res.S, vor_ref["S"],
                   float(abs(vor_ref["S"]).max()), ("lambda", "site"))
     _against_gate("Voronoi populations", res.populations, P64,
                   float(abs(P64).max()), ("site", "level"))
+    return launches
 
 
 # ------------------------------------------------------------ phase 16
@@ -2944,6 +3305,7 @@ def main(argv=None):
         with _record_ext() as seen:
             ext_errs, ext_times, ext_info = check_extinction(atmos)
         _EXT_HELD.update(seen)
+        v1_info = check_voronoi_level(atmos)
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
         check_goldens()
@@ -2998,7 +3360,8 @@ def main(argv=None):
               f"the Voronoi iterations at {VOR_SITES} sites")
         launches32, errs32 = held(
             lambda: run_f32_production(atmos, ref, launches), "phase 15")
-        held(lambda: run_f32_voronoi(sites, vor_ref), "phase 15 (Voronoi)")
+        launches32_vor = held(lambda: run_f32_voronoi(sites, vor_ref),
+                              "phase 15 (Voronoi)")
     if want(16):
         phase("phase 16: the paper's line figures at full width, regular "
               f"and {VOR_SITES} Voronoi sites, mu {FIGURE_MUS}")
@@ -3112,6 +3475,33 @@ def main(argv=None):
             "launches_f32_iteration": launches32[name],
             **({"f64": ext_info["float64"], "f32": ext_info["float32"]}
                if name == "alpha_tot_group" else {})})
+    # V1: what it replaces is the JAX package's compiled level scan, not
+    # a Pallas kernel; its times are a level step (one launch) of phase
+    # 2's production gs stage
+    t64, t32, t1 = (v1_info["times"][k] for k in (
+        ("float64", 91), ("float32", 91), ("float64", 1)))
+    kernels.append({
+        "name": V1, "route": "cuda",
+        "source": "voronoirt_tpu_torch/csrc/voronoi_level.cu",
+        "replaces": "voronoirt_tpu/solvers/sweep_voronoi.py:469",
+        "replaces_a_tpu_kernel": False,
+        "launches": vor_ref["launches"][V1],
+        "launches_path": "phase 7: the two Voronoi iterations",
+        "max_abs_err": v1_info["errs"]["float64"], "bit_equal": True,
+        "ms": t64["ms"], "plain_ms": t64["plain_ms"],
+        "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
+        "pct_of_bound": 100 * t64["bound_ms"] / t64["ms"],
+        "library_ms": None,
+        "ms_is": f"a level step of the production direction 8 gs stage "
+                 f"({t64['steps']} steps), B = 91",
+        "launches_continuum": launches_continuum[V1],
+        "launches_f32_voronoi_iterations": launches32_vor[V1],
+        "max_abs_err_f32": v1_info["errs"]["float32"],
+        "ms_f32": t32["ms"], "plain_ms_f32": t32["plain_ms"],
+        "bound_ms_f32": t32["bound_ms"], "bound_by_f32": t32["bound_by"],
+        "pct_of_bound_f32": 100 * t32["bound_ms"] / t32["ms"],
+        "ms_b1": t1["ms"], "plain_ms_b1": t1["plain_ms"],
+        "bound_ms_b1": t1["bound_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 51, proc.stdout
-    for name in ("analysis", "analysis.plots", "analysis.line_figures"):
+    assert n_modules >= 52, proc.stdout
+    for name in ("analysis", "analysis.plots", "analysis.line_figures",
+                 "solvers.voronoi_level"):
         assert f"voronoirt_tpu_torch.{name}" in proc.stdout.split(), name

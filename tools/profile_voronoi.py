@@ -25,10 +25,14 @@ chunking.
   4. under torch.profiler, for each order, the J work of a steep and a
      grazing direction (extinction + sweep): the kernels' summed device
      time against the same window's plain wall gives the device's busy
-     share; the kernels are listed by device time.
+     share; the kernels are listed by device time, and V1's (the level
+     steps, csrc/voronoi_level.cu) device time, launches and device us a
+     launch are summed apart.
 
-Level steps (sweep_voronoi.LEVEL_STEPS) are counted per J pass.  Prints
-a summary; --out also writes it as JSON.
+Level steps (sweep_voronoi.LEVEL_STEPS) and V1's launches
+(voronoi_level.LAUNCHES, one a level and pass) are counted per parts-
+timed iteration or J pass.  Prints a summary; --out also writes it as
+JSON.
 """
 
 import argparse
@@ -50,10 +54,13 @@ from voronoirt_tpu_torch import (Config, get_quadrature, grid,  # noqa: E402
 from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter  # noqa: E402
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
 from voronoirt_tpu_torch.solvers import sweep_voronoi as sv  # noqa: E402
+from voronoirt_tpu_torch.solvers import voronoi_level as vl  # noqa: E402
 
 # the profiled directions: ul7n12 direction 2 is steep (|mu| 0.888),
 # direction 8 grazing (|mu| 0.205)
 WINDOW = (2, 8)
+# V1's kernel, by the name the profiler gives its instances
+V1_KERNEL = "voronoi_level_kernel"
 
 
 def _timed(fn, acc, key):
@@ -96,13 +103,13 @@ def _synced(fn):
 
 def parts_timed(eng, fn):
     """fn() with every part behind synchronised timers.  Returns (wall
-    seconds, {part: [seconds per call]}, level steps)."""
+    seconds, {part: [seconds per call]}, level steps, V1 launches)."""
     acc = defaultdict(list)
     patches = _patches(eng, acc)
     for p in patches:
         p.start()
     try:
-        sv.LEVEL_STEPS = 0
+        sv.LEVEL_STEPS = vl.LAUNCHES = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -111,10 +118,10 @@ def parts_timed(eng, fn):
     finally:
         for p in patches:
             p.stop()
-    return wall, dict(acc), sv.LEVEL_STEPS
+    return wall, dict(acc), sv.LEVEL_STEPS, vl.LAUNCHES
 
 
-def summarise(wall, acc, steps, n_dir):
+def summarise(wall, acc, steps, launches, n_dir):
     """Per-direction and per-part seconds of one parts-timed J pass or
     iteration (the hoist is inside the sweep's time)."""
     ext, sweep = acc.get("extinction", []), acc.get("sweep", [])
@@ -127,6 +134,7 @@ def summarise(wall, acc, steps, n_dir):
             parts[k] = sum(acc[k])
     parts["other (unwrapped)"] = wall - sum(parts.values())
     return {"wall_s": wall, "parts_s": parts, "level_steps": steps,
+            "v1_launches": launches,
             "us_per_level_step": 1e6 * parts["level loop"] / max(steps, 1),
             "direction_s": [e + s for e, s in zip(ext, sweep)],
             "direction_extinction_s": ext, "direction_sweep_s": sweep}
@@ -167,8 +175,12 @@ def profiled_window(eng, S, pops):
         kernels.append((e.key, e.count, us * 1e-6))
     kernels.sort(key=lambda k: -k[2])
     busy = sum(k[2] for k in kernels)
+    v1 = [k for k in kernels if V1_KERNEL in k[0]]
+    v1_s, v1_n = sum(k[2] for k in v1), sum(k[1] for k in v1)
     return {"directions": list(WINDOW), "plain_wall_s": wall,
             "kernels_device_s": busy, "busy_share": busy / wall,
+            "v1_device_s": v1_s, "v1_launches": v1_n,
+            "v1_device_us_a_launch": 1e6 * v1_s / max(v1_n, 1),
             "kernels": kernels[:25]}
 
 
@@ -230,8 +242,8 @@ def main():
         nonlocal res
         res = eng.run()
 
-    wall, acc, steps = parts_timed(eng, iterate)
-    out["layer_iteration_parts_timed"] = summarise(wall, acc, steps, n_dir)
+    out["layer_iteration_parts_timed"] = summarise(
+        *parts_timed(eng, iterate), n_dir)
     res = eng.run()
     out["layer_iteration_plain_s"] = res.timings[0]
     S, pops = res.S, res.populations
@@ -246,9 +258,8 @@ def main():
     damp = eng_w.damping_lam(pops)
     out["wavefront_J_cold_s"] = _synced(
         lambda: eng_w.compute_J(S, pops, damp))
-    wall, acc, steps = parts_timed(
-        eng_w, lambda: eng_w.compute_J(S, pops, damp))
-    out["wavefront_J_parts_timed"] = summarise(wall, acc, steps, n_dir)
+    out["wavefront_J_parts_timed"] = summarise(
+        *parts_timed(eng_w, lambda: eng_w.compute_J(S, pops, damp)), n_dir)
     J = []
     out["wavefront_J_plain_s"] = _synced(
         lambda: J.append(eng_w.compute_J(S, pops, damp)))
@@ -262,8 +273,8 @@ def main():
     for key in ("layer_iteration_parts_timed", "wavefront_J_parts_timed"):
         r = out[key]
         print(f"{key}: {r['wall_s']:.4f} s, {r['level_steps']} level "
-              f"steps, {r['us_per_level_step']:.2f} us per level step",
-              flush=True)
+              f"steps, {r['v1_launches']} V1 launches, "
+              f"{r['us_per_level_step']:.2f} us per level step", flush=True)
         for k, v in sorted(r["parts_s"].items(), key=lambda kv: -kv[1]):
             print(f"  {k:32s} {v:9.4f} s  {100 * v / r['wall_s']:5.1f} %",
                   flush=True)
@@ -280,7 +291,9 @@ def main():
         print(f"{key} (directions {w['directions']}): plain "
               f"{w['plain_wall_s']:.4f} s, kernels' device time "
               f"{w['kernels_device_s']:.4f} s = {100 * w['busy_share']:.1f} %"
-              f" busy", flush=True)
+              f" busy; V1 {w['v1_device_s']:.4f} s of device time in "
+              f"{w['v1_launches']} launches, "
+              f"{w['v1_device_us_a_launch']:.2f} us a launch", flush=True)
         for name, count, s in w["kernels"][:10]:
             print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
     print(f"peak device memory {out['peak_GiB']:.3f} GiB", flush=True)

@@ -21,18 +21,23 @@ padded and unpadded sweeps as bitwise equal on every real site
 `VRT_STAGE_ROWS` stage segmentation (`_split_stage`), the donation
 switch and the hoist byte budget, which fit the sweep into a 16 GB TPU.
 
-Device half, torch on any device: each stage is a Python loop over its
-levels.  A level gathers its upwind and own-site S and extinction with
-index_select, forms the linear formal-solution weights, gathers the two
-upwind intensity rows and writes its rows into I with one contiguous
-slice copy.  'relax' stages (wavefront plans) repeat, with the exact
-per-lap sup-change and the two-lap adaptive exit; when a relax stage
-repeats, its weights are precomputed once (the "lean hoist") and each
-lap reads only them and I.  Unlike the JAX sweep, the device layout
-drops the slot plan's padding entries (`_device_arrays`): in 'layer'
-order the rows of a stage are padded to its widest row, several times
-the real slots at production site counts.  Real slots get the same
-values either way.
+Device half: each stage (or relax lap) is one call of
+`voronoi_level.voronoi_stage`.  On the card that is one call into the
+V1 kernel's C entry (csrc/voronoi_level.cu), which launches one fused
+kernel a level and pass on torch's current stream: it gathers the
+level's upwind and own-site S and extinction, forms the linear
+formal-solution weights, gathers the two upwind intensity rows and
+writes the level's rows.  On the CPU the same call runs the plain
+version, a Python loop over the levels of eager torch operations.
+'relax' stages (wavefront plans) repeat, with the exact per-lap
+sup-change (folded on the card, read back once a lap) and the two-lap
+adaptive exit; when a relax stage repeats, its weights are precomputed
+once (the "lean hoist", eager torch on either device) and each lap
+reads only them and I.  Unlike the JAX sweep, the device layout drops
+the slot plan's padding entries (`_device_arrays`): in 'layer' order the
+rows of a stage are padded to its widest row, several times the real
+slots at production site counts.  Real slots get the same values either
+way.
 
 LEVEL_STEPS counts the sequential level steps (one per level and pass,
 hoisted laps included) since it was last set to 0.
@@ -45,7 +50,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .formal import linear_weights
+from .voronoi_level import level_src_ew, voronoi_stage
 
 LEVEL_STEPS = 0
 
@@ -187,18 +192,35 @@ def build_slot_plan(plan, n_sweeps=3):
 class _StageDev:
     """A stage on the device with its padding dropped: rows [start +
     off[l], start + off[l + 1]) of the compact intensity array are level
-    l.  up_slot/up_site/w/r: (R, 2) upwind slot ids, upwind site ids,
-    blend weights and path lengths; row_site: (R,) own-site ids."""
+    l.  off: (L + 1,) int64 host array (the kernel's C entry reads it);
+    self_ref: (L,) int32 host flags, 1 where an upwind slot of the level
+    lies in its own rows (a Jacobi pass there must not write in place);
+    scratch_rows: the widest such level's rows, 0 if none.
+    up_slot/up_site/w/r: (R, 2) upwind slot ids, upwind site ids, blend
+    weights and path lengths; row_site: (R,) own-site ids."""
     kind: str
     passes: int
     repeats: int
     start: int
-    off: tuple
+    off: np.ndarray
+    self_ref: np.ndarray
+    scratch_rows: int
     up_slot: torch.Tensor
     up_site: torch.Tensor
     row_site: torch.Tensor
     w: torch.Tensor
     r: torch.Tensor
+
+
+def _self_ref(up_rows, off):
+    """(L,) int32: 1 where a level's upwind rows (up_rows (R, 2), rows
+    counted from the stage's first) include one of its own rows."""
+    level = np.repeat(np.arange(len(off) - 1), np.diff(off))
+    inside = ((up_rows >= off[level][:, None])
+              & (up_rows < off[level + 1][:, None])).any(1)
+    flags = np.zeros(len(off) - 1, dtype=np.int32)
+    flags[level[inside]] = 1
+    return flags
 
 
 def _device_arrays(sp, device, dtype):
@@ -241,13 +263,15 @@ def _device_arrays(sp, device, dtype):
     for st in sp.stages:
         rows = st.base + np.arange(st.L * st.W, dtype=np.int64)
         keep = real[rows]
-        off = np.concatenate(
-            [[0], np.cumsum(keep.reshape(st.L, st.W).sum(1))])
+        width = keep.reshape(st.L, st.W).sum(1)
+        off = np.concatenate([[0], np.cumsum(width)]).astype(np.int64)
         up = st.up.reshape(-1, 2)[keep]
+        start = int(np.count_nonzero(real[:st.base]))
+        self_ref = _self_ref(dense[up] - start, off)
         stages.append(_StageDev(
             kind=st.kind, passes=st.passes, repeats=st.repeats,
-            start=int(np.count_nonzero(real[:st.base])),
-            off=tuple(int(o) for o in off),
+            start=start, off=off, self_ref=self_ref,
+            scratch_rows=int(width[self_ref > 0].max(initial=0)),
             up_slot=idx(dense[up]), up_site=idx(slot_full[up]),
             row_site=idx(slot_full[rows[keep]]),
             w=val(st.w.reshape(-1, 2)[keep]),
@@ -264,102 +288,46 @@ def device_plan(plan, n_sweeps, device, dtype):
 
 # ---------------------------------------------------------- device sweep
 
-def _level_src_ew(S_T, a_T, up_site, row_site, r2):
-    """Field-dependent weights of a block of rows: gathers of the upwind
-    and own-site field values straight from the (n, B) site-ordered
-    arrays.  up_site/r2: (R, 2); row_site: (R,).  Returns (ew, src),
-    (R, 2, B) each."""
-    B = S_T.shape[1]
-    s_u = S_T.index_select(0, up_site.reshape(-1)).view(
-        up_site.shape + (B,))
-    a_u = a_T.index_select(0, up_site.reshape(-1)).view(
-        up_site.shape + (B,))
-    s_c = S_T.index_select(0, row_site)
-    a_c = a_T.index_select(0, row_site)
-    dtau = r2[..., None] * (a_c[:, None, :] + a_u) * 0.5
-    aw, bw, ew = linear_weights(dtau)
-    src = aw * s_u + bw * s_c[:, None, :]
-    return ew, src
-
-
-def _level_update(I, sd, l, new_rows, dmax=None, smax=None):
-    """The passes of level l: gather the 2 upwind I rows (SLOT ids --
-    occurrence semantics live in I) as i_u (W, 2, B), make the level's
-    rows new_rows(i_u) and write them contiguously.  With dmax/smax (0-d
-    tensors) also folds the rows' change and size into them, read
-    before the write."""
+def _stage(I, sd, S_T=None, a_T=None, lean=None, change=None):
+    """One pass over a stage's levels, from the fields or the lean
+    weights, I updated in place; counted in LEVEL_STEPS."""
     global LEVEL_STEPS
-    o0, o1 = sd.off[l], sd.off[l + 1]
-    rows = I[sd.start + o0:sd.start + o1]
-    fl = sd.up_slot[o0:o1].reshape(-1)
-    for _ in range(sd.passes):
-        i_new = new_rows(I.index_select(0, fl).view(o1 - o0, 2, I.shape[1]))
-        if dmax is not None:
-            dmax = torch.maximum(dmax, (i_new - rows).abs().max())
-            smax = torch.maximum(smax, i_new.abs().max())
-        # the JAX package donates I to this update
-        # (dynamic_update_slice); here the rows are written in place
-        rows.copy_(i_new)
-        LEVEL_STEPS += 1
-    return dmax, smax
-
-
-def _formal(S_T, a_T, sd, l):
-    """new_rows of level l from the fields: the fused formal solution
-    sum_j w_j (ew_j I_j + src_j)."""
-    o0, o1 = sd.off[l], sd.off[l + 1]
-    ew, src = _level_src_ew(S_T, a_T, sd.up_site[o0:o1], sd.row_site[o0:o1],
-                            sd.r[o0:o1])
-    w2 = sd.w[o0:o1][..., None]
-    return lambda i_u: (w2 * (ew * i_u + src)).sum(1)
-
-
-def _hoisted(lean, sd, l):
-    """new_rows of level l from the packed lean weights A = w * ew and
-    b = sum_j w_j src_j: no field gathers."""
-    o0, o1 = sd.off[l], sd.off[l + 1]
-    A, b = lean[0][o0:o1], lean[1][o0:o1]
-    return lambda i_u: (A * i_u).sum(1) + b
+    voronoi_stage(I, sd, S_T, a_T, lean, change)
+    LEVEL_STEPS += (len(sd.off) - 1) * sd.passes
 
 
 def _run_stage(I, sd, S_T, a_T):
     """One pass over a stage's levels (exact / gs / layer, or one plain
     relax lap), I updated in place."""
-    for l in range(len(sd.off) - 1):
-        _level_update(I, sd, l, _formal(S_T, a_T, sd, l))
+    _stage(I, sd, S_T, a_T)
 
 
-def _zeros2(I):
-    z = torch.zeros((), dtype=I.dtype, device=I.device)
-    return z, z
-
-
-def _rel_change(dmax, smax):
-    return dmax / torch.clamp(smax, min=1e-30)
+def _rel_change(change):
+    return change[0] / torch.clamp(change[1], min=1e-30)
 
 
 def _run_relax_lap(I, sd, S_T, a_T):
     """One relax lap + its EXACT relative sup-change (0-d tensor): each
     level's old rows are read before the update writes them, so the
     change covers every written row (unwritten rows cannot change)."""
-    dmax, smax = _zeros2(I)
-    for l in range(len(sd.off) - 1):
-        dmax, smax = _level_update(I, sd, l, _formal(S_T, a_T, sd, l),
-                                   dmax, smax)
-    return _rel_change(dmax, smax)
+    change = torch.zeros(2, dtype=I.dtype, device=I.device)
+    _stage(I, sd, S_T, a_T, change=change)
+    return _rel_change(change)
 
 
 def _precompute_lean(sd, S_T, a_T):
     """The packed lean weights (A (R, 2, B), b (R, B)) of a whole stage,
     built in blocks of _LEAN_CHUNK_ROWS rows (they depend on the fields
-    only, not on I, so the blocks ignore the levels)."""
-    R, B = sd.off[-1], S_T.shape[1]
+    only, not on I, so the blocks ignore the levels).  Eager torch on
+    either device: it runs once a relax stage and direction, outside the
+    level loop, which then reads only A, b and I."""
+    R, B = int(sd.off[-1]), S_T.shape[1]
     A = torch.empty((R, 2, B), dtype=S_T.dtype, device=S_T.device)
     b = torch.empty((R, B), dtype=S_T.dtype, device=S_T.device)
     for c0 in range(0, R, _LEAN_CHUNK_ROWS):
         c = slice(c0, min(c0 + _LEAN_CHUNK_ROWS, R))
-        ew, src = _level_src_ew(S_T, a_T, sd.up_site[c], sd.row_site[c],
-                                sd.r[c])
+        ew, src = level_src_ew(S_T, a_T, sd.up_site[c], sd.row_site[c],
+                               sd.r[c])
         w2 = sd.w[c][..., None]
         A[c] = w2 * ew
         b[c] = (w2 * src).sum(1)
@@ -368,17 +336,14 @@ def _precompute_lean(sd, S_T, a_T):
 
 def _run_hoisted_lap(I, sd, lean):
     """One relax lap from the lean weights."""
-    for l in range(len(sd.off) - 1):
-        _level_update(I, sd, l, _hoisted(lean, sd, l))
+    _stage(I, sd, lean=lean)
 
 
 def _run_hoisted_lap_d(I, sd, lean):
     """Hoisted relax lap + its exact relative sup-change."""
-    dmax, smax = _zeros2(I)
-    for l in range(len(sd.off) - 1):
-        dmax, smax = _level_update(I, sd, l, _hoisted(lean, sd, l),
-                                   dmax, smax)
-    return _rel_change(dmax, smax)
+    change = torch.zeros(2, dtype=I.dtype, device=I.device)
+    _stage(I, sd, lean=lean, change=change)
+    return _rel_change(change)
 
 
 def _sweep_slots(stages, site_gather, n_rows, relax_tol, S_T, a_T, I0):
