@@ -37,17 +37,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      points span two regions and, from tools/e1_sass.py, E1's
      instructions a point in each region and the time the SMs need to
      issue its double-precision (float32: single) instructions; then
-     V1, the Voronoi level steps (solvers/voronoi_level.py): every
-     stage kind ('gs', 'layer' with three Jacobi passes, 'exact',
-     'relax' as a plain lap, a lap with its change, a hoisted lap with
-     and without) through the kernel and the plain level loop, bit for
-     bit, the folded change too, float64 and float32, at B = 91, 13
-     and 1 on V1_SMALL_SITES-site plans of two directions, and on
-     direction 8 of the production sites (VOR_SITES, built here for
-     phase 7 too) at B = 91 (the line's batch) and, on its gs stage,
-     B = 1 (the continuum's);
-     then a level step of that direction's gs stage timed beside its
-     bytes bound at B = 91 (both types) and B = 1;
+     V1, the Voronoi level steps (solvers/voronoi_level.py, one
+     persistent launch a stage call): every stage kind ('gs', 'layer'
+     with three Jacobi passes, 'exact', 'relax' as a plain lap, a lap
+     with its change, a hoisted lap with and without, the hoisted laps
+     forming the lean weights from the fields in the kernel and held
+     against the plain level loop fed _precompute_lean) through the
+     kernel and the plain level loop, bit for bit, the folded change
+     too, one launch a call, float64 and float32, at B = 91, 13 and 1
+     on V1_SMALL_SITES-site plans of two directions, and on direction 8
+     of the production sites (VOR_SITES, built here for phase 7 too) at
+     B = 91 (the line's batch) and, on its gs stage, B = 1 (the
+     continuum's); then a level step of that direction's gs stage and
+     of its 'layer' stage (every level self-referencing) timed beside
+     its bytes bound at B = 91 (both types) and B = 1;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
@@ -68,13 +71,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      vor_*: 500 sites, 'layer' order, 3 iterations) through
      VoronoiEngine.run() on the card, and wavefront sweeps of every
      ul7n12 direction with the adaptive relax exit, card against CPU;
-     both launch V1 and never the plain level loop on the card (as
-     every Voronoi path below: phases 7, 9, 10, 11, 13, 14, 15);
+     both launch V1, one launch a stage or relax-lap call (level steps
+     counted apart), and never the plain level loop or the lean
+     precompute on the card (as every Voronoi path below: phases 7, 9,
+     10, 11, 13, 14, 15);
   7. two Voronoi Lambda iterations ('layer' order) at the reference's
      quarter-resolution production count, 442,368 sites sampled from the
      phase-5 atmosphere, 91 wavelengths, ul7n12, float64; set-up and
      iteration seconds, per-direction seconds, level steps, peak memory
-     and launch counts, V1's equal to the level steps (the 'wavefront'
+     and launch counts, V1's equal to the stage calls (the 'wavefront'
      order runs in phase 6 only); the first J pass's direction 8 sweep
      run again through V1 and through the plain level loop, timed, both
      bit-equal to the iteration's own output;
@@ -94,7 +99,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      through every sweep): card against CPU at a small size, then
      lambda_continuum_regular at the phase-5 grid, 3 iterations, with
      the kernels' launch counts, and lambda_continuum_voronoi on phase
-     7's sites, 2 iterations, a V1 launch a level step;
+     7's sites, 2 iterations, a V1 launch a stage call;
  11. checkpoint and resume on the card: a small run killed after its
      second write_state and resumed equals the uninterrupted run,
      through a store that keeps the arrays in memory and, where h5py
@@ -236,10 +241,14 @@ PER_ANGLE_EXT = ("alpha_tot", "voigt_rows")
 # the kernels that take one plane a launch
 PLANE_KERNELS = SWEEP_KERNELS[1:]
 # V1, the Voronoi level steps (solvers/voronoi_level.py,
-# csrc/voronoi_level.cu): one launch a level and pass; and the count of
-# its plain version's runs on the card, which no path makes
+# csrc/voronoi_level.cu): one launch a stage or relax-lap call; the
+# count of those calls (sweep_voronoi.STAGE_CALLS), and of its plain
+# version's runs and of the relax hoist's eager precompute on the card,
+# which no path makes
 V1 = "voronoi_stage"
+V1_CALLS = "stage calls"
 EAGER_LEVELS = "plain level loop on the card"
+EAGER_HOIST = "lean precompute on the card"
 # the kernels of the Voronoi NLTE iteration: a direction's extinction,
 # the rates' profile and the level steps
 VORONOI = PER_ANGLE_EXT + (V1,)
@@ -254,6 +263,10 @@ V1_BATCHES = (91, 13, 1)
 # order's)
 V1_PRODUCTION_BATCHES = ((91, ""), (1, " gs"))
 V1_RELAX_FNS = ("stage", "lap", "hoisted", "hoisted_d")
+# V1's grid capped at these blocks for holds on the small plans at B =
+# 13: many items a thread, as the widest levels of the largest plans give
+# it
+V1_CAPPED_BLOCKS = (1, 3)
 V1_DIRECTIONS = (2, 8)
 # phase 7: which sweep of the two iterations is held kernel against plain
 # loop: the 9th, the first J pass's direction 8 (grazing; the first
@@ -1346,8 +1359,10 @@ def _v1_inputs(plan, n_rows, B, dtype, seed):
 def _v1_hold(plan, B, dtype, seed):
     """Every stage of `plan` through V1 and through its plain version on
     the card, from the same inputs; a relax stage through each of
-    V1_RELAX_FNS.  Raises unless the intensities (and the folded change)
-    are bit-equal.  Returns (stage kinds, holds, max abs err)."""
+    V1_RELAX_FNS, the hoisted laps through V1 from the fields and
+    through the plain version fed _precompute_lean.  Raises unless the
+    intensities (and the folded change) are bit-equal and each kernel
+    call launched once.  Returns (stage kinds, holds, max abs err)."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
     from voronoirt_tpu_torch.solvers import voronoi_level as vl
@@ -1357,16 +1372,23 @@ def _v1_hold(plan, B, dtype, seed):
     for sd in stages:
         kinds.add(sd.kind)
         for fn in (V1_RELAX_FNS if sd.kind == "relax" else ("stage",)):
-            lean = (sv._precompute_lean(sd, S, a) if fn.startswith("hoisted")
-                    else None)
-            kw = dict(S_T=S, a_T=a) if lean is None else dict(lean=lean)
+            hoisted = fn.startswith("hoisted")
             fold = fn in ("lap", "hoisted_d")
             out = []
             for run in (vl.voronoi_stage, vl.voronoi_stage_plain):
                 Ic = I.clone()
                 change = (torch.zeros(2, dtype=dtype, device="cuda") if fold
                           else None)
-                run(Ic, sd, **kw, change=change)
+                if run is vl.voronoi_stage:
+                    n0 = vl.LAUNCHES
+                    run(Ic, sd, S, a, change=change, hoisted=hoisted)
+                    require(vl.LAUNCHES == n0 + 1,
+                            f"V1 {sd.kind} {fn}: {vl.LAUNCHES - n0} launches")
+                elif hoisted:
+                    run(Ic, sd, lean=sv._precompute_lean(sd, S, a),
+                        change=change)
+                else:
+                    run(Ic, sd, S, a, change=change)
                 out.append((Ic, change))
             torch.cuda.synchronize()
             (Ik, ck), (Ip, cp) = out
@@ -1380,8 +1402,24 @@ def _v1_hold(plan, B, dtype, seed):
                     + (f"; change {ck.tolist()} against {cp.tolist()}"
                        if fold else "") + ")")
             holds += 1
-            del out, lean
+            del out
     return kinds, holds, worst
+
+
+def _v1_hold_capped(cases, dtype):
+    """_v1_hold on each (label, plan) at B = 13 with V1's grid capped at
+    each of V1_CAPPED_BLOCKS blocks; returns the holds."""
+    from voronoirt_tpu_torch.solvers import voronoi_level as vl
+    grid_blocks, holds = vl.grid_blocks, 0
+    try:
+        for cap in V1_CAPPED_BLOCKS:
+            vl.grid_blocks = lambda *args, cap=cap: min(cap,
+                                                        grid_blocks(*args))
+            for j, (label, plan) in enumerate(cases):
+                holds += _v1_hold(plan, 13, dtype, j)[1]
+    finally:
+        vl.grid_blocks = grid_blocks
+    return holds
 
 
 def _v1_stage_work(sd, B, esize):
@@ -1409,9 +1447,10 @@ def _v1_stage_work(sd, B, esize):
 
 
 def _v1_time(plan, B, dtype_name, reps=5):
-    """V1 at plan's one stage (a gs stage: one launch a level): ms a
-    level step, the plain version's ms a step, the bound a step and
-    what sets it, and the stage's level steps."""
+    """V1 at plan's one stage (a gs stage, or a 'layer' stage of three
+    passes a level; one launch a stage): ms a level step, the plain
+    version's ms a step, the bound a step and what sets it, and the
+    stage's level steps."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
     from voronoirt_tpu_torch.solvers import voronoi_level as vl
@@ -1435,10 +1474,10 @@ def check_voronoi_level(atmos):
     plans of V1_DIRECTIONS, and on the production sites' direction 8 at
     the batches the Voronoi paths give it (V1_PRODUCTION_BATCHES: the
     line's 91 wavelengths at every stage kind, the continuum's one on
-    the gs stage); then a level step of that direction's gs stage timed
-    beside its bound at B = 91 (f64, f32) and B = 1 (f64).  Returns
-    {'errs': {dtype name: max abs err}, 'times': {(dtype name, B):
-    ...}}."""
+    the gs stage); then a level step of that direction's gs and 'layer'
+    stages timed beside its bound at B = 91 (f64, f32) and B = 1 (f64).
+    Returns {'errs': {dtype name: max abs err}, 'times': {(stage, dtype
+    name, B): ...}}."""
     import torch
     from voronoirt_tpu_torch import grid
     pos, bounds = _sample(atmos, V1_SMALL_SITES)
@@ -1467,23 +1506,35 @@ def check_voronoi_level(atmos):
         print(f"  V1 {dtype_name}: {holds} stage runs (stage kinds "
               f"{sorted(kinds)}, B {V1_BATCHES} on the small plans, "
               f"{V1_PRODUCTION_BATCHES} on the production direction) "
-              f"bit-equal to the plain version, the folded change too",
-              flush=True)
+              f"bit-equal to the plain version, the folded change too, "
+              f"one launch each; the hoisted laps from the fields against "
+              f"the plain version fed _precompute_lean", flush=True)
         require(kinds == {"gs", "layer", "exact", "relax"},
                 f"V1 stage kinds held: {kinds}")
-    gs = next(p for size, (label, p) in cases
-              if size == "production" and label.endswith(" gs"))
-    for dtype_name, B in (("float64", 91), ("float32", 91), ("float64", 1)):
-        r = _v1_time(gs, B, dtype_name)
-        out["times"][dtype_name, B] = r
-        print(f"  V1 {dtype_name}, B = {B}, production direction 8 gs stage "
-              f"({r['steps']} level steps, {r['rows']} rows): "
-              f"{1e3 * r['ms']:.3f} us a level step (plain "
-              f"{1e3 * r['plain_ms']:.1f} us); bound {1e3 * r['bound_ms']:.3f}"
-              f" us ({r['bound_by']}: {r['bytes_a_step'] / 1e6:.3f} MB a "
-              f"step), {100 * r['bound_ms'] / r['ms']:.1f} % of it",
+        holds = _v1_hold_capped([c for size, c in cases if size == "small"],
+                                getattr(torch, dtype_name))
+        print(f"  V1 {dtype_name}: {holds} stage runs on the small plans at "
+              f"B = 13 with the grid capped at {V1_CAPPED_BLOCKS} blocks, "
+              f"bit-equal to the plain version",
               flush=True)
-    del cases, gs
+    timed = {stage: next(p for size, (label, p) in cases
+                         if size == "production"
+                         and label.endswith(f" {stage}"))
+             for stage in ("gs", "layer")}
+    for stage, plan in timed.items():
+        for dtype_name, B in (("float64", 91), ("float32", 91),
+                              ("float64", 1)):
+            r = _v1_time(plan, B, dtype_name)
+            out["times"][stage, dtype_name, B] = r
+            print(f"  V1 {dtype_name}, B = {B}, production direction 8 "
+                  f"{stage} stage ({r['steps']} level steps, {r['rows']} "
+                  f"rows): {1e3 * r['ms']:.3f} us a level step (plain "
+                  f"{1e3 * r['plain_ms']:.1f} us); bound "
+                  f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}: "
+                  f"{r['bytes_a_step'] / 1e6:.3f} MB a step), "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f} % of it",
+                  flush=True)
+    del cases, timed
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1562,6 +1613,7 @@ def _launch_counts(reset=False):
     on the card; reset=True sets them to 0."""
     from voronoirt_tpu_torch.physics import extinction as ex
     from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
     from voronoirt_tpu_torch.solvers import voronoi_level as vl
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     from voronoirt_tpu_torch.solvers import xy_segment as xs
@@ -1571,19 +1623,28 @@ def _launch_counts(reset=False):
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
         ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
         vl.LAUNCHES = vl.PLAIN_ON_CARD = 0
+        sv.STAGE_CALLS = sv.LEAN_ON_CARD = 0
         _eager_voigt[0] = 0
     return {"xy_segment": xs.LAUNCHES, "xy_plane": xp.LAUNCHES,
             "march_plane": mp.LAUNCHES, "march_coeffs": mp.COEFFS_LAUNCHES,
             "march_chain": mp.CHAIN_LAUNCHES,
             "alpha_tot_group": ex.GROUP_LAUNCHES, "alpha_tot": ex.LAUNCHES,
             "voigt_rows": ex.VOIGT_LAUNCHES, V1: vl.LAUNCHES,
-            EAGER_VOIGT: _eager_voigt[0], EAGER_LEVELS: vl.PLAIN_ON_CARD}
+            V1_CALLS: sv.STAGE_CALLS, EAGER_VOIGT: _eager_voigt[0],
+            EAGER_LEVELS: vl.PLAIN_ON_CARD, EAGER_HOIST: sv.LEAN_ON_CARD}
 
 
 def _require_path(launches, used, what):
     """Every kernel in `used` launched on the path, and no other (nor
-    the eager Voigt or the plain level loop on the card)."""
+    the eager Voigt, the plain level loop or the lean precompute on the
+    card); V1, where used, once a stage or relax-lap call."""
+    if V1 in used:
+        require(launches[V1] == launches[V1_CALLS],
+                f"{V1}: {launches[V1]} launches in {what}, "
+                f"{launches[V1_CALLS]} stage calls")
     for name, n in launches.items():
+        if name == V1_CALLS:
+            continue
         if name in used:
             require(n > 0, f"{name}: no launch in {what}")
         else:
@@ -1830,9 +1891,13 @@ def check_voronoi_goldens():
         for dev in ("cuda", "cpu"):
             t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
             sv.LEVEL_STEPS = 0
+            calls = sv.STAGE_CALLS
             out[dev] = sv.sweep_voronoi(plan, t(S), t(alpha), t(I0),
                                         relax_tol=1e-7)
             steps[dev] = sv.LEVEL_STEPS
+            if dev == "cpu":
+                # the CPU reference's stage calls are not the card's
+                sv.STAGE_CALLS = calls
         require(steps["cuda"] == steps["cpu"],
                 f"direction {i}: {steps['cuda']} level steps on the card, "
                 f"{steps['cpu']} on the CPU")
@@ -1997,13 +2062,11 @@ def run_voronoi_production(atmos):
         line.n_lambda, cfg.lambda_chunk))
     print(f"  launches during the two iterations: {launches} (alpha_tot: "
           f"one a direction and lambda chunk, {n_ext} expected; "
-          f"{V1}: one a level and pass, {sum(rec['steps'])} level steps)",
-          flush=True)
+          f"{V1}: one a stage call, {launches[V1_CALLS]} calls; "
+          f"{sum(rec['steps'])} level steps)", flush=True)
     _require_path(launches, VORONOI, "the Voronoi iterations")
     require(launches["alpha_tot"] == n_ext,
             f"alpha_tot: {launches['alpha_tot']} launches, not {n_ext}")
-    require(launches[V1] == sum(rec["steps"]),
-            f"{V1}: {launches[V1]} launches, {sum(rec['steps'])} level steps")
     n, nlam = sites.n, line.n_lambda
     require(tuple(res.S.shape) == (nlam, n) and res.S.is_cuda,
             f"S shape {tuple(res.S.shape)} on {res.S.device}")
@@ -2435,8 +2498,6 @@ def run_continuum(atmos, sites):
     wall = timer.totals["voronoi"]
     launches_v = _launch_counts()
     _require_path(launches_v, (V1,), "the Voronoi continuum iteration")
-    require(launches_v[V1] == sv.LEVEL_STEPS,
-            f"{V1}: {launches_v[V1]} launches, {sv.LEVEL_STEPS} level steps")
     require(S.is_cuda and tuple(S.shape) == (sites.n,),
             f"continuum Voronoi S {tuple(S.shape)} on {S.device}")
     nan_guard("continuum Voronoi S, J", S, J)
@@ -2445,7 +2506,8 @@ def run_continuum(atmos, sites):
     print(f"  lambda_continuum_voronoi at {sites.n} sites, 'layer' plans "
           f"built inside, B=1: {wall:.4f} s for the 12 plans, their slot "
           f"plans and 2 iterations; {sv.LEVEL_STEPS} level steps, "
-          f"{launches_v[V1]} {V1} launches; history {hist}",
+          f"{launches_v[V1]} {V1} launches in {launches_v[V1_CALLS]} "
+          f"stage calls; history {hist}",
           flush=True)
     return dict(launches, **{V1: launches_v[V1]})
 
@@ -2765,12 +2827,18 @@ def _rel_np(got, want):
 
 def _dryrun_v1(lines):
     """The V1 launches that a dry run's Voronoi line reports for rank 0's
-    share of the split iteration; requires some."""
+    share of the split iteration; requires some, one a stage call."""
     (line,) = [x for x in lines
                if x.startswith("dryrun_multichip voronoi OK")]
-    n = int(line.split(" level-kernel launches")[0].rsplit(" ", 1)[1])
+
+    def count(what):
+        return int(line.split(f" {what}")[0].rsplit(" ", 1)[1])
+
+    n = count("level-kernel launches")
     require(n > 0, f"no {V1} launch in the dry run's split Voronoi "
                    f"iteration: {line}")
+    require(n == count("stage calls"),
+            f"{V1}: not one launch a stage call in the dry run: {line}")
     return n
 
 
@@ -3476,24 +3544,28 @@ def main(argv=None):
             **({"f64": ext_info["float64"], "f32": ext_info["float32"]}
                if name == "alpha_tot_group" else {})})
     # V1: what it replaces is the JAX package's compiled level scan, not
-    # a Pallas kernel; its times are a level step (one launch) of phase
-    # 2's production gs stage
-    t64, t32, t1 = (v1_info["times"][k] for k in (
+    # a Pallas kernel; its times are a level step of phase 2's
+    # production gs stage (one launch a stage), and of its 'layer' stage
+    t64, t32, t1 = (v1_info["times"]["gs", d, B] for d, B in (
         ("float64", 91), ("float32", 91), ("float64", 1)))
+    layer = {f"layer_{k}_{d}_b{B}": v1_info["times"]["layer", d, B][k]
+             for k in ("ms", "plain_ms", "bound_ms") for d, B in (
+                 ("float64", 91), ("float32", 91), ("float64", 1))}
     kernels.append({
         "name": V1, "route": "cuda",
         "source": "voronoirt_tpu_torch/csrc/voronoi_level.cu",
         "replaces": "voronoirt_tpu/solvers/sweep_voronoi.py:469",
         "replaces_a_tpu_kernel": False,
         "launches": vor_ref["launches"][V1],
-        "launches_path": "phase 7: the two Voronoi iterations",
+        "launches_path": "phase 7: the two Voronoi iterations, one a stage "
+                         "call",
         "max_abs_err": v1_info["errs"]["float64"], "bit_equal": True,
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
         "pct_of_bound": 100 * t64["bound_ms"] / t64["ms"],
         "library_ms": None,
         "ms_is": f"a level step of the production direction 8 gs stage "
-                 f"({t64['steps']} steps), B = 91",
+                 f"({t64['steps']} steps in one launch), B = 91",
         "launches_continuum": launches_continuum[V1],
         "launches_f32_voronoi_iterations": launches32_vor[V1],
         "max_abs_err_f32": v1_info["errs"]["float32"],
@@ -3501,7 +3573,7 @@ def main(argv=None):
         "bound_ms_f32": t32["bound_ms"], "bound_by_f32": t32["bound_by"],
         "pct_of_bound_f32": 100 * t32["bound_ms"] / t32["ms"],
         "ms_b1": t1["ms"], "plain_ms_b1": t1["plain_ms"],
-        "bound_ms_b1": t1["bound_ms"]})
+        "bound_ms_b1": t1["bound_ms"], **layer})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,20 @@ the sweep's stage functions that dispatch to it, against JAX's
 from the same intensities: 'layer' (three Jacobi passes a level, the
 plan's exact Gauss-Seidel schedule dropped), 'gs', and the 'wavefront'
 plans' 'exact' and 'relax' stages, the relax laps with and without
-their change.  Tolerances, relative (absolute where the reference is 0):
+their change, and the hoisted laps also with the lean weights formed
+from the fields (hoisted=True, V1's form on the card) against JAX's
+`_precompute_lean` and hoisted laps.  Tolerances, relative (absolute
+where the reference is 0):
 1e-12 with the extinction at 1-100, 2e-11 with it down to 0.01, where
 the linear weights' middle branch cancels just above its 5e-4 guard and
 a one-ulp exp difference between XLA and PyTorch grows (ROADMAP C3; the
 same bars as tests/test_torch_sweep_voronoi.py).  The host half (level
-offsets, self-reference flags) is held against brute force.  The tests
-marked cuda hold the kernel against the plain version on the card, bit
-for bit, and skip without a card.
+offsets, self-reference flags, V1's step table and grid size) is held
+against brute force, and a numpy emulation of V1's read rule between
+its steps (scratch buffers, copies back a step later, every row of a
+step read and written in a random order) against the plain version.
+The tests marked cuda hold the kernel against the plain version on the
+card, bit for bit, and skip without a card.
 """
 
 import dataclasses
@@ -115,7 +121,9 @@ class _Pair:
 
     def jax(self, fn):
         """JAX's stage function fn ('stage', 'lap', 'hoisted',
-        'hoisted_d') on the stage: (I on the real slots, rel or None)."""
+        'hoisted_d'; the '_fields' forms are JAX's hoisted laps too) on
+        the stage: (I on the real slots, rel or None)."""
+        fn = fn.replace("_fields", "")
         st = self.sp_j.stages[self.k]
         xs = self.xs_j[self.k][:6]
         I = jnp.asarray(self.I_j0)
@@ -137,31 +145,41 @@ class _Pair:
                 None if rel is None else float(rel))
 
 
+def _folds(fn):
+    return fn == "lap" or fn.endswith("_d")
+
+
 def _run_port(pair, fn, I, S, a, plain):
     """The port's stage function fn on I: through the plain stage
-    function itself, or through the sweep's stage functions."""
+    function itself, or through the sweep's stage functions.  The
+    '_fields' hoisted laps form the lean weights from the fields."""
     sd = pair.sd
     change = None
-    if fn in ("lap", "hoisted_d"):
+    if _folds(fn):
         change = torch.zeros(2, dtype=I.dtype, device=I.device)
-    lean = tsv._precompute_lean(sd, S, a) if fn.startswith("hoisted") \
-        else None
+    if fn.startswith("hoisted_fields"):
+        hoist = {"S_T": S, "a_T": a, "hoisted": True}
+    elif fn.startswith("hoisted"):
+        hoist = {"lean": tsv._precompute_lean(sd, S, a)}
+    else:
+        hoist = {"S_T": S, "a_T": a}
     if plain:
-        if lean is None:
-            vl.voronoi_stage_plain(I, sd, S, a, change=change)
-        else:
-            vl.voronoi_stage_plain(I, sd, lean=lean, change=change)
+        vl.voronoi_stage_plain(I, sd, change=change, **hoist)
         return None if change is None else float(tsv._rel_change(change))
     rel = {"stage": lambda: tsv._run_stage(I, sd, S, a),
            "lap": lambda: tsv._run_relax_lap(I, sd, S, a),
-           "hoisted": lambda: tsv._run_hoisted_lap(I, sd, lean),
-           "hoisted_d": lambda: tsv._run_hoisted_lap_d(I, sd, lean)}[fn]()
+           "hoisted": lambda: tsv._run_hoisted_lap(I, sd, hoist),
+           "hoisted_d": lambda: tsv._run_hoisted_lap_d(I, sd, hoist),
+           "hoisted_fields": lambda: tsv._run_hoisted_lap(I, sd, hoist),
+           "hoisted_fields_d": lambda: tsv._run_hoisted_lap_d(I, sd, hoist),
+           }[fn]()
     return None if rel is None else float(rel)
 
 
 STAGE_FNS = [("layer", "stage"), ("gs", "stage"), ("exact", "stage"),
              ("relax", "stage"), ("relax", "lap"), ("relax", "hoisted"),
-             ("relax", "hoisted_d")]
+             ("relax", "hoisted_d"), ("relax", "hoisted_fields"),
+             ("relax", "hoisted_fields_d")]
 
 
 @pytest.mark.parametrize("log_alpha_min,rtol", TOLS)
@@ -172,7 +190,8 @@ def test_stage_matches_jax(sites, kind, fn, plain, B, log_alpha_min, rtol):
     """The port's stage functions == JAX's on the same stage and
     intensities: the plain stage function and the sweep's dispatching
     stage functions, every stage kind, the relax laps with and without
-    the change (compared too), the lean weights precomputed in both."""
+    the change (compared too), the lean weights precomputed in both or,
+    in the port, formed from the fields within the lap."""
     pair = _Pair(sites, kind, B, log_alpha_min)
     want, rel_j = pair.jax(fn)
     I, S, a = pair.torch_inputs()
@@ -215,8 +234,8 @@ def test_sweep_through_stages_matches_jax(sites, kind, relax_tol):
 
 @pytest.mark.parametrize("kind", list(CASES))
 def test_host_offsets_and_self_reference(sites, kind):
-    """The stage's host arrays: the level offsets (contiguous int64, the
-    C entry's) count each level's real slots, the self-reference flags
+    """The stage's host arrays: the level offsets (contiguous int64)
+    count each level's real slots, the self-reference flags
     equal a brute-force check of every level's upwind rows against its
     own, and the scratch rows are the widest flagged level's.  'layer'
     and 'gs' levels (and relax bins) read their own rows, exact levels
@@ -246,6 +265,121 @@ def test_host_offsets_and_self_reference(sites, kind):
         assert not any(flags) and sd.scratch_rows == 0
     else:
         assert any(flags) and sd.scratch_rows > 0
+
+
+@pytest.mark.parametrize("kind", list(CASES))
+def test_step_table_and_grid(sites, kind):
+    """V1's host tables against brute force: the step table (a row a
+    level pass, in order: first row, rows, and the scratch buffer, which
+    alternates by step, where the level reads its own rows, else -1) on
+    the device as the kernel reads it, for the stage's passes and for 3;
+    the widest level; and the grid, one thread an item of the widest
+    step, capped at the blocks the card holds at once."""
+    plan_t, _ = _plans(sites, kind)
+    stages, _, _ = tsv._device_arrays(tsv.build_slot_plan(plan_t, 3), "cpu",
+                                      torch.float64)
+    (sd,) = [sd for sd in stages if sd.kind == kind]
+    for passes in (sd.passes, 3):
+        want, s = [], 0
+        for l in range(len(sd.off) - 1):
+            for _ in range(passes):
+                buf = s % 2 if sd.self_ref[l] else -1
+                want.append([sd.off[l], sd.off[l + 1] - sd.off[l], buf])
+                s += 1
+        got = tsv._step_table(sd.off, sd.self_ref, passes)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+    assert sd.steps.dtype == torch.int64 and sd.steps.is_contiguous()
+    np.testing.assert_array_equal(
+        sd.steps.numpy(), tsv._step_table(sd.off, sd.self_ref, sd.passes))
+    assert sd.width == max(np.diff(sd.off))
+    for B, resident, threads in ((1, 528, 256), (91, 528, 256),
+                                 (91, 3, 256), (13, 1056, 128)):
+        items = sd.width * B
+        want = next(b for b in range(1, resident + 1)
+                    if b * threads >= items or b == resident)
+        assert vl.grid_blocks(sd.width, B, resident, threads) == want
+    assert vl.grid_blocks(0, 91, 528, 256) == 1
+
+
+def _emulate_v1(I, sd, S, a, passes, seed=0):
+    """numpy emulation of V1's read rule over the step table of stage sd
+    at `passes` passes a level, in the formal form with the lap's change
+    folded: a step reads an upwind or i_old from the previous step's
+    scratch buffer where it lies in that step's rows and that step wrote
+    there, else from I; a self-referencing step writes its scratch
+    buffer, any other I in place; a step copies the previous step's
+    scratch rows back into I, and the last step's are copied at the end.
+    The rows of a step and its copies back run in a random order, each
+    row read and written at once, as the kernel's threads may interleave.
+    Returns (I, [max |i_new - i_old|, max |i_new|])."""
+    rng = np.random.default_rng(seed)
+    I = I.numpy().copy()
+    B = I.shape[1]
+    scratch = np.full((2, max(sd.scratch_rows, 1), B), np.nan)
+    ew, src = (t.numpy() for t in vl.level_src_ew(S, a, sd.up_site,
+                                                  sd.row_site, sd.r))
+    up, w = sd.up_slot.numpy(), sd.w.numpy()
+    dmax = smax = 0.0
+    prev = None
+
+    def read(u):
+        if prev is not None and prev[2] >= 0:
+            rel = u - (sd.start + prev[0])
+            if 0 <= rel < prev[1]:
+                return scratch[prev[2], rel]
+        return I[u]
+
+    def copy_back(i):
+        I[sd.start + prev[0] + i] = scratch[prev[2], i]
+
+    for k0, rows, buf in tsv._step_table(sd.off, sd.self_ref, passes):
+        tasks = [("row", i) for i in range(rows)]
+        if prev is not None and prev[2] >= 0:
+            tasks += [("copy", i) for i in range(prev[1])]
+        for j in rng.permutation(len(tasks)):
+            what, i = tasks[j]
+            if what == "copy":
+                copy_back(i)
+                continue
+            k = k0 + i
+            i0, i1, old = read(up[k, 0]), read(up[k, 1]), read(sd.start + k)
+            new = (w[k, 0] * (ew[k, 0] * i0 + src[k, 0])
+                   + w[k, 1] * (ew[k, 1] * i1 + src[k, 1]))
+            dmax = max(dmax, float(np.abs(new - old).max()))
+            smax = max(smax, float(np.abs(new).max()))
+            if buf < 0:
+                I[sd.start + k] = new
+            else:
+                scratch[buf, i] = new
+        prev = (k0, rows, buf)
+    if prev[2] >= 0:
+        for i in range(prev[1]):
+            copy_back(i)
+    return I, [dmax, smax]
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("kind", ["layer", "gs", "relax"])
+def test_v1_read_rule_emulation(sites, kind, passes):
+    """V1's read rule between steps (one barrier a step, two scratch
+    buffers, copies back a step later), emulated in numpy with every
+    step's rows in a random order, equals the plain version bit for bit,
+    the folded change too, on the 'layer', 'gs' and 'relax' plans at 3
+    passes a level (every 'layer' level, and some 'gs' levels and relax
+    bins, read their own rows) and at 1 (three passes of a relax bin
+    reach its fixed point in any read order, one does not)."""
+    pair = _Pair(sites, kind, 3, 0.0)
+    sd = dataclasses.replace(pair.sd, passes=passes)
+    assert sd.self_ref.any() and not sd.self_ref.all() or kind == "layer"
+    I, S, a = pair.torch_inputs()
+    got, change = _emulate_v1(I, sd, S, a, passes)
+    want = I.clone()
+    ch = torch.zeros(2, dtype=torch.float64)
+    vl.voronoi_stage_plain(want, sd, S, a, change=ch)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert change == ch.tolist()
+    assert not np.array_equal(got, I.numpy())
 
 
 @pytest.mark.parametrize("kind", ["layer", "gs"])
@@ -304,9 +438,13 @@ def test_refusals():
     with pytest.raises(ValueError):     # ids the C entry cannot read
         vl.voronoi_stage(I, dataclasses.replace(
             pair_sd, up_slot=pair_sd.up_slot.int()), S, S)
-    with pytest.raises(ValueError):     # offsets the C entry cannot read
+    with pytest.raises(ValueError):     # a step table V1 cannot read
         vl.voronoi_stage(I, dataclasses.replace(
-            pair_sd, off=pair_sd.off.astype(np.int32)), S, S)
+            pair_sd, steps=pair_sd.steps.int()), S, S)
+    with pytest.raises(ValueError):     # the step table of other passes
+        vl.voronoi_stage(I, dataclasses.replace(pair_sd, passes=2), S, S)
+    with pytest.raises(ValueError):     # the packed pair and hoisted
+        vl.voronoi_stage(I, pair_sd, lean=lean, hoisted=True)
     with pytest.raises(ValueError):
         vl.voronoi_stage(I.to("meta"), pair_sd, S.to("meta"),
                          S.to("meta"))
@@ -323,6 +461,9 @@ class _StubStage:
     self_ref: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(2, dtype=np.int32))
     scratch_rows: int = 0
+    width: int = 1
+    steps: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor([[0, 1, -1], [1, 1, -1]]))
     up_slot: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.full((2, 2), 4))
     up_site: torch.Tensor = dataclasses.field(
@@ -351,25 +492,58 @@ def cuda():
 def test_kernel_matches_plain_on_card(sites, cuda, kind, fn, B, dtype):
     """V1 against the plain version on the card, bit for bit: the
     intensities, and the change where the lap folds it; one launch a
-    level and pass, and the plain version counted apart."""
+    stage call, the plain version counted apart.  The hoisted laps run
+    on the card from the fields, held against the plain version fed
+    _precompute_lean ('hoisted') and formed from the fields
+    ('hoisted_fields'); the kernel's call precomputes nothing."""
     pair = _Pair(sites, kind, B, -2.0)
     stages, _, _ = tsv._device_arrays(pair.sp, cuda, dtype)
     sd = stages[pair.k]
     I, S, a = pair.torch_inputs(cuda, dtype)
     I_ref = I.clone()
-    fold = fn in ("lap", "hoisted_d")
-    lean = tsv._precompute_lean(sd, S, a) if fn.startswith("hoisted") \
-        else None
-    fields = dict(S_T=S, a_T=a) if lean is None else dict(lean=lean)
+    fold, hoisted = _folds(fn), fn.startswith("hoisted")
     changes = [torch.zeros(2, dtype=dtype, device=cuda) if fold else None
                for _ in range(2)]
-    n0, p0 = vl.LAUNCHES, vl.PLAIN_ON_CARD
-    vl.voronoi_stage(I, sd, **fields, change=changes[0])
+    n0, p0, h0 = vl.LAUNCHES, vl.PLAIN_ON_CARD, tsv.LEAN_ON_CARD
+    vl.voronoi_stage(I, sd, S, a, change=changes[0], hoisted=hoisted)
     torch.cuda.synchronize()
-    assert vl.LAUNCHES - n0 == (len(sd.off) - 1) * sd.passes
-    vl.voronoi_stage_plain(I_ref, sd, **fields, change=changes[1])
+    assert (vl.LAUNCHES - n0, tsv.LEAN_ON_CARD) == (1, h0)
+    if fn in ("hoisted", "hoisted_d"):
+        vl.voronoi_stage_plain(I_ref, sd, lean=tsv._precompute_lean(sd, S, a),
+                               change=changes[1])
+    else:
+        vl.voronoi_stage_plain(I_ref, sd, S, a, change=changes[1],
+                               hoisted=hoisted)
     assert vl.PLAIN_ON_CARD == p0 + 1
     assert torch.equal(I, I_ref)
     if fold:
         assert torch.equal(changes[0], changes[1])
         assert float(changes[0][1]) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relax_tol", [0.0, 1e-7])
+@pytest.mark.parametrize("kind", ["layer", "gs", "relax"])
+def test_sweep_on_card_one_launch_a_stage(sites, cuda, kind, relax_tol):
+    """A sweep on the card: one V1 launch a stage or relax-lap call, the
+    level steps those of the CPU sweep, no lean precompute and no plain
+    loop on the card, the result the CPU sweep's to 1e-10."""
+    plan_t, _ = _plans(sites, kind)
+    n, B = sites[0].n, 3
+    rng = np.random.default_rng(11)
+    S = rng.uniform(0.1, 1.0, (B, n))
+    alpha = 10.0 ** rng.uniform(0.0, 2.0, (B, n))
+    I0 = rng.uniform(0.0, 1.0, (B, len(plan_t.bc_sites)))
+    out, counts = {}, {}
+    for dev in ("cpu", cuda):
+        tsv.LEVEL_STEPS = tsv.STAGE_CALLS = tsv.LEAN_ON_CARD = 0
+        vl.LAUNCHES = vl.PLAIN_ON_CARD = 0
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        out[str(dev)] = tsv.sweep_voronoi(plan_t, t(S), t(alpha), t(I0),
+                                          relax_tol=relax_tol).cpu()
+        counts[str(dev)] = (tsv.LEVEL_STEPS, tsv.STAGE_CALLS, vl.LAUNCHES,
+                            vl.PLAIN_ON_CARD, tsv.LEAN_ON_CARD)
+    steps, calls, launches, plain, lean = counts["cuda"]
+    assert (steps, calls) == counts["cpu"][:2]
+    assert (launches, plain, lean) == (calls, 0, 0)
+    assert _max_rel(out["cuda"].numpy(), out["cpu"].numpy()) < 1e-10

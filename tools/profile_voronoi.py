@@ -20,19 +20,24 @@ chunking.
      extinction, sweep; then the S update and the rates with
      statistical equilibrium), then one plain;
   3. 'wavefront': a first compute_J (cold), one with the parts timed
-     (per direction: extinction, the relax stages' weight hoist, the
-     rest of the sweep), then one plain;
+     (per direction: extinction, the rest of the sweep; the relax
+     stages' eager weight hoist, _precompute_lean, is counted and timed
+     where it runs: on the card V1 forms the lean weights in its laps,
+     so it runs nowhere, and the bytes of the lean pair (A (R, 2, B), b
+     (R, B)) that are no longer allocated are printed), then one plain;
   4. under torch.profiler, for each order, the J work of a steep and a
      grazing direction (extinction + sweep): the kernels' summed device
      time against the same window's plain wall gives the device's busy
      share; the kernels are listed by device time, and V1's (the level
-     steps, csrc/voronoi_level.cu) device time, launches and device us a
-     launch are summed apart.
+     steps, csrc/voronoi_level.cu, one launch a stage call) device time,
+     launches, level steps and device us a launch and a step are summed
+     apart; for the 'layer' window, V1's bytes bound a step on its
+     stages (chip_smoke._v1_stage_work).
 
-Level steps (sweep_voronoi.LEVEL_STEPS) and V1's launches
-(voronoi_level.LAUNCHES, one a level and pass) are counted per parts-
-timed iteration or J pass.  Prints a summary; --out also writes it as
-JSON.
+Level steps (sweep_voronoi.LEVEL_STEPS), stage calls
+(sweep_voronoi.STAGE_CALLS) and V1's launches (voronoi_level.LAUNCHES,
+one a stage call) are counted per parts-timed iteration or J pass.
+Prints a summary; --out also writes it as JSON.
 """
 
 import argparse
@@ -49,6 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from voronoirt_tpu_torch import (Config, get_quadrature, grid,  # noqa: E402
                                  require_cuda, synthetic_atmosphere)
 from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter  # noqa: E402
@@ -60,7 +66,7 @@ from voronoirt_tpu_torch.solvers import voronoi_level as vl  # noqa: E402
 # direction 8 grazing (|mu| 0.205)
 WINDOW = (2, 8)
 # V1's kernel, by the name the profiler gives its instances
-V1_KERNEL = "voronoi_level_kernel"
+V1_KERNEL = "voronoi_stage_kernel"
 
 
 def _timed(fn, acc, key):
@@ -77,6 +83,8 @@ def _timed(fn, acc, key):
 
 
 def _patches(eng, acc):
+    """Timers around the parts; the eager hoist's calls are timed where
+    they happen (on the card, none)."""
     return [
         mock.patch.object(eng, "_alpha_tot_T",
                           _timed(eng._alpha_tot_T, acc, "extinction")),
@@ -103,13 +111,14 @@ def _synced(fn):
 
 def parts_timed(eng, fn):
     """fn() with every part behind synchronised timers.  Returns (wall
-    seconds, {part: [seconds per call]}, level steps, V1 launches)."""
+    seconds, {part: [seconds per call]}, level steps, stage calls, V1
+    launches)."""
     acc = defaultdict(list)
     patches = _patches(eng, acc)
     for p in patches:
         p.start()
     try:
-        sv.LEVEL_STEPS = vl.LAUNCHES = 0
+        sv.LEVEL_STEPS = sv.STAGE_CALLS = vl.LAUNCHES = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -118,12 +127,12 @@ def parts_timed(eng, fn):
     finally:
         for p in patches:
             p.stop()
-    return wall, dict(acc), sv.LEVEL_STEPS, vl.LAUNCHES
+    return wall, dict(acc), sv.LEVEL_STEPS, sv.STAGE_CALLS, vl.LAUNCHES
 
 
-def summarise(wall, acc, steps, launches, n_dir):
+def summarise(wall, acc, steps, calls, launches, n_dir):
     """Per-direction and per-part seconds of one parts-timed J pass or
-    iteration (the hoist is inside the sweep's time)."""
+    iteration (the hoist, where it runs, is inside the sweep's time)."""
     ext, sweep = acc.get("extinction", []), acc.get("sweep", [])
     hoist = sum(acc.get("hoist", []))
     assert len(ext) == len(sweep) == n_dir, (len(ext), len(sweep))
@@ -134,7 +143,8 @@ def summarise(wall, acc, steps, launches, n_dir):
             parts[k] = sum(acc[k])
     parts["other (unwrapped)"] = wall - sum(parts.values())
     return {"wall_s": wall, "parts_s": parts, "level_steps": steps,
-            "v1_launches": launches,
+            "stage_calls": calls, "v1_launches": launches,
+            "hoist_calls": len(acc.get("hoist", [])),
             "us_per_level_step": 1e6 * parts["level loop"] / max(steps, 1),
             "direction_s": [e + s for e, s in zip(ext, sweep)],
             "direction_extinction_s": ext, "direction_sweep_s": sweep}
@@ -150,6 +160,40 @@ def window(eng, S_T, pops, damp, lam):
     torch.cuda.synchronize()
 
 
+def lean_bytes(eng):
+    """Bytes of the lean pair (A (R, 2, B), b (R, B)) of each direction's
+    repeated relax stages, which the eager hoist allocated for the
+    direction's sweep: (the largest direction's, the sum over them)."""
+    B = eng.line.n_lambda
+    esize = torch.empty((), dtype=eng.dtype).element_size()
+    per_dir = []
+    for plan in eng.plans:
+        stages, _, _ = sv.device_plan(plan, eng.cfg.n_sweeps, eng.device,
+                                      eng.dtype)
+        per_dir.append(sum(3 * int(sd.off[-1]) * B * esize for sd in stages
+                           if sd.kind == "relax" and sd.repeats > 1))
+    return max(per_dir), sum(per_dir)
+
+
+def window_bound_ms(eng):
+    """V1's bytes bound (ms) and level steps of one pass over the WINDOW
+    directions' stages in the formal form (chip_smoke._v1_stage_work)."""
+    B = eng.line.n_lambda
+    name = str(eng.dtype).split(".")[-1]
+    nbytes = ops = steps = 0
+    for i in WINDOW:
+        stages, _, _ = sv.device_plan(eng.plans[i], eng.cfg.n_sweeps,
+                                      eng.device, eng.dtype)
+        for sd in stages:
+            b, o = chip_smoke._v1_stage_work(sd, B,
+                                             chip_smoke.ELEMENT_BYTES[name])
+            nbytes, ops = nbytes + b, ops + o
+            steps += (len(sd.off) - 1) * sd.passes
+    ms, by = chip_smoke._bound_ms(nbytes, ops, name)
+    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes,
+            "level_steps": steps}
+
+
 def profiled_window(eng, S, pops):
     """Plain wall of the window, then its kernels under torch.profiler."""
     from torch.autograd import DeviceType
@@ -162,9 +206,11 @@ def profiled_window(eng, S, pops):
     t = time.perf_counter()
     window(eng, S_T, pops, damp, lam)
     wall = time.perf_counter() - t
+    sv.LEVEL_STEPS = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         window(eng, S_T, pops, damp, lam)
+    steps = sv.LEVEL_STEPS
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -179,8 +225,9 @@ def profiled_window(eng, S, pops):
     v1_s, v1_n = sum(k[2] for k in v1), sum(k[1] for k in v1)
     return {"directions": list(WINDOW), "plain_wall_s": wall,
             "kernels_device_s": busy, "busy_share": busy / wall,
-            "v1_device_s": v1_s, "v1_launches": v1_n,
+            "v1_device_s": v1_s, "v1_launches": v1_n, "level_steps": steps,
             "v1_device_us_a_launch": 1e6 * v1_s / max(v1_n, 1),
+            "v1_device_us_a_step": 1e6 * v1_s / max(steps, 1),
             "kernels": kernels[:25]}
 
 
@@ -252,9 +299,12 @@ def main():
         raise SystemExit("S or populations not finite")
     del res
     out["layer_window"] = profiled_window(eng, S, pops)
+    out["layer_window"]["bound"] = window_bound_ms(eng)
 
     eng_w = VoronoiEngine(sites, line, cfgs["wavefront"],
                           plans=plans["wavefront"], device="cuda")
+    out["lean_pair_bytes_max_direction"], out["lean_pair_bytes_sum"] = \
+        lean_bytes(eng_w)
     damp = eng_w.damping_lam(pops)
     out["wavefront_J_cold_s"] = _synced(
         lambda: eng_w.compute_J(S, pops, damp))
@@ -273,8 +323,10 @@ def main():
     for key in ("layer_iteration_parts_timed", "wavefront_J_parts_timed"):
         r = out[key]
         print(f"{key}: {r['wall_s']:.4f} s, {r['level_steps']} level "
-              f"steps, {r['v1_launches']} V1 launches, "
-              f"{r['us_per_level_step']:.2f} us per level step", flush=True)
+              f"steps, {r['stage_calls']} stage calls, {r['v1_launches']} "
+              f"V1 launches, {r['us_per_level_step']:.2f} us per level "
+              f"step; the eager relax hoist ran {r['hoist_calls']} times",
+              flush=True)
         for k, v in sorted(r["parts_s"].items(), key=lambda kv: -kv[1]):
             print(f"  {k:32s} {v:9.4f} s  {100 * v / r['wall_s']:5.1f} %",
                   flush=True)
@@ -292,10 +344,21 @@ def main():
               f"{w['plain_wall_s']:.4f} s, kernels' device time "
               f"{w['kernels_device_s']:.4f} s = {100 * w['busy_share']:.1f} %"
               f" busy; V1 {w['v1_device_s']:.4f} s of device time in "
-              f"{w['v1_launches']} launches, "
-              f"{w['v1_device_us_a_launch']:.2f} us a launch", flush=True)
+              f"{w['v1_launches']} launches, {w['level_steps']} level steps: "
+              f"{w['v1_device_us_a_launch']:.2f} us a launch, "
+              f"{w['v1_device_us_a_step']:.3f} us a step", flush=True)
+        if "bound" in w:
+            b = w["bound"]
+            print(f"  V1's {b['bound_by']} bound on the window's stages: "
+                  f"{b['bound_ms']:.4f} ms ({b['bytes'] / 1e9:.4f} GB), "
+                  f"{1e3 * b['bound_ms'] / b['level_steps']:.3f} us a level "
+                  f"step", flush=True)
         for name, count, s in w["kernels"][:10]:
             print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
+    print(f"the lean pair, no longer allocated on the card: "
+          f"{out['lean_pair_bytes_max_direction'] / 2**30:.3f} GiB for the "
+          f"largest direction, {out['lean_pair_bytes_sum'] / 2**30:.3f} GiB "
+          f"over the {n_dir} directions", flush=True)
     print(f"peak device memory {out['peak_GiB']:.3f} GiB", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

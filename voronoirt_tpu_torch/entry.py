@@ -39,7 +39,7 @@ from .parallel.lam import gather_lambda, spawn
 from .parallel.mesh import gather_space, make_mesh
 from .physics.atom import lyman_alpha_line, pad_line
 from .quadrature import get_quadrature
-from .solvers import voronoi_level
+from .solvers import sweep_voronoi, voronoi_level
 
 
 def small_problem(nz=12, nx=8, ny=8, nlam_bb=5, nlam_bf=3,
@@ -146,10 +146,13 @@ def _dryrun_rank(group, atmos, sites):
     plans = VoronoiEngine.build_plans(sites, get_quadrature(cfg.quadrature),
                                       cfg)
     vmesh = make_mesh((n_lam, n // n_lam), ("lam", "site"), world=group)
-    v1 = voronoi_level.LAUNCHES
+    v1 = (voronoi_level.LAUNCHES, sweep_voronoi.STAGE_CALLS,
+          sweep_voronoi.LEVEL_STEPS)
     res = VoronoiEngine(sites, vline, cfg, plans=plans, device=dev,
                         mesh=vmesh).run()
-    v1 = voronoi_level.LAUNCHES - v1
+    v1, calls, steps = (b - a for a, b in zip(v1, (
+        voronoi_level.LAUNCHES, sweep_voronoi.STAGE_CALLS,
+        sweep_voronoi.LEVEL_STEPS)))
     moved = _moved(vmesh, res.S)
     S, P = _gathered(res, vmesh, (-1,), (0,))
     if group.rank == 0:
@@ -158,7 +161,8 @@ def _dryrun_rank(group, atmos, sites):
         lines.append(f"dryrun_multichip voronoi OK on {n} ranks (mesh "
                      f"lam={n_lam} x site={n // n_lam}, {sites.n} sites, "
                      f"sharded == unsharded; {moved}; {v1} level-kernel "
-                     f"launches on rank 0)")
+                     f"launches, {calls} stage calls, {steps} level steps "
+                     f"on rank 0)")
         # the angle distribution (parallel/angles.py), over slots of
         # rank 0's device
         n_ang = min(n, len(plans))

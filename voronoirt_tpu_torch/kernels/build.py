@@ -42,7 +42,8 @@ _SIGNATURES = {
     "vrt_xy_segment_info": [_I] * 2 + [_P],
     "vrt_alpha_tot": [_P] * 8 + [_I] * 7 + [_P] * 2 + [_D] * 7 + [_P],
     "vrt_voigt_rows": [_P] * 4 + [_I] * 2 + [_D] * 2 + [_P],
-    "vrt_voronoi_stage": [_P] * 14 + [_I] * 6 + [_P],
+    "vrt_voronoi_stage": [_P] * 12 + [_I] * 7 + [_P],
+    "vrt_voronoi_stage_info": [_I] * 2 + [_P],
 }
 
 

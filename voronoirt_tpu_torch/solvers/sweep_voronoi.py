@@ -22,25 +22,29 @@ padded and unpadded sweeps as bitwise equal on every real site
 switch and the hoist byte budget, which fit the sweep into a 16 GB TPU.
 
 Device half: each stage (or relax lap) is one call of
-`voronoi_level.voronoi_stage`.  On the card that is one call into the
-V1 kernel's C entry (csrc/voronoi_level.cu), which launches one fused
-kernel a level and pass on torch's current stream: it gathers the
-level's upwind and own-site S and extinction, forms the linear
-formal-solution weights, gathers the two upwind intensity rows and
-writes the level's rows.  On the CPU the same call runs the plain
-version, a Python loop over the levels of eager torch operations.
-'relax' stages (wavefront plans) repeat, with the exact per-lap
-sup-change (folded on the card, read back once a lap) and the two-lap
-adaptive exit; when a relax stage repeats, its weights are precomputed
-once (the "lean hoist", eager torch on either device) and each lap
-reads only them and I.  Unlike the JAX sweep, the device layout drops
-the slot plan's padding entries (`_device_arrays`): in 'layer' order the
+`voronoi_level.voronoi_stage`.  On the card that is one cooperative
+launch of the V1 kernel (csrc/voronoi_level.cu) on torch's current
+stream, which walks the stage's level steps with a grid barrier between
+them: each step gathers the level's upwind and own-site S and
+extinction, forms the linear formal-solution weights, gathers the two
+upwind intensity rows and writes the level's rows.  On the CPU the same
+call runs the plain version, a Python loop over the levels of eager
+torch operations.  'relax' stages (wavefront plans) repeat, with the
+exact per-lap sup-change (folded on the card, read back once a lap) and
+the two-lap adaptive exit; when a relax stage repeats, its laps take the
+hoisted form (the "lean hoist", JAX's `_precompute_lean`): on the CPU
+the lean weights are precomputed once and each lap reads only them and
+I; on the card V1 forms them from the fields in each lap, and nothing
+is precomputed.  Unlike the JAX sweep, the device layout drops the slot
+plan's padding entries (`_device_arrays`): in 'layer' order the
 rows of a stage are padded to its widest row, several times the real
 slots at production site counts.  Real slots get the same values either
 way.
 
 LEVEL_STEPS counts the sequential level steps (one per level and pass,
-hoisted laps included) since it was last set to 0.
+hoisted laps included), STAGE_CALLS the stage and relax-lap calls (V1's
+launches on the card), and LEAN_ON_CARD the lean precomputes on a CUDA
+tensor (none on any sweep), each since it was last set to 0.
 """
 
 from __future__ import annotations
@@ -50,9 +54,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .voronoi_level import level_src_ew, voronoi_stage
+from .voronoi_level import lean_weights, level_src_ew, voronoi_stage
 
 LEVEL_STEPS = 0
+STAGE_CALLS = 0
+LEAN_ON_CARD = 0
 
 # block size (in rows) of the hoisted-weight precompute: it bounds the
 # precompute's eager (rows, 2, B) temporaries, about fifteen of them in
@@ -192,12 +198,14 @@ def build_slot_plan(plan, n_sweeps=3):
 class _StageDev:
     """A stage on the device with its padding dropped: rows [start +
     off[l], start + off[l + 1]) of the compact intensity array are level
-    l.  off: (L + 1,) int64 host array (the kernel's C entry reads it);
-    self_ref: (L,) int32 host flags, 1 where an upwind slot of the level
-    lies in its own rows (a Jacobi pass there must not write in place);
-    scratch_rows: the widest such level's rows, 0 if none.
-    up_slot/up_site/w/r: (R, 2) upwind slot ids, upwind site ids, blend
-    weights and path lengths; row_site: (R,) own-site ids."""
+    l.  off: (L + 1,) int64 host array; self_ref: (L,) int32 host flags,
+    1 where an upwind slot of the level lies in its own rows (a Jacobi
+    pass there must not write in place); scratch_rows: the widest such
+    level's rows, 0 if none; width: the widest level's rows.  steps:
+    (L * passes, 3) int64 on the device, V1's step table
+    (_step_table).  up_slot/up_site/w/r: (R, 2) upwind slot ids, upwind
+    site ids, blend weights and path lengths; row_site: (R,) own-site
+    ids."""
     kind: str
     passes: int
     repeats: int
@@ -205,6 +213,8 @@ class _StageDev:
     off: np.ndarray
     self_ref: np.ndarray
     scratch_rows: int
+    width: int
+    steps: torch.Tensor
     up_slot: torch.Tensor
     up_site: torch.Tensor
     row_site: torch.Tensor
@@ -221,6 +231,19 @@ def _self_ref(up_rows, off):
     flags = np.zeros(len(off) - 1, dtype=np.int32)
     flags[level[inside]] = 1
     return flags
+
+
+def _step_table(off, self_ref, passes):
+    """(L * passes, 3) int64, a row a step (each level's passes in
+    order): the step's first row counted from the stage's first, its
+    rows, and the scratch buffer a self-referencing step writes (the
+    step's index mod 2, so consecutive steps alternate), -1 where the
+    step writes in place."""
+    level = np.repeat(np.arange(len(off) - 1), passes)
+    step = np.arange(len(level))
+    return np.stack([off[level], np.diff(off)[level],
+                     np.where(self_ref[level] > 0, step % 2, -1)],
+                    1).astype(np.int64)
 
 
 def _device_arrays(sp, device, dtype):
@@ -272,6 +295,8 @@ def _device_arrays(sp, device, dtype):
             kind=st.kind, passes=st.passes, repeats=st.repeats,
             start=start, off=off, self_ref=self_ref,
             scratch_rows=int(width[self_ref > 0].max(initial=0)),
+            width=int(width.max(initial=0)),
+            steps=idx(_step_table(off, self_ref, st.passes)),
             up_slot=idx(dense[up]), up_site=idx(slot_full[up]),
             row_site=idx(slot_full[rows[keep]]),
             w=val(st.w.reshape(-1, 2)[keep]),
@@ -288,12 +313,15 @@ def device_plan(plan, n_sweeps, device, dtype):
 
 # ---------------------------------------------------------- device sweep
 
-def _stage(I, sd, S_T=None, a_T=None, lean=None, change=None):
+def _stage(I, sd, S_T=None, a_T=None, lean=None, change=None,
+           hoisted=False):
     """One pass over a stage's levels, from the fields or the lean
-    weights, I updated in place; counted in LEVEL_STEPS."""
-    global LEVEL_STEPS
-    voronoi_stage(I, sd, S_T, a_T, lean, change)
+    weights, I updated in place; counted in LEVEL_STEPS and
+    STAGE_CALLS."""
+    global LEVEL_STEPS, STAGE_CALLS
+    voronoi_stage(I, sd, S_T, a_T, lean, change, hoisted)
     LEVEL_STEPS += (len(sd.off) - 1) * sd.passes
+    STAGE_CALLS += 1
 
 
 def _run_stage(I, sd, S_T, a_T):
@@ -320,7 +348,11 @@ def _precompute_lean(sd, S_T, a_T):
     built in blocks of _LEAN_CHUNK_ROWS rows (they depend on the fields
     only, not on I, so the blocks ignore the levels).  Eager torch on
     either device: it runs once a relax stage and direction, outside the
-    level loop, which then reads only A, b and I."""
+    level loop, which then reads only A, b and I.  No sweep calls it on
+    the card (counted in LEAN_ON_CARD), where V1 forms the weights."""
+    global LEAN_ON_CARD
+    if S_T.is_cuda:
+        LEAN_ON_CARD += 1
     R, B = int(sd.off[-1]), S_T.shape[1]
     A = torch.empty((R, 2, B), dtype=S_T.dtype, device=S_T.device)
     b = torch.empty((R, B), dtype=S_T.dtype, device=S_T.device)
@@ -328,21 +360,28 @@ def _precompute_lean(sd, S_T, a_T):
         c = slice(c0, min(c0 + _LEAN_CHUNK_ROWS, R))
         ew, src = level_src_ew(S_T, a_T, sd.up_site[c], sd.row_site[c],
                                sd.r[c])
-        w2 = sd.w[c][..., None]
-        A[c] = w2 * ew
-        b[c] = (w2 * src).sum(1)
+        A[c], b[c] = lean_weights(sd.w[c][..., None], ew, src)
     return A, b
 
 
-def _run_hoisted_lap(I, sd, lean):
-    """One relax lap from the lean weights."""
-    _stage(I, sd, lean=lean)
+def _hoist(sd, S_T, a_T):
+    """What a repeated relax stage's hoisted laps read, as voronoi_stage's
+    keywords: on the card the fields, from which V1 forms the lean
+    weights in each lap; elsewhere the lean weights, precomputed once."""
+    if S_T.is_cuda:
+        return {"S_T": S_T, "a_T": a_T, "hoisted": True}
+    return {"lean": _precompute_lean(sd, S_T, a_T)}
 
 
-def _run_hoisted_lap_d(I, sd, lean):
+def _run_hoisted_lap(I, sd, hoist):
+    """One relax lap from the lean weights (hoist: _hoist's keywords)."""
+    _stage(I, sd, **hoist)
+
+
+def _run_hoisted_lap_d(I, sd, hoist):
     """Hoisted relax lap + its exact relative sup-change."""
     change = torch.zeros(2, dtype=I.dtype, device=I.device)
-    _stage(I, sd, lean=lean, change=change)
+    _stage(I, sd, change=change, **hoist)
     return _rel_change(change)
 
 
@@ -360,18 +399,18 @@ def _sweep_slots(stages, site_gather, n_rows, relax_tol, S_T, a_T, I0):
         if sd.kind != "relax":
             _run_stage(I, sd, S_T, a_T)
             continue
-        lean = _precompute_lean(sd, S_T, a_T) if sd.repeats > 1 else None
+        hoist = _hoist(sd, S_T, a_T) if sd.repeats > 1 else None
         if not relax_tol:
             for _ in range(sd.repeats):
-                if lean is not None:
-                    _run_hoisted_lap(I, sd, lean)
+                if hoist is not None:
+                    _run_hoisted_lap(I, sd, hoist)
                 else:
                     _run_stage(I, sd, S_T, a_T)
             continue
         streak = 0
         for _ in range(sd.repeats):
-            if lean is not None:
-                rel = _run_hoisted_lap_d(I, sd, lean)
+            if hoist is not None:
+                rel = _run_hoisted_lap_d(I, sd, hoist)
             else:
                 rel = _run_relax_lap(I, sd, S_T, a_T)
             streak = streak + 1 if float(rel) <= relax_tol else 0
