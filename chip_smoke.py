@@ -50,7 +50,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      B = 91 (the line's batch) and, on its gs stage, B = 1 (the
      continuum's); then a level step of that direction's gs stage and
      of its 'layer' stage (every level self-referencing) timed beside
-     its bytes bound at B = 91 (both types) and B = 1;
+     its bytes bound at B = 91 (both types) and B = 1; then G1-G3, a
+     mirror group's J emit (solvers/group_emit.py, csrc/group_emit.cu:
+     group_emit the angle reduction of a piece of swept planes,
+     group_stack the flipped S and I0 stacks, group_fold the J halves
+     into the chunk's J), float64 and float32, with the first ul7n12
+     group's flips and down flags, at (nz, B, nx, ny) (215, 13, 256,
+     256), a ragged (5, 13, 37, 29) and (215, 1, 256, 256), G1 on pieces
+     of 1, 7 and a production piece of planes, each bit-equal to its
+     plain version, then timed at the production shape beside its bytes
+     bound;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
@@ -62,7 +71,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      every path below launches the extinction's kernels where it makes
      extinction -- the unsplit grouped path alpha_tot_group, the
      per-direction paths alpha_tot -- and never calls the eager
-     Humlicek of the plain versions on the card; after phases 5, 7, 8,
+     Humlicek of the plain versions on the card; the J emit: group_emit
+     one a K2 plane, an xy piece and a group sweep's boundary plane,
+     group_stack two and group_fold one a group sweep, as in phases 13,
+     14 and 15, and on no other path; the sha256 of S and the
+     populations, which tools/phase5_checksum.py prints of any
+     checkout's iteration; after phases 5, 7, 8,
      12, 15 and 16, every alpha_tot_group / alpha_tot / voigt_rows call
      shape the path made that no earlier phase held is held against the
      plain version at that shape, on this phase's fields cut to its
@@ -233,7 +247,12 @@ SWEEP_KERNELS = ("xy_segment", "xy_plane", "march_plane", "march_coeffs",
 # chunk's extinction for a mirror group into its flipped stack and for
 # one direction, and the rates' bound-bound profile
 EXT_KERNELS = ("alpha_tot_group", "alpha_tot", "voigt_rows")
-KERNELS = SWEEP_KERNELS + EXT_KERNELS
+# a mirror group's J emit (solvers/group_emit.py, csrc/group_emit.cu): G1
+# the angle reduction of the swept planes, G2 the flipped S and I0
+# stacks, G3 the fold of the J halves into the chunk's J; every grouped
+# regular path (phases 5, 13, 14, 15) launches all three
+GROUP_KERNELS = ("group_emit", "group_stack", "group_fold")
+KERNELS = SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS
 # those of the unsplit grouped regular path (phases 5, 13, 15) and of
 # the per-direction paths (Voronoi, Bezier, the split grid)
 GROUPED_EXT = ("alpha_tot_group", "voigt_rows")
@@ -606,6 +625,31 @@ def _time_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, reps, kernel):
+    """The device time (ms) a call of fn spends in kernels whose name
+    holds `kernel`, from torch.profiler (CUPTI) over reps calls: a
+    short kernel's own time, where CUDA events around back-to-back calls
+    measure the host's launch rate."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        us = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if us is None else us
+
+    us = sum(device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    require(us > 0, f"the profiler saw no device time of {kernel}")
+    return us / 1e3 / reps
 
 
 def _bound_ms(nbytes, ops, dtype_name):
@@ -1293,6 +1337,171 @@ def _hold_recorded(atmos, seen, what, errs):
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------- phase 2: G1-G3
+
+# phase 2's J emit shapes (label, nz, B, nx, ny): the production group's
+# (four angles of a lambda chunk), a ragged tile, a batch of one; G1 runs
+# on pieces of 1 and 7 planes and of a production piece (piece_steps at
+# the production batch, as many planes as an xy segment piece holds)
+EMIT_SHAPES = (("production", PROD["nz"], PROD["lambda_chunk"], PROD["nx"],
+                 PROD["ny"]),
+                ("ragged", 5, PROD["lambda_chunk"], 37, 29),
+                ("B=1", PROD["nz"], 1, PROD["nx"], PROD["ny"]))
+EMIT_PIECES = (1, 7)
+
+
+def _group_work(kind, L, P, B, nx, ny, nz=None):
+    """(bytes, operations) of a G1-G3 call: each value read once and
+    each written once; G1 multiplies and adds a value read, G3 adds
+    twice a point."""
+    pts = B * nx * ny
+    if kind == "group_emit":
+        return (P + 2) * L * pts, 2 * P * L * pts
+    if kind == "group_stack":
+        return (1 + P) * nz * pts, 0
+    return 4 * nz * pts, 2 * nz * pts
+
+
+def check_group_emit(atmos):
+    """Phase 2: G1-G3 (solvers/group_emit.py) against their plain
+    versions on the card, bit for bit, float64 and float32, with the
+    first production group's flips and down flags at EMIT_SHAPES: G1 on
+    pieces of EMIT_PIECES planes up and down and of a production piece
+    (its J halves full of a sentinel, so a stray write shows); G2 the S
+    stack from the transposed view of a chunk's S and the I0 stack; G3
+    on whole halves and on the interior of padded tiles.  Then each
+    timed at the production shape beside its bytes bound, G1 a plane and
+    a piece.  Returns {"times": {dtype: {kernel: (device ms, plain ms,
+    bound ms, bound_by, what, ms a call)}}, "piece": {dtype: L}}."""
+    import torch
+    from voronoirt_tpu_torch.solvers import group_emit as ge
+    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
+
+    _, flips = _production_group(atmos)
+    P = len(flips)
+    down = tuple(f[2] for f in flips)
+    unflips = tuple(f[:2] for f in flips)
+    info = {"times": {}, "piece": {}}
+    for dtype_name, dtype in (("float64", torch.float64),
+                              ("float32", torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(2026)
+
+        def u(*shape):
+            return torch.rand(*shape, generator=gen, device="cuda",
+                              dtype=torch.float64).to(dtype)
+
+        piece = min(PROD["nz"] - 1, piece_steps(
+            P * PROD["lambda_chunk"], PROD["nx"], PROD["ny"], dtype))
+        info["piece"][dtype_name] = piece
+        for label, nz, B, nx, ny in EMIT_SHAPES:
+            w = u(P)
+            held = []
+            # G1: J halves of the production depth, so every piece fits
+            J_nz = PROD["nz"]
+            for L in EMIT_PIECES + (piece,):
+                for dirn in ((1, -1) if L > 1 else (1,)):
+                    steps = (list(range(1, L + 1)) if dirn == 1 else
+                             list(range(J_nz - 2, J_nz - 2 - L, -1)))
+                    planes = u(L, P * B, nx, ny)
+                    got = [torch.full((J_nz, B, nx, ny), -1.0, dtype=dtype,
+                                      device="cuda") for _ in range(2)]
+                    want = [x.clone() for x in got]
+                    ge.group_emit(planes, steps, w, down, unflips, *got)
+                    ge.group_emit_plain(planes, steps, w, down, unflips,
+                                        *want)
+                    torch.cuda.synchronize()
+                    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                            f"group_emit differs from its plain version "
+                            f"({label}, L {L}, dirn {dirn}, {dtype_name})")
+                    held.append(f"G1 L={L}{'' if dirn == 1 else ' down'}")
+                    del planes, got, want
+            # G2: the S stack from a chunk's transposed view, the I0 stack
+            S_t = u(B, nz, nx, ny).transpose(0, 1)
+            require(torch.equal(ge.group_stack([S_t] * P, flips),
+                                ge.group_stack_plain([S_t] * P, flips)),
+                    f"group_stack (S) differs ({label}, {dtype_name})")
+            I0 = [u(B, nx, ny) for _ in range(P)]
+            require(torch.equal(ge.group_stack(I0, unflips),
+                                ge.group_stack_plain(I0, unflips)),
+                    f"group_stack (I0) differs ({label}, {dtype_name})")
+            del S_t, I0
+            held.append("G2 S and I0")
+            # G3: whole halves, and the interiors of padded tiles
+            J_up, J_dn = (u(nz, B, nx + 4, ny + 4) for _ in range(2))
+            for cut in (slice(None), slice(2, -2)):
+                up, dn = J_up[..., cut, cut], J_dn[..., cut, cut]
+                Jc = u(B, nz, *up.shape[2:])
+                want = Jc.clone()
+                ge.group_fold(Jc, up, dn)
+                ge.group_fold_plain(want, up, dn)
+                torch.cuda.synchronize()
+                require(torch.equal(Jc, want),
+                        f"group_fold differs ({label}, {dtype_name})")
+                del Jc, want
+            held.append("G3 whole and interior")
+            del J_up, J_dn
+            torch.cuda.empty_cache()
+            print(f"  J emit {dtype_name} {label} (nz {nz}, P {P}, B {B}, "
+                  f"{nx}x{ny}): {', '.join(held)} bit-equal to the plain "
+                  f"versions", flush=True)
+        info["times"][dtype_name] = _time_group_emit(
+            dtype_name, u, P, down, unflips, flips, piece)
+        torch.cuda.empty_cache()
+    return info
+
+
+def _time_group_emit(dtype_name, u, P, down, unflips, flips, piece):
+    """G1 (a plane and a piece), G2 (the S stack) and G3 at the
+    production shape beside their bytes bounds."""
+    import torch
+    from voronoirt_tpu_torch.solvers import group_emit as ge
+    nz, B, nx, ny = (PROD["nz"], PROD["lambda_chunk"], PROD["nx"],
+                     PROD["ny"])
+    esize = ELEMENT_BYTES[dtype_name]
+    dtype = getattr(torch, dtype_name)
+    J_up, J_dn = (torch.empty((nz, B, nx, ny), dtype=dtype, device="cuda")
+                  for _ in range(2))
+    w = u(P)
+    out = {}
+
+    def record(name, label, fn, plain, reps, work):
+        calls = _time_ms(fn, reps)
+        ms = _device_ms(fn, reps, name.replace("_piece", "") + "_kernel")
+        plain_ms = _time_ms(plain, 2)
+        nbytes, ops = work
+        bound, by = _bound_ms(nbytes * esize, ops, dtype_name)
+        out[name] = (ms, plain_ms, bound, by, label, calls)
+        print(f"  {name} {label} ({dtype_name}): kernel {ms:.5f} ms of "
+              f"device time ({calls:.5f} ms a call back to back, the "
+              f"wrapper's host work included), plain {plain_ms:.4f} ms, "
+              f"bound {bound:.5f} ms ({by}, {nbytes * esize / 1e9:.4f} GB), "
+              f"{100 * bound / ms:.1f} % of it", flush=True)
+
+    for L, name in ((1, "group_emit"), (piece, "group_emit_piece")):
+        planes = u(L, P * B, nx, ny)
+        steps = list(range(1, L + 1))
+        args = (planes, steps, w, down, unflips, J_up, J_dn)
+        record(name, f"a piece of {L} plane(s) at (P {P}, B {B}, {nx}x{ny})",
+               lambda: ge.group_emit(*args),
+               lambda: ge.group_emit_plain(*args), 20 if L > 1 else 200,
+               _group_work("group_emit", L, P, B, nx, ny))
+        del planes, args
+    S_t = u(B, nz, nx, ny).transpose(0, 1)
+    record("group_stack", f"the S stack (nz {nz}, P {P}, B {B}, {nx}x{ny}) "
+           f"from a chunk's transposed view",
+           lambda: ge.group_stack([S_t] * P, flips),
+           lambda: ge.group_stack_plain([S_t] * P, flips), 10,
+           _group_work("group_stack", 1, P, B, nx, ny, nz))
+    del S_t
+    Jc = u(B, nz, nx, ny)
+    record("group_fold", f"(nz {nz}, B {B}, {nx}x{ny})",
+           lambda: ge.group_fold(Jc, J_up, J_dn),
+           lambda: ge.group_fold_plain(Jc, J_up, J_dn), 10,
+           _group_work("group_fold", 1, P, B, nx, ny, nz))
+    del Jc, J_up, J_dn
+    return out
+
+
 # ------------------------------------------------------------ phase 2: V1
 
 # phase 2 builds the production sites (VOR_SITES) for its 442k-sized
@@ -1612,6 +1821,7 @@ def _launch_counts(reset=False):
     """The kernel wrappers' launch counters and the eager Voigt's calls
     on the card; reset=True sets them to 0."""
     from voronoirt_tpu_torch.physics import extinction as ex
+    from voronoirt_tpu_torch.solvers import group_emit as ge
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
     from voronoirt_tpu_torch.solvers import voronoi_level as vl
@@ -1622,6 +1832,7 @@ def _launch_counts(reset=False):
         xp.LAUNCHES = xs.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
         ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
+        ge.EMIT_LAUNCHES = ge.STACK_LAUNCHES = ge.FOLD_LAUNCHES = 0
         vl.LAUNCHES = vl.PLAIN_ON_CARD = 0
         sv.STAGE_CALLS = sv.LEAN_ON_CARD = 0
         _eager_voigt[0] = 0
@@ -1629,7 +1840,9 @@ def _launch_counts(reset=False):
             "march_plane": mp.LAUNCHES, "march_coeffs": mp.COEFFS_LAUNCHES,
             "march_chain": mp.CHAIN_LAUNCHES,
             "alpha_tot_group": ex.GROUP_LAUNCHES, "alpha_tot": ex.LAUNCHES,
-            "voigt_rows": ex.VOIGT_LAUNCHES, V1: vl.LAUNCHES,
+            "voigt_rows": ex.VOIGT_LAUNCHES, "group_emit": ge.EMIT_LAUNCHES,
+            "group_stack": ge.STACK_LAUNCHES, "group_fold": ge.FOLD_LAUNCHES,
+            V1: vl.LAUNCHES,
             V1_CALLS: sv.STAGE_CALLS, EAGER_VOIGT: _eager_voigt[0],
             EAGER_LEVELS: vl.PLAIN_ON_CARD, EAGER_HOIST: sv.LEAN_ON_CARD}
 
@@ -1677,6 +1890,24 @@ def _group_launches(eng):
             f"a singleton group: {[len(g) for g in eng.plan_groups]}")
     n_lambda = eng.lam_block.stop - eng.lam_block.start
     return len(eng.plan_groups) * -(-n_lambda // eng.cfg.lambda_chunk)
+
+
+def _emit_expected(eng, launches):
+    """G1-G3's launches on a grouped regular path, from the sweep
+    kernels' launches of the same run: one group_emit a K2 plane, a K1
+    launch (a piece of an xy segment, or a plane on a split grid) and a
+    group sweep's boundary plane; two group_stack (S and I0) and one
+    group_fold a group sweep, one sweep a mirror group and lambda
+    chunk."""
+    n = _group_launches(eng)
+    return {"group_emit": launches["march_plane"] + launches["xy_segment"]
+            + launches["xy_plane"] + n, "group_stack": 2 * n,
+            "group_fold": n}
+
+
+def _require_emit(launches, want, what):
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{what}: J emit launches {got}, not {want}")
 
 
 def _edge_rows(n_lambda, n_ranks):
@@ -1761,17 +1992,34 @@ def _production_iteration(atmos, dtype_name):
           f"max {mass:.3e}", flush=True)
     pieces = _xy_pieces(eng, T.dtype)
     n_ext = _group_launches(eng)
+    emit = _emit_expected(eng, launches)
     print(f"  launches during the iteration: {launches} (xy_segment: one a "
           f"piece of an xy segment, {pieces} expected; alpha_tot_group: one "
           f"a mirror group and lambda chunk, {n_ext} expected; alpha_tot: "
-          f"none)", flush=True)
-    _require_path(launches, UNSPLIT + GROUPED_EXT, "the streamed iteration")
+          f"none; the J emit {emit} expected: group_emit one a K2 plane, "
+          f"an xy piece and a group sweep's boundary)", flush=True)
+    _require_path(launches, UNSPLIT + GROUPED_EXT + GROUP_KERNELS,
+                  "the streamed iteration")
+    _require_emit(launches, emit, "the streamed iteration")
     require(launches["xy_segment"] == pieces,
             f"xy_segment: {launches['xy_segment']} launches, not {pieces}")
     require(launches["alpha_tot_group"] == n_ext,
             f"alpha_tot_group: {launches['alpha_tot_group']} launches, not "
             f"{n_ext}")
     return res, eng, launches, mass
+
+
+def state_digest(S, populations):
+    """The sha256 of S's and of the populations' bytes, a row at a time
+    from the card: equal digests, equal results bit for bit."""
+    import hashlib
+    out = []
+    for A in (S, populations):
+        h = hashlib.sha256()
+        for row in A:
+            h.update(row.contiguous().cpu().numpy())
+        out.append(h.hexdigest())
+    return out
 
 
 def run_production(atmos, n_ranks=LAM_RANKS, keep_S=False):
@@ -1784,6 +2032,10 @@ def run_production(atmos, n_ranks=LAM_RANKS, keep_S=False):
     convergence history and the iteration's seconds."""
     res, eng, launches, mass = _production_iteration(atmos, "float64")
     require(mass < 1e-10, f"populations do not sum to n_H ({mass:.3e})")
+    d_S, d_P = state_digest(res.S, res.populations)
+    print(f"  sha256 of S {d_S}, of the populations {d_P} (equal digests "
+          f"from tools/phase5_checksum.py on another checkout: bit-equal)",
+          flush=True)
     n_lambda = res.S.shape[0]
     ref = {"populations": res.populations.cpu().numpy(),
            "lam": eng.line.lam, "temperature": atmos.temperature,
@@ -2803,6 +3055,7 @@ def _phase13_rank(group, call_n):
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_ext = _group_launches(eng)
+    emit = _emit_expected(eng, launches)
     held = {name: {"err": _hold_kept(name, kept, n, f"rank "
                                      f"{group.rank}'s iteration at B = {B}"),
                    "shape": kept["shape"], "call": n}
@@ -2814,7 +3067,7 @@ def _phase13_rank(group, call_n):
             "iteration_s": res.timings[0], "collective_s": group.seconds,
             "collectives": group.calls, "peak_gib": peak / 2**30,
             "launches": launches, "held": held, "group_launches": n_ext,
-            "convergence": res.convergence,
+            "emit": emit, "convergence": res.convergence,
             "S_edges": {lo: res.S[0].cpu().numpy(),
                         hi - 1: res.S[-1].cpu().numpy()},
             "populations": res.populations.cpu().numpy()}
@@ -2902,8 +3155,9 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
                 and o["convergence"] == outs[0]["convergence"],
                 "the ranks' populations or criteria differ")
         # the grid is whole: the grouped path, a group's stack a launch
-        _require_path(o["launches"], UNSPLIT + GROUPED_EXT,
+        _require_path(o["launches"], UNSPLIT + GROUPED_EXT + GROUP_KERNELS,
                       f"rank {o['rank']}")
+        _require_emit(o["launches"], o["emit"], f"rank {o['rank']}")
         require(o["launches"]["alpha_tot_group"] == o["group_launches"],
                 f"rank {o['rank']}: alpha_tot_group "
                 f"{o['launches']['alpha_tot_group']} launches, not "
@@ -2968,6 +3222,7 @@ def _phase14_rank(group, call_n):
         res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    emit = _emit_expected(eng, launches)
     held = {name: {"err": _hold_kept(name, kept, call_n, f"rank "
                                      f"{group.rank}'s y-split iteration"),
                    "shape": kept["shape"], "call": call_n}
@@ -2978,7 +3233,7 @@ def _phase14_rank(group, call_n):
             "setup_s": setup, "iteration_s": res.timings[0],
             "tally": mesh.tally, "world_calls": group.calls,
             "world_s": group.seconds, "peak_gib": peak / 2**30,
-            "launches": launches, "held": held,
+            "launches": launches, "held": held, "emit": emit,
             "convergence": res.convergence,
             "S_rows": {r: res.S[r].cpu().numpy() for r in rows},
             "populations": res.populations.cpu().numpy()}
@@ -3037,9 +3292,11 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
         require(o["convergence"] == outs[0]["convergence"],
                 "the ranks' criteria differ")
         # the split sweep: K1 one plane a launch on padded tiles, the
-        # extinction per angle on padded tiles
-        _require_path(o["launches"], PLANE_KERNELS + PER_ANGLE_EXT,
-                      f"rank {o['rank']}")
+        # extinction per angle on padded tiles, the J emit on the padded
+        # planes and the fold of the tiles' interiors
+        _require_path(o["launches"], PLANE_KERNELS + PER_ANGLE_EXT
+                      + GROUP_KERNELS, f"rank {o['rank']}")
+        _require_emit(o["launches"], o["emit"], f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
           f"iteration)", flush=True)
@@ -3373,6 +3630,7 @@ def main(argv=None):
         with _record_ext() as seen:
             ext_errs, ext_times, ext_info = check_extinction(atmos)
         _EXT_HELD.update(seen)
+        group_info = check_group_emit(atmos)
         v1_info = check_voronoi_level(atmos)
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
@@ -3543,6 +3801,42 @@ def main(argv=None):
             "launches_f32_iteration": launches32[name],
             **({"f64": ext_info["float64"], "f32": ext_info["float32"]}
                if name == "alpha_tot_group" else {})})
+    # G1-G3: what they replace is the XLA the JAX package fuses into its
+    # jitted sweep_group_J, not a Pallas kernel; G1's time is a plane's
+    # emit (a K2 plane's or a boundary's: most of its launches), with a
+    # production piece's beside it
+    group_src = {"group_emit": "voronoirt_tpu/solvers/sweep_regular.py:833",
+                 "group_stack": "voronoirt_tpu/solvers/sweep_regular.py:877",
+                 "group_fold": "voronoirt_tpu/solvers/sweep_regular.py:887"}
+    for name in GROUP_KERNELS:
+        t64, t32 = (group_info["times"][d][name]
+                    for d in ("float64", "float32"))
+        row = {
+            "name": name, "route": "cuda",
+            "source": "voronoirt_tpu_torch/csrc/group_emit.cu",
+            "replaces": group_src[name], "replaces_a_tpu_kernel": False,
+            "launches": launches[name],
+            "launches_path": "phase 5: the streamed iteration",
+            "max_abs_err": 0.0, "bit_equal": True, "ms": t64[0],
+            "plain_ms": t64[1], "bound_ms": t64[2], "bound_by": t64[3],
+            "pct_of_bound": 100 * t64[2] / t64[0], "library_ms": None,
+            "ms_is": f"{t64[4]}: the kernel's device time (torch.profiler)",
+            "ms_events": t64[5], "ms_events_f32": t32[5],
+            "max_abs_err_f32": 0.0, "ms_f32": t32[0],
+            "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],
+            "bound_by_f32": t32[3], "pct_of_bound_f32": 100 * t32[2] / t32[0],
+            "launches_f32_iteration": launches32[name],
+            "launches_lam_ranks": [n[name] for n in launches_lam],
+            "launches_mesh_y_ranks": [o["launches"][name]
+                                      for o in mesh_ranks]}
+        if name == "group_emit":
+            p64, p32 = (group_info["times"][d]["group_emit_piece"]
+                        for d in ("float64", "float32"))
+            row.update({f"{k}_piece{suffix}": v for suffix, p in
+                        (("", p64), ("_f32", p32)) for k, v in
+                        zip(("ms", "plain_ms", "bound_ms"), p)},
+                       piece_planes=group_info["piece"])
+        kernels.append(row)
     # V1: what it replaces is the JAX package's compiled level scan, not
     # a Pallas kernel; its times are a level step of phase 2's
     # production gs stage (one launch a stage), and of its 'layer' stage

@@ -3,6 +3,7 @@
 CUDA card.
 
     python3 tools/profile_iteration.py [--nz 215] [--dtype float32]
+                                       [--iteration-only]
                                        [--out profile.json]
 
 Builds the configuration of chip_smoke.py phase 5 (215x256x256 grid, 91
@@ -20,10 +21,13 @@ RegularEngine.run() repeats:
   2. plain: the iteration's wall seconds, as run() times it;
   3. profiled under torch.profiler: the kernels' summed device time
      against the plain iteration's wall gives the device's busy share;
-     the kernels are listed by device time, and the extinction's kernels
-     and the stack copies (torch.cat) are summed apart.
+     the kernels are listed by device time, and the extinction's kernels,
+     the J emit's (G1 group_emit, G2 group_stack, G3 group_fold) and
+     what is left of the eager flips, adds, multiplies and stack copies
+     (torch.cat) are summed apart.
 
-Then K1 both ways at the production shape in the iteration's dtype: a
+Then (unless --iteration-only) K1 both ways at the production shape in
+the iteration's dtype: a
 214-plane xy segment (B = 52, 256x256) through xy_segment, in the
 sweep's pieces, against a loop of the per-plane kernel xy_plane on the
 same inputs (tools/profile_xy_segment.py's measure), timed in the order
@@ -155,13 +159,20 @@ def profiled(eng, S, pops):
 
 # the kernels summed apart, by a pattern of their name (mangled or
 # demangled): E1 (the alpha_tot_kernel instance for a group and the one
-# for a direction), E2, and PyTorch's cat, whose copies build the group
-# stacks
+# for a direction), E2, the J emit's G1-G3, and PyTorch's flip, add,
+# multiply and cat, which made the J emit and the group stacks before
+# G1-G3 (the split grid's extinction stack is still a cat)
 NAMED = {"alpha_tot_group (E1, a group)":
          r"alpha_tot_kernel(I.Lb1|<\w+, true>)",
          "alpha_tot (E1, a direction)":
          r"alpha_tot_kernel(I.Lb0|<\w+, false>)",
          "voigt_rows (E2)": r"voigt_rows_kernel",
+         "group_emit (G1)": r"group_emit_kernel",
+         "group_stack (G2)": r"group_stack_kernel",
+         "group_fold (G3)": r"group_fold_kernel",
+         "flip (left)": r"flip",
+         "add (left)": r"CUDAFunctor_add|AddFunctor",
+         "mul (left)": r"MulFunctor",
          "cat (stack copies)": r"CatArrayBatchedCopy"}
 
 
@@ -259,12 +270,22 @@ def fmad_variants(B, nx, ny):
     return out
 
 
+def _write(path, summary):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(summary, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nz", type=int, default=215)
     ap.add_argument("--lambda-chunk", type=int, default=13)
     ap.add_argument("--dtype", default="float64",
                     choices=("float64", "float32"))
+    ap.add_argument("--iteration-only", action="store_true",
+                    help="profile the iteration only, not K1 and the "
+                         "-fmad variants")
     ap.add_argument("--out", default=None, help="write the summary as JSON")
     args = ap.parse_args()
     require_cuda()
@@ -297,8 +318,10 @@ def main():
     print(f"iteration 2 (plain): {wall2:.4f} s", flush=True)
     S, pops, kernels = profiled(eng, S, pops)
     busy = sum(k[2] for k in kernels)
+    n_launches = sum(k[1] for k in kernels)
     print(f"iteration 3 (profiled): kernels' device time {busy:.4f} s = "
-          f"{100 * busy / wall2:.1f} % of the plain iteration's wall",
+          f"{100 * busy / wall2:.1f} % of the plain iteration's wall; "
+          f"{n_launches} device operations (kernels, copies, fills)",
           flush=True)
     for name, count, s in kernels[:15]:
         print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
@@ -311,6 +334,17 @@ def main():
     print(f"S, populations finite: {require_finite}", flush=True)
     del S, pops, eng
     torch.cuda.empty_cache()
+    summary = {"device": smi, "nz": args.nz, "dtype": args.dtype,
+               "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
+               "iteration_parts_timed_s": wall1, "parts_s": parts,
+               "iteration_plain_s": wall2, "kernels_device_s": busy,
+               "device_operations": n_launches, "kernels": kernels[:40],
+               "named_kernels": named, "finite": require_finite}
+    if args.iteration_only:
+        _write(args.out, summary)
+        if not require_finite:
+            raise SystemExit("S or populations not finite")
+        return
 
     B = 4 * cfg.lambda_chunk
     k1 = k1_segment_vs_plane(B, dtype, {})
@@ -324,19 +358,8 @@ def main():
     for kname, v in variants.items():
         print(f"  {kname}: {json.dumps(v)}", flush=True)
 
-    summary = {"device": smi, "nz": args.nz, "dtype": args.dtype,
-               "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
-               "iteration_parts_timed_s": wall1, "parts_s": parts,
-               "iteration_plain_s": wall2, "kernels_device_s": busy,
-               "kernels": kernels[:40],
-               "named_kernels": named_kernels(kernels),
-               "finite": require_finite,
-               "k1_segment_vs_plane": k1, "fmad_variants": variants}
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(summary, f, indent=1)
+    summary.update(k1_segment_vs_plane=k1, fmad_variants=variants)
+    _write(args.out, summary)
     if not require_finite:
         raise SystemExit("S or populations not finite")
     if not k1["kernel_equals_per_plane"]:

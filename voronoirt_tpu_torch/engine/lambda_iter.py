@@ -587,7 +587,9 @@ class RegularEngine(_Engine):
         """One lambda chunk of J with mirror-angle groups batched: per
         group, each angle's extinction, flipped to the canonical
         quadrant and stacked along the batch axis, runs ONE sweep whose
-        planes reduce into the quadrature-weighted J as they are made."""
+        planes reduce into the quadrature-weighted J halves as they are
+        made (group_emit, G1); group_fold (G3) adds each group's halves
+        into Jc."""
         quad, pad = self.quad, self._pad
         Jc = torch.zeros_like(S_c)
         # (nz, chunk, nx, ny); on a split grid a padded tile, its halos
@@ -601,7 +603,8 @@ class RegularEngine(_Engine):
                                           damp_c, g_cell))
                 I = sweep(plan, S_t, a_t, pad(self._I0(lam_c, plan.up)),
                           n_sweeps=self.cfg.n_sweeps, halo=self.halo)
-                # in-place J accumulation
+                # in-place J accumulation (one direction: no J halves,
+                # so no group_fold)
                 Jc.add_(float(quad.weights[i])
                         * self._strip(I).transpose(0, 1))
                 continue
@@ -613,23 +616,22 @@ class RegularEngine(_Engine):
             kw = dict(I0_list=I0_list,
                       w=[float(quad.weights[i]) for (i, _, _) in group],
                       n_sweeps=self.cfg.n_sweeps,
-                      flips=tuple(f for (_, _, f) in group), halo=self.halo)
+                      flips=tuple(f for (_, _, f) in group), halo=self.halo,
+                      out=Jc)
             if self.halo is None:
                 # one launch writes every angle's extinction into its
                 # flipped block of the group's stack, which the sweep
                 # frees (passed as an argument only)
-                I_g = sweep_group_J_stack(*args, self._alpha_tot_group(
+                sweep_group_J_stack(*args, self._alpha_tot_group(
                     group, lam_c, populations, damp_c, g_cell), **kw)
             else:
                 # a split grid: each angle's tile is padded with its halos
                 # and flipped locally (Halo.with_flips acts per tile), so
                 # the extinctions stay per angle, padded and stacked by
-                # sweep_group_J
-                I_g = sweep_group_J(*args, [pad(self._alpha_tot(
+                # sweep_group_J; G3 adds the tiles' interiors into Jc
+                sweep_group_J(*args, [pad(self._alpha_tot(
                     quad.k[i], lam_c, populations, damp_c, g_cell))
                     for (i, _, _) in group], **kw)
-            # in-place J accumulation
-            Jc.add_(self._strip(I_g).transpose(0, 1))
         return Jc
 
     def bottom_boundary(self):

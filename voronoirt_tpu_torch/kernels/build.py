@@ -1,7 +1,8 @@
 """nvcc build and ctypes loader for voronoirt_tpu_torch/csrc/*.cu.
 
 The kernels have a plain C interface: every pointer, and the CUDA
-stream, passes as ctypes.c_void_p, every size as ctypes.c_int, every
+stream, passes as ctypes.c_void_p, every size as ctypes.c_int (a stride
+that may pass 2^31 as ctypes.c_longlong), every
 physical constant as ctypes.c_double, and each launch returns
 cudaGetLastError() for the wrapper to check.  No PyTorch
 header is compiled, so the build takes seconds.
@@ -33,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_longlong
 # (name, argtypes) of every exported launch function
 _SIGNATURES = {
     "vrt_xy_plane": [_P] * 9 + [_I] * 5 + [_P],
@@ -44,6 +46,9 @@ _SIGNATURES = {
     "vrt_voigt_rows": [_P] * 4 + [_I] * 2 + [_D] * 2 + [_P],
     "vrt_voronoi_stage": [_P] * 12 + [_I] * 7 + [_P],
     "vrt_voronoi_stage_info": [_I] * 2 + [_P],
+    "vrt_group_emit": [_P] * 4 + [_I] * 10 + [_P],
+    "vrt_group_stack": [_P] * 2 + [_I] * 5 + [_L] * 3 + [_I] * 3 + [_P],
+    "vrt_group_fold": [_P] * 3 + [_I] * 4 + [_L] * 3 + [_P],
 }
 
 

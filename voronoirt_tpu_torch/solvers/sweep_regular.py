@@ -18,7 +18,11 @@ Every z-step goes through one of the kernel wrappers:
     Gauss-Seidel passes with its one-line buffer): march_plane.march_plane,
     one launch a plane.
 All take the direction geometry per batch element, so the single-
-direction `sweep` is the batched sweep with one plan.
+direction `sweep` is the batched sweep with one plan.  A mirror group's
+sweep (sweep_group_J) goes through solvers/group_emit.py around them:
+group_stack (G2) makes its flipped S and I0 stacks, group_emit (G1)
+reduces each piece or plane the sweep makes over the angles into the J
+halves, group_fold (G3) adds the halves into the chunk's J.
 
 Reference quirks reproduced (see the JAX module): the yz/xz upwind
 column is at ix + sign while the line buffer holds the previous line;
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from .formal import bezier_control, bezier_weights
+from .group_emit import flip_field, group_emit, group_fold, group_stack
 from .march_plane import march_plane
 from .xy_plane import stencil_xy, xy_plane
 from .xy_segment import piece_steps, xy_segment
@@ -202,13 +207,6 @@ def group_plans(ks, ups, z, dx, dy, max_group=None):
     return out
 
 
-def flip_field(A, flip_x, flip_y, flip_z=False):
-    """Reverse the trailing (x, y) axes (exact on the periodic domain);
-    flip_z reverses the leading axis of a z-leading field."""
-    dims = [d for d, on in ((0, flip_z), (-2, flip_x), (-1, flip_y)) if on]
-    return torch.flip(A, dims) if dims else A
-
-
 # ----------------------------------------------------------------- sweep
 
 def _per_element(vals, B_lam, ref):
@@ -265,14 +263,14 @@ def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill):
             plan, carry, alpha[t], alpha[t - dirn], S[t], S[t - dirn],
             alpha[t2], S[t2], seg.r[j], seg.fx[j], seg.fy[j],
             seg.r[jp], seg.fx[jp], seg.fy[jp], 1.0 if j == 0 else 0.0))
-        emit(t, carry)
+        emit((t,), carry[None])
     return carry
 
 
 def _xy_segment_pieces(plan, seg, S, alpha, carry, r, fx, fy, emit):
     """One linear xy segment on an unsplit grid: one xy_segment launch a
-    piece of at most xy_segment.piece_steps() planes, then emit(t,
-    plane) for each plane made, in step order.  Returns the carried
+    piece of at most xy_segment.piece_steps() planes, then one
+    emit(steps, planes) for the piece's planes.  Returns the carried
     plane after the segment."""
     dirn = 1 if plan.up else -1
     L = len(seg.steps)
@@ -284,8 +282,7 @@ def _xy_segment_pieces(plan, seg, S, alpha, carry, r, fx, fy, emit):
         out = xy_segment(alpha, S, carry, seg.steps[j0:j1], dirn, r[j0:j1],
                          fx[j0:j1], fy[j0:j1], plan.sxs, plan.sys,
                          buf[:j1 - j0])
-        for j in range(j1 - j0):
-            emit(seg.steps[j0 + j], out[j])
+        emit(seg.steps[j0:j1], out)
         # the next piece reuses buf: carry a copy of its last plane
         carry = out[-1].clone() if j1 < L else out[-1]
     return carry
@@ -295,8 +292,11 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                         interpolation="linear", halo=None):
     """Shared body of sweep / sweep_batched / sweep_batched_J.
 
-    Runs the batched multi-angle sweep and calls emit(t, plane) on every
-    computed (P*B, Nx, Ny) intensity plane t and on the boundary plane.
+    Runs the batched multi-angle sweep and calls emit(steps, planes) on
+    the computed intensity planes, (L, P*B, Nx, Ny) for the L
+    consecutive z indices `steps` (a piece of an xy segment at once, a
+    march or split-grid step and the boundary plane one at a time), so
+    that every plane is emitted once.
     interpolation='bezier' is for one plan only (`sweep`).  halo: the
     split grid's parallel/mesh.Halo (S, alpha, I0 and the planes padded
     tiles), or None.
@@ -311,7 +311,7 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
     refill = halo.refill if halo is not None else (lambda P: P)
     S, alpha = S.contiguous(), alpha.contiguous()
     carry = I0.contiguous()
-    emit(0 if lead.up else nz - 1, carry)
+    emit((0 if lead.up else nz - 1,), carry[None])
     dirn = 1 if lead.up else -1
 
     for si, seg in enumerate(lead.segments):
@@ -334,7 +334,7 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                 carry = refill(xy_plane(alpha[t - dirn], alpha[t],
                                         S[t - dirn], S[t], carry, r[j],
                                         fx[j], fy[j], lead.sxs, lead.sys))
-                emit(t, carry)
+                emit((t,), carry[None])
             continue
         if seg.case == "yz":
             f_line = _per_element([p.fy_line for p in plans], B_lam, S)
@@ -357,7 +357,7 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                 carry = march_plane(alpha[t - dirn], alpha[t], S[t - dirn],
                                     S[t], carry, r, f_line, w_cur[j], c_prev,
                                     **statics)
-                emit(t, carry)
+                emit((t,), carry[None])
             continue
         # split grid: march on whole planes, gathered as the march
         # reaches them (each upper plane is the next step's lower one)
@@ -369,13 +369,14 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
             whole = march_plane(a_p, a_c, s_p, s_c, whole, r, f_line,
                                 w_cur[j], c_prev, **statics)
             carry = halo.slab(whole)
-            emit(t, carry)
+            emit((t,), carry[None])
             a_p, s_p = a_c, s_c
 
 
 def _stacker(out):
-    def emit(t, plane):
-        out[t] = plane
+    def emit(steps, planes):
+        for t, plane in zip(steps, planes):
+            out[t] = plane
     return emit
 
 
@@ -418,13 +419,15 @@ def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
                     unflips=None, halo=None):
     """Batched multi-angle sweep emitting the weighted J contribution.
 
-    Each computed plane is reduced over the P angle blocks as it is
-    made, part[e] = w[e] * unflip_xy(I_plane[e*B:(e+1)*B]), summed
-    separately over originally-up and originally-down angles, so the
-    (nz, P*B, Nx, Ny) intensity cube never exists.  Returns (J_up, J_dn),
-    each (nz, B, Nx, Ny) in canonical z order.  halo: on a split grid,
-    the batch's parallel/mesh.Halo with each element's flips (fields,
-    planes and J padded tiles).
+    The planes are reduced over the P angle blocks as the sweep makes
+    them, one group_emit (G1) a piece of an xy segment or a plane of the
+    march: J_up[t] = sum over the originally-up angles e of w[e] *
+    unflip_xy(I[t][e*B:(e+1)*B]), J_dn[t] over the originally-down ones,
+    so the (nz, P*B, Nx, Ny) intensity cube never exists.  Every plane
+    is emitted once, so G1 writes J_up and J_dn whole.  Returns (J_up,
+    J_dn), each (nz, B, Nx, Ny) in canonical z order.  halo: on a split
+    grid, the batch's parallel/mesh.Halo with each element's flips
+    (fields, planes and J padded tiles).
     """
     P = len(plans)
     B_lam = S.shape[1] // P
@@ -434,15 +437,11 @@ def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
         down_flags = tuple(not p.up for p in plans)
     w = torch.as_tensor(w, dtype=S.dtype, device=S.device)
     shape = (S.shape[0], B_lam) + tuple(S.shape[2:])
-    J_up = torch.zeros(shape, dtype=S.dtype, device=S.device)
-    J_dn = torch.zeros_like(J_up)
+    J_up = torch.empty(shape, dtype=S.dtype, device=S.device)
+    J_dn = torch.empty_like(J_up)
 
-    def emit(t, I_plane):
-        for e in range(P):
-            blk = w[e] * flip_field(I_plane[e * B_lam:(e + 1) * B_lam],
-                                    *unflips[e])
-            # in-place J accumulation (the JAX package donates instead)
-            (J_dn if down_flags[e] else J_up)[t].add_(blk)
+    def emit(steps, planes):
+        group_emit(planes, steps, w, down_flags, unflips, J_up, J_dn)
 
     _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                         halo=halo)
@@ -450,53 +449,64 @@ def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
 
 
 def sweep_group_J(plans, S, a_list, I0_list, w, n_sweeps=3, flips=None,
-                  halo=None):
+                  halo=None, out=None):
     """One angle group's weighted J contribution from raw fields.
 
     S: shared source function (nz, B, Nx, Ny); a_list: P per-angle
     extinctions of S's shape; I0_list: P boundary planes (B, Nx, Ny);
     w: (P,) quadrature weights; flips: P (flip_x, flip_y, flip_z) from
     group_plans.  Returns the group's J (nz, B, Nx, Ny), physical
-    orientation.  halo: on a split grid, the grid's parallel/mesh.Halo;
-    S, the extinctions, I0 and J are then padded tiles (a padded tile
-    flipped locally is the mirrored position's padded tile of the
-    flipped field, so the flips stay local).  The extinctions are
-    flipped and stacked here; sweep_group_J_stack takes the stack made
-    already (physics/extinction.py alpha_tot_group).
+    orientation; with `out`, adds it into out instead (see
+    sweep_group_J_stack).  halo: on a split grid, the grid's
+    parallel/mesh.Halo; S, the extinctions, I0 and J are then padded
+    tiles (a padded tile flipped locally is the mirrored position's
+    padded tile of the flipped field, so the flips stay local).  The
+    extinctions are flipped and stacked here; sweep_group_J_stack takes
+    the stack made already (physics/extinction.py alpha_tot_group).
     """
     if flips is None:
         flips = tuple((False, False, False) for _ in plans)
     # the stack passed as an argument only, so the callee frees it
     return sweep_group_J_stack(
         plans, S, torch.cat([flip_field(a, *f) for a, f in zip(a_list, flips)],
-                            dim=1), I0_list, w, n_sweeps, flips, halo)
+                            dim=1), I0_list, w, n_sweeps, flips, halo, out)
 
 
 def sweep_group_J_stack(plans, S, a_b, I0_list, w, n_sweeps=3, flips=None,
-                        halo=None):
+                        halo=None, out=None):
     """sweep_group_J from the group's extinction stack a_b (nz, P*B, Nx,
     Ny): angle e's extinction flipped by flips[e], in block [:, e*B:(e +
-    1)*B].  Its last reference is dropped before the J flip allocates,
-    so a caller that passes the stack as an argument expression frees
-    it there."""
+    1)*B].  group_stack (G2) makes the S and I0 stacks from S (any
+    strides, e.g. the transposed view of a lambda chunk's S) and the
+    boundary planes, the sweep emits the J halves through group_emit
+    (G1), and group_fold (G3) adds J_up + flip_z(J_dn) into a (B, nz,
+    Nx, Ny) tensor: `out`, the lambda chunk's J (on a split grid the
+    tile's interior), which is returned, or else a zeroed one whose
+    transpose, the group's J (nz, B, Nx, Ny) (the padded tile on a split
+    grid), is returned.  The stacks are freed before the fold, so a
+    caller that passes a_b as an argument expression frees it there."""
     if flips is None:
         flips = tuple((False, False, False) for _ in plans)
+    strip = (lambda A: A) if halo is None or out is None else halo.strip
     if halo is not None:
         B_lam = S.shape[1]
         mask = [torch.tensor([f[a] for f in flips for _ in range(B_lam)],
                              device=S.device) for a in (0, 1)]
         halo = halo.with_flips(*mask)
-    S_b = torch.cat([flip_field(S, *f) for f in flips], dim=1)
-    I0_b = torch.cat([flip_field(i0, f[0], f[1])
-                      for i0, f in zip(I0_list, flips)], dim=0)
+    S_b = group_stack([S] * len(flips), flips)
+    I0_b = group_stack(list(I0_list), [f[:2] for f in flips])
     J_up, J_dn = sweep_batched_J(plans, S_b, a_b, I0_b, w,
                                  n_sweeps=n_sweeps,
                                  down_flags=tuple(f[2] for f in flips),
                                  unflips=tuple((f[0], f[1]) for f in flips),
                                  halo=halo)
-    del S_b, a_b      # free the stacks before the flip below allocates
-    # in place: J_up holds the group's J
-    return J_up.add_(torch.flip(J_dn, [0]))
+    del S_b, a_b, I0_b
+    if out is not None:
+        return group_fold(out, strip(J_up), strip(J_dn))
+    nz, B_lam = J_up.shape[:2]
+    J = torch.zeros((B_lam, nz) + tuple(J_up.shape[2:]), dtype=J_up.dtype,
+                    device=J_up.device)
+    return group_fold(J, J_up, J_dn).transpose(0, 1)
 
 
 # ------------------------------------------------------------ public API
