@@ -59,7 +59,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      256), a ragged (5, 13, 37, 29) and (215, 1, 256, 256), G1 on pieces
      of 1, 7 and a production piece of planes, each bit-equal to its
      plain version, then timed at the production shape beside its bytes
-     bound;
+     bound; then R1 and S1, the streamed iteration's rates and S update
+     (physics/rates.py calculate_R_chunk, engine/s_update.py;
+     csrc/rates.cu), float64 and float32, on phase 5's fields at the
+     production grid and a ragged (5, 37, 29) tile: R1 chunk after chunk
+     over the iteration's 7 lambda chunks, the carried row leading each,
+     the rates added in place, then the lambda split's edge pair onto
+     them; S1 at each chunk, and with a NaN in J; each bit-equal to its
+     plain version (or within TOL), then both timed at each production
+     chunk beside their bounds;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU;
@@ -68,6 +76,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      through RegularEngine.run(), with every kernel's launch count
      (xy_segment one a piece of an xy segment, alpha_tot_group one a
      mirror group and lambda chunk, 21, alpha_tot and xy_plane none;
+     rates_chunk and s_update one each a lambda chunk, 7, voigt_rows
+     none: E2 is left to calculate_R, the Voronoi paths' rates; R1 runs
+     once a slab of the rates in phase 8, and a chunk of a rank's block
+     and once more for its edge pair in phase 13;
      every path below launches the extinction's kernels where it makes
      extinction -- the unsplit grouped path alpha_tot_group, the
      per-direction paths alpha_tot -- and never calls the eager
@@ -252,11 +264,20 @@ EXT_KERNELS = ("alpha_tot_group", "alpha_tot", "voigt_rows")
 # stacks, G3 the fold of the J halves into the chunk's J; every grouped
 # regular path (phases 5, 13, 14, 15) launches all three
 GROUP_KERNELS = ("group_emit", "group_stack", "group_fold")
-KERNELS = SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS
-# those of the unsplit grouped regular path (phases 5, 13, 15) and of
-# the per-direction paths (Voronoi, Bezier, the split grid)
-GROUPED_EXT = ("alpha_tot_group", "voigt_rows")
-PER_ANGLE_EXT = ("alpha_tot", "voigt_rows")
+# the streamed iteration's per-chunk rates and S update
+# (physics/rates.py calculate_R_chunk, engine/s_update.py; csrc/rates.cu):
+# R1 a lambda block's rate integrals added into the running rates, S1
+# the chunk's S update and the criterion's maximum; every rate path
+# through calculate_R_chunk (the streamed iteration and its lambda
+# split's edge pair, the standard loop's rates in slabs: phases 5, 8,
+# 13, 14, 15) launches R1, the streamed iteration S1 too
+RATE_KERNELS = ("rates_chunk", "s_update")
+KERNELS = SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS + RATE_KERNELS
+# the extinction of the unsplit grouped regular path (phases 5, 13, 15)
+# and of the per-direction paths (Voronoi, Bezier, the split grid); the
+# Voronoi paths' rates (calculate_R) launch E2 for their profile
+GROUPED_EXT = ("alpha_tot_group",)
+PER_ANGLE_EXT = ("alpha_tot",)
 # the kernels that take one plane a launch
 PLANE_KERNELS = SWEEP_KERNELS[1:]
 # V1, the Voronoi level steps (solvers/voronoi_level.py,
@@ -270,7 +291,7 @@ EAGER_LEVELS = "plain level loop on the card"
 EAGER_HOIST = "lean precompute on the card"
 # the kernels of the Voronoi NLTE iteration: a direction's extinction,
 # the rates' profile and the level steps
-VORONOI = PER_ANGLE_EXT + (V1,)
+VORONOI = PER_ANGLE_EXT + ("voigt_rows", V1)
 # phase 2: V1's small plan (sites), its batches and the stage functions
 # a relax stage is held through (a plain lap, a lap with its change, the
 # hoisted lap without and with it); the directions of its holds: ul7n12
@@ -1337,6 +1358,259 @@ def _hold_recorded(atmos, seen, what, errs):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------- phase 2: R1, S1
+
+# phase 2's rate shapes: the production grid and a ragged corner tile
+RATE_SHAPES = (("production", None), ("ragged", (5, 37, 29)))
+# the lambda split's edge pair at LAM_RANKS ranks: rank 1's first row
+# and the row before it, the pair R1 adds after the rank's chunks
+EDGE_ROW = -(-(PROD["nlam_bb"] + 2 * PROD["nlam_bf"]) // LAM_RANKS)
+# operations R1 does a point of a bound-bound row besides its Humlicek
+# region's (REGION_OPS: E2's evaluator), a point of a bound-free row, a
+# cell and window; S1 a point and a cell; an exp, expm1, reciprocal or
+# division as one (csrc/rates.cu)
+RATE_OPS = {"bb_point": 26, "bf_point": 19, "window_cell": 8}
+S_UPDATE_OPS = {"point": 14, "cell": 1}
+RATE_LEVELS = {"bf0": (0, 2), "bf1": (1, 2), "bb": (0, 1)}
+
+
+def _rate_fields(atmos, dtype_name, cells=None):
+    """What R1 and S1 read besides J and S, at phase 5's LTE start on
+    the card: the line, T, the LTE populations, the damping rate and
+    eps; cut to a corner tile of `cells` when given."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch import Config
+    from voronoirt_tpu_torch.engine.lambda_iter import frozen_setup
+    from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.physics.broadening import gamma_constant
+    dtype = getattr(torch, dtype_name)
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
+
+    cfg = Config(nlam_bb=PROD["nlam_bb"], nlam_bf=PROD["nlam_bf"],
+                 dtype=dtype_name)
+    T, ne, nH = (f(atmos.temperature), f(atmos.electron_density),
+                 f(atmos.hydrogen_populations))
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the synthetic n_e's warning
+        lte, _, eps = frozen_setup(line, T, ne, nH, cfg,
+                                   block=slice(0, 0))[:3]
+    F = {"T": T, "lte": lte, "eps": eps,
+         "g": gamma_constant(line, T, lte[..., 0] + lte[..., 1], ne,
+                             cfg.gamma_natural), "dlamD": line.dlamD}
+    idx = tuple(slice(0, c) for c in cells) if cells else ()
+    F = {k: v[idx].contiguous() for k, v in F.items()}
+    F["line"] = dataclasses.replace(line, dlamD=F.pop("dlamD"))
+    return F
+
+
+def _rows_like_B(F, rows, seed):
+    """Rows `rows` (a slice of the line's) of a J- or S-like field: the
+    Planck function at the cell's T times a seeded factor in [0.5,
+    1.5)."""
+    import torch
+    from voronoirt_tpu_torch.physics.planck import B_lambda
+    T = F["T"]
+    lam = F["line"].lam_tensor()[rows].reshape((-1,) + (1,) * T.dim())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = B_lambda(lam, T[None])
+    return out.mul_(torch.rand(out.shape, generator=gen, device="cuda",
+                               dtype=out.dtype).add_(0.5))
+
+
+def _rates_work(F, r0, n_rows, acc):
+    """(bytes, operations) of one R1 launch on these inputs: each J row
+    a window reads once, the per-cell fields its windows read (T, the
+    LTE levels, and g and dlamD for a bound-bound window) once, each
+    rate written once and, where acc holds it, read once; the
+    operations of each bound-bound point's own Humlicek region, counted
+    on this launch's data."""
+    from voronoirt_tpu_torch.physics import rates
+    from voronoirt_tpu_torch.physics.broadening import damping
+    line, T = F["line"], F["T"]
+    cells, es = T.numel(), T.element_size()
+    wins = rates._chunk_windows(line, r0, n_rows)
+    levels = {lv for kind, _, _, _ in wins for lv in RATE_LEVELS[kind]}
+    bb = [(a, b) for kind, a, b, _ in wins if kind == "bb"]
+    rows = sum(b - a + 1 for _, a, b, _ in wins)
+    rates_io = sum(2 * (1 + (rates._RATE_KEYS[kind][0] in (acc or {})))
+                   for kind, _, _, _ in wins)
+    nbytes = es * cells * (rows + 1 + len(levels) + 2 * bool(bb) + rates_io)
+    tally = {"points": [0] * 4, "issued": [0] * 4, "warps": 0, "mixed": 0}
+    lam = line.lam_tensor()
+    for a, b in bb:
+        for r in range(a, b + 1):
+            lb = lam[r:r + 1].reshape((1,) * (T.dim() + 1))
+            _tally(_region_map(damping(F["g"][None], lb, line.dlamD[None]),
+                               (lb - line.lam0) / line.dlamD[None]), tally)
+    n_bb = sum(b - a + 1 for a, b in bb)
+    ops = (sum(n * o for n, o in zip(tally["points"], REGION_OPS))
+           + cells * (RATE_OPS["bb_point"] * n_bb
+                      + RATE_OPS["bf_point"] * (rows - n_bb)
+                      + RATE_OPS["window_cell"] * len(wins)))
+    return nbytes, ops
+
+
+def _s_update_work(F, nb):
+    """(bytes, operations) of one S1 launch over nb rows: J and S_old
+    read and S_new written once a point, eps and T once a cell."""
+    cells, es = F["T"].numel(), F["T"].element_size()
+    return (es * cells * (3 * nb + 2),
+            cells * (S_UPDATE_OPS["point"] * nb + S_UPDATE_OPS["cell"]))
+
+
+def _hold_bits(name, got, want, dtype_name, err):
+    """_hold_ext for values that may be NaN: NaN where want is NaN, the
+    rest held by _hold_ext."""
+    import torch
+    require(torch.equal(got.isnan(), want.isnan()),
+            f"{name}: NaN at other points than its plain version's")
+    ok = ~want.isnan()
+    return _hold_ext(name, got[ok], want[ok], dtype_name, err)
+
+
+def check_rates(atmos):
+    """Phase 2: R1 (physics/rates.py calculate_R_chunk) and S1
+    (engine/s_update.py s_update_stream) against their plain versions on
+    the card, float64 and float32, at RATE_SHAPES: R1 chunk after chunk
+    over the line's lambda chunks of the production iteration, the
+    previous chunk's last J row leading each chunk, the rates added in
+    place into the running rates, then the lambda split's edge pair onto
+    them; S1 at each chunk, its rows one row into S, and with a NaN in J
+    at the production grid's first chunk.  Then R1 and S1 timed at each
+    production chunk (CUDA events), the plain versions once, beside
+    their bounds.  Returns {"errs": {dtype: {kernel: err}}, "times":
+    {dtype: {kernel: (ms a launch, plain ms a launch, bound ms a launch,
+    bound_by, ms an iteration, bound ms an iteration)}}}."""
+    import torch
+    from voronoirt_tpu_torch.engine import s_update as s1
+    from voronoirt_tpu_torch.engine.lambda_iter import _lambda_chunks
+    from voronoirt_tpu_torch.physics import rates
+
+    info = {"errs": {}, "times": {}}
+    n_lambda = PROD["nlam_bb"] + 2 * PROD["nlam_bf"]
+    chunks = _lambda_chunks(n_lambda, PROD["lambda_chunk"])
+    for dtype_name in ("float64", "float32"):
+        err = info["errs"].setdefault(dtype_name, {})
+        for label, cells in RATE_SHAPES:
+            F = _rate_fields(atmos, dtype_name, cells)
+            line, T, eps = F["line"], F["T"], F["eps"]
+            rest = (F["g"], F["lte"], T, "reference")
+            t = {"rates_chunk": [0.0, 0.0, 0.0, 0.0],
+                 "s_update": [0.0, 0.0, 0.0, 0.0]}
+            acc_k = acc_p = lead = None
+            for ci, sl in enumerate(chunks):
+                J = _rows_like_B(F, sl, ci)
+                r0 = sl.start - (lead is not None)
+                acc_k = rates.calculate_R_chunk(line, acc_k, J, r0, *rest,
+                                                lead=lead)
+                acc_p = rates.calculate_R_chunk_plain(line, acc_p, J, r0,
+                                                      *rest, lead=lead)
+                require(set(acc_k) == set(acc_p), f"rates_chunk keys "
+                        f"{sorted(acc_k)}, plain {sorted(acc_p)}")
+                eq = all([_hold_ext("rates_chunk", acc_k[k], acc_p[k],
+                                    dtype_name, err) for k in acc_p])
+                # S1: the chunk's rows one row into a buffer of S rows
+                S = _rows_like_B(F, slice(max(sl.start - 1, 0), sl.stop + 1),
+                                 100 + ci)
+                lam_c = line.lam_tensor()[sl]
+                nans = (False, True) if label == "production" and ci == 0 \
+                    else (False,)
+                for nan in nans:
+                    Jn = J.clone() if nan else J
+                    if nan:
+                        Jn.view(-1)[Jn.numel() // 3] = float("nan")
+                    S_k, S_p = S.clone(), S.clone()
+                    _, m_k = s1.s_update_stream(S_k, Jn, eps, T, lam_c, 1)
+                    _, m_p = s1.s_update_stream_plain(S_p, Jn, eps, T, lam_c,
+                                                      1)
+                    eq_s = _hold_bits("s_update", S_k, S_p, dtype_name, err)
+                    require(bool(m_k.isnan()) == bool(m_p.isnan()) == nan,
+                            f"s_update maximum {float(m_k)}, plain "
+                            f"{float(m_p)}, NaN in J: {nan}")
+                    if not nan:
+                        eq_s = _hold_ext("s_update", m_k, m_p, dtype_name,
+                                         err) and eq_s
+                    print(f"  rates_chunk / s_update {dtype_name} {label} "
+                          f"{tuple(T.shape)}, rows [{r0}, {sl.stop})"
+                          f"{' with the lead row' if lead is not None else ''}"
+                          f"{', a NaN in J' if nan else ''}: R1 bit-equal "
+                          f"{eq}, S1 bit-equal {eq_s}, maximum "
+                          f"{float(m_k):.6e} ({float(m_p):.6e} plain)",
+                          flush=True)
+                    del S_k, S_p, Jn
+                if label == "production":
+                    _time_rates(F, J, r0, lead, acc_k, S, lam_c, t)
+                lead = J[-1:].clone()
+                del J, S
+                torch.cuda.empty_cache()
+            # the lambda split's edge pair onto the accumulated rates
+            J2 = _rows_like_B(F, slice(EDGE_ROW - 1, EDGE_ROW + 1), 99)
+            got = rates.calculate_R_chunk(line, acc_k, J2[1:], EDGE_ROW - 1,
+                                          *rest, lead=J2[:1].contiguous())
+            want = rates.calculate_R_chunk_plain(line, acc_p, J2[1:],
+                                                 EDGE_ROW - 1, *rest,
+                                                 lead=J2[:1])
+            eq = all([_hold_ext("rates_chunk", got[k], want[k], dtype_name,
+                                err) for k in want])
+            print(f"  rates_chunk {dtype_name} {label}: the lambda split's "
+                  f"edge pair (rows {EDGE_ROW - 1}, {EDGE_ROW}) onto the "
+                  f"iteration's rates bit-equal {eq}", flush=True)
+            if label == "production":
+                n = len(chunks)
+                info["times"][dtype_name] = {
+                    k: (v[0] / n, v[1] / n, v[2] / n, v[3], v[0], v[2])
+                    for k, v in t.items()}
+                for k, v in info["times"][dtype_name].items():
+                    print(f"  {k} {dtype_name} at the production grid: "
+                          f"{v[0]:.4f} ms a launch (an iteration's {n}: "
+                          f"{v[4]:.4f} ms), plain {v[1]:.4f} ms, bound "
+                          f"{v[2]:.4f} ms ({v[3]}; an iteration "
+                          f"{v[5]:.4f} ms), {100 * v[2] / v[0]:.1f} % of it",
+                          flush=True)
+            del F, acc_k, acc_p, lead, J2, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    return info
+
+
+def _time_rates(F, J, r0, lead, acc, S, lam_c, t):
+    """R1 and S1 at one production chunk, timed with CUDA events (R1
+    into a copy of the running rates, S1 on a copy of S), the plain
+    versions once; their bounds added into t[kernel] = [ms, plain ms,
+    bound ms, bound_by] summed over the chunks."""
+    from voronoirt_tpu_torch.engine import s_update as s1
+    from voronoirt_tpu_torch.physics import rates
+    dtype_name = str(F["T"].dtype).replace("torch.", "")
+    rest = (F["g"], F["lte"], F["T"], "reference")
+    acc_t = {k: v.clone() for k, v in acc.items()}
+    n_rows = J.shape[0] + (lead is not None)
+    # the bound of a launch whose windows are all known to acc
+    b_ms, by = _bound_ms(*_rates_work(F, r0, n_rows, acc_t), dtype_name)
+    ms = _time_ms(lambda: rates.calculate_R_chunk(
+        F["line"], acc_t, J, r0, *rest, lead=lead), 5)
+    plain = _time_ms(lambda: rates.calculate_R_chunk_plain(
+        F["line"], acc_t, J, r0, *rest, lead=lead), 1)
+    _add_time(t["rates_chunk"], ms, plain, b_ms, by)
+    S_t = S.clone()
+    b_ms, by = _bound_ms(*_s_update_work(F, J.shape[0]), dtype_name)
+    ms = _time_ms(lambda: s1.s_update_stream(S_t, J, F["eps"], F["T"], lam_c,
+                                             1), 5)
+    plain = _time_ms(lambda: s1.s_update_stream_plain(
+        S_t, J, F["eps"], F["T"], lam_c, 1), 1)
+    _add_time(t["s_update"], ms, plain, b_ms, by)
+
+
+def _add_time(acc, ms, plain, bound, by):
+    acc[0] += ms
+    acc[1] += plain
+    acc[2] += bound
+    acc[3] = by if acc[3] in (0.0, by) else "bytes and operations"
+
+
 # -------------------------------------------------- phase 2: G1-G3
 
 # phase 2's J emit shapes (label, nz, B, nx, ny): the production group's
@@ -1820,7 +2094,9 @@ def _count_eager_voigt():
 def _launch_counts(reset=False):
     """The kernel wrappers' launch counters and the eager Voigt's calls
     on the card; reset=True sets them to 0."""
+    from voronoirt_tpu_torch.engine import s_update as s1
     from voronoirt_tpu_torch.physics import extinction as ex
+    from voronoirt_tpu_torch.physics import rates
     from voronoirt_tpu_torch.solvers import group_emit as ge
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
@@ -1833,6 +2109,7 @@ def _launch_counts(reset=False):
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
         ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
         ge.EMIT_LAUNCHES = ge.STACK_LAUNCHES = ge.FOLD_LAUNCHES = 0
+        rates.LAUNCHES = s1.LAUNCHES = 0
         vl.LAUNCHES = vl.PLAIN_ON_CARD = 0
         sv.STAGE_CALLS = sv.LEAN_ON_CARD = 0
         _eager_voigt[0] = 0
@@ -1842,6 +2119,7 @@ def _launch_counts(reset=False):
             "alpha_tot_group": ex.GROUP_LAUNCHES, "alpha_tot": ex.LAUNCHES,
             "voigt_rows": ex.VOIGT_LAUNCHES, "group_emit": ge.EMIT_LAUNCHES,
             "group_stack": ge.STACK_LAUNCHES, "group_fold": ge.FOLD_LAUNCHES,
+            "rates_chunk": rates.LAUNCHES, "s_update": s1.LAUNCHES,
             V1: vl.LAUNCHES,
             V1_CALLS: sv.STAGE_CALLS, EAGER_VOIGT: _eager_voigt[0],
             EAGER_LEVELS: vl.PLAIN_ON_CARD, EAGER_HOIST: sv.LEAN_ON_CARD}
@@ -1907,7 +2185,7 @@ def _emit_expected(eng, launches):
 
 def _require_emit(launches, want, what):
     got = {k: launches[k] for k in want}
-    require(got == want, f"{what}: J emit launches {got}, not {want}")
+    require(got == want, f"{what}: launches {got}, not {want}")
 
 
 def _edge_rows(n_lambda, n_ranks):
@@ -1998,9 +2276,16 @@ def _production_iteration(atmos, dtype_name):
           f"a mirror group and lambda chunk, {n_ext} expected; alpha_tot: "
           f"none; the J emit {emit} expected: group_emit one a K2 plane, "
           f"an xy piece and a group sweep's boundary)", flush=True)
-    _require_path(launches, UNSPLIT + GROUPED_EXT + GROUP_KERNELS,
-                  "the streamed iteration")
+    n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
+    print(f"  rates_chunk, s_update: {launches['rates_chunk']}, "
+          f"{launches['s_update']} launches, one each a lambda chunk "
+          f"({n_chunks}); voigt_rows {launches['voigt_rows']}", flush=True)
+    _require_path(launches, UNSPLIT + GROUPED_EXT + GROUP_KERNELS
+                  + RATE_KERNELS, "the streamed iteration")
     _require_emit(launches, emit, "the streamed iteration")
+    require(launches["rates_chunk"] == launches["s_update"] == n_chunks,
+            f"rates_chunk / s_update: {launches['rates_chunk']} / "
+            f"{launches['s_update']} launches, not {n_chunks} each")
     require(launches["xy_segment"] == pieces,
             f"xy_segment: {launches['xy_segment']} launches, not {pieces}")
     require(launches["alpha_tot_group"] == n_ext,
@@ -2617,8 +2902,13 @@ def run_bezier_production(atmos):
           f"{launches}; criterion {res.convergence}; peak device memory "
           f"{peak / 2**30:.3f} GiB (max_memory_allocated); "
           f"sum(populations)/n_H - 1 max {mass:.3e}", flush=True)
+    # the rates in slabs: one R1 launch a slab of z-planes
+    n_slabs = -(-p["nz"] // BEZIER_RATES_PLANES)
     _require_path(launches, ("march_plane", "march_coeffs", "march_chain")
-                  + PER_ANGLE_EXT, "the Bezier iteration")
+                  + PER_ANGLE_EXT + ("rates_chunk",), "the Bezier iteration")
+    require(launches["rates_chunk"] == n_slabs,
+            f"rates_chunk: {launches['rates_chunk']} launches, not one a "
+            f"slab ({n_slabs})")
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
@@ -3056,6 +3346,11 @@ def _phase13_rank(group, call_n):
     peak = torch.cuda.max_memory_allocated(dev)
     n_ext = _group_launches(eng)
     emit = _emit_expected(eng, launches)
+    # R1 and S1 one each a chunk of the block, R1 once more for the pair
+    # across the block's lower edge (not on rank 0)
+    n_chunks = -(-(hi - lo) // cfg.lambda_chunk)
+    rate_launches = {"rates_chunk": n_chunks + (lo > 0),
+                     "s_update": n_chunks}
     held = {name: {"err": _hold_kept(name, kept, n, f"rank "
                                      f"{group.rank}'s iteration at B = {B}"),
                    "shape": kept["shape"], "call": n}
@@ -3067,7 +3362,8 @@ def _phase13_rank(group, call_n):
             "iteration_s": res.timings[0], "collective_s": group.seconds,
             "collectives": group.calls, "peak_gib": peak / 2**30,
             "launches": launches, "held": held, "group_launches": n_ext,
-            "emit": emit, "convergence": res.convergence,
+            "emit": emit, "rate_launches": rate_launches,
+            "convergence": res.convergence,
             "S_edges": {lo: res.S[0].cpu().numpy(),
                         hi - 1: res.S[-1].cpu().numpy()},
             "populations": res.populations.cpu().numpy()}
@@ -3155,9 +3451,10 @@ def run_lam_production(ref, n_ranks=LAM_RANKS):
                 and o["convergence"] == outs[0]["convergence"],
                 "the ranks' populations or criteria differ")
         # the grid is whole: the grouped path, a group's stack a launch
-        _require_path(o["launches"], UNSPLIT + GROUPED_EXT + GROUP_KERNELS,
-                      f"rank {o['rank']}")
+        _require_path(o["launches"], UNSPLIT + GROUPED_EXT + GROUP_KERNELS
+                      + RATE_KERNELS, f"rank {o['rank']}")
         _require_emit(o["launches"], o["emit"], f"rank {o['rank']}")
+        _require_emit(o["launches"], o["rate_launches"], f"rank {o['rank']}")
         require(o["launches"]["alpha_tot_group"] == o["group_launches"],
                 f"rank {o['rank']}: alpha_tot_group "
                 f"{o['launches']['alpha_tot_group']} launches, not "
@@ -3295,8 +3592,12 @@ def run_mesh_production(ref, n_ranks=MESH_RANKS):
         # extinction per angle on padded tiles, the J emit on the padded
         # planes and the fold of the tiles' interiors
         _require_path(o["launches"], PLANE_KERNELS + PER_ANGLE_EXT
-                      + GROUP_KERNELS, f"rank {o['rank']}")
+                      + GROUP_KERNELS + RATE_KERNELS, f"rank {o['rank']}")
         _require_emit(o["launches"], o["emit"], f"rank {o['rank']}")
+        n_chunks = -(-(PROD["nlam_bb"] + 2 * PROD["nlam_bf"])
+                     // PROD["lambda_chunk"])
+        _require_emit(o["launches"], dict.fromkeys(RATE_KERNELS, n_chunks),
+                      f"rank {o['rank']}")
     print(f"  the spawn, start to the last result: {wall:.2f} s; criterion "
           f"{outs[0]['convergence']} (phase 5 and 13 ran the same "
           f"iteration)", flush=True)
@@ -3372,7 +3673,7 @@ def run_f32_production(atmos, ref, launches64):
     # K2 one launch a plane as in float64; K1's pieces hold twice the
     # float32 planes, so half the launches
     require(all(launches[k] == launches64[k]
-                for k in PLANE_KERNELS + EXT_KERNELS),
+                for k in PLANE_KERNELS + EXT_KERNELS + RATE_KERNELS),
             f"float32 launches {launches}, float64 (phase 5) {launches64}")
     errs = {}
     for name, kept, n in (("xy_segment", kept_xy, XY_SEG_CALL),
@@ -3631,6 +3932,7 @@ def main(argv=None):
             ext_errs, ext_times, ext_info = check_extinction(atmos)
         _EXT_HELD.update(seen)
         group_info = check_group_emit(atmos)
+        rate_info = check_rates(atmos)
         v1_info = check_voronoi_level(atmos)
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
@@ -3716,13 +4018,17 @@ def main(argv=None):
     # for xy_plane, which only the split sweep launches, a rank of phase
     # 14's; for the per-direction alpha_tot, which the unsplit grouped
     # path no longer launches, phase 8's Bezier iteration, which calls it
-    # at the shape phase 2 times
+    # at the shape phase 2 times; for voigt_rows, which R1 replaced on
+    # every calculate_R_chunk path, phase 7's Voronoi iterations
+    # (calculate_R)
     path = dict.fromkeys(KERNELS, "phase 5: the streamed iteration")
     path["xy_plane"] = "phase 14: the y-split iteration, rank 0"
     path["alpha_tot"] = "phase 8: the Bezier iteration"
+    path["voigt_rows"] = "phase 7: the two Voronoi iterations"
     path_launches = dict(launches,
                          xy_plane=mesh_ranks[0]["launches"]["xy_plane"],
-                         alpha_tot=launches_bezier["alpha_tot"])
+                         alpha_tot=launches_bezier["alpha_tot"],
+                         voigt_rows=vor_ref["launches"]["voigt_rows"])
     k1 = "voronoirt_tpu/solvers/pallas_xy.py:65"
     k2 = ("voronoirt_tpu_torch/csrc/march_plane.cu",
           "voronoirt_tpu/solvers/pallas_march.py:89")
@@ -3837,6 +4143,39 @@ def main(argv=None):
                         zip(("ms", "plain_ms", "bound_ms"), p)},
                        piece_planes=group_info["piece"])
         kernels.append(row)
+    # R1 and S1: what they replace is the JAX package's two jitted
+    # programs a lambda chunk, not a Pallas kernel; their times are a
+    # launch's mean over the production iteration's chunks
+    rate_src = {"rates_chunk": "voronoirt_tpu/engine/lambda_iter.py:254",
+                "s_update": "voronoirt_tpu/engine/lambda_iter.py:236"}
+    for name in RATE_KERNELS:
+        (e64, e32), (t64, t32) = ((d["float64"][name], d["float32"][name])
+                                  for d in (rate_info["errs"],
+                                            rate_info["times"]))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "voronoirt_tpu_torch/csrc/rates.cu",
+            "replaces": rate_src[name], "replaces_a_tpu_kernel": False,
+            "launches": launches[name],
+            "launches_path": "phase 5: the streamed iteration",
+            "max_abs_err": e64["abs"], "max_rel_err": e64["rel"],
+            "bit_equal": e64["equal"], "ms": t64[0], "plain_ms": t64[1],
+            "bound_ms": t64[2], "bound_by": t64[3],
+            "pct_of_bound": 100 * t64[2] / t64[0], "library_ms": None,
+            "ms_is": "a launch's mean over the production iteration's "
+                     "lambda chunks (CUDA events)",
+            "ms_iteration": t64[4], "bound_ms_iteration": t64[5],
+            "launches_bezier_iteration": launches_bezier[name],
+            "launches_lam_ranks": [n[name] for n in launches_lam],
+            "launches_mesh_y_ranks": [o["launches"][name]
+                                      for o in mesh_ranks],
+            "launches_voronoi_iterations": vor_ref["launches"][name],
+            "max_abs_err_f32": e32["abs"], "max_rel_err_f32": e32["rel"],
+            "bit_equal_f32": e32["equal"], "ms_f32": t32[0],
+            "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],
+            "bound_by_f32": t32[3], "pct_of_bound_f32": 100 * t32[2] / t32[0],
+            "ms_iteration_f32": t32[4], "bound_ms_iteration_f32": t32[5],
+            "launches_f32_iteration": launches32[name]})
     # V1: what it replaces is the JAX package's compiled level scan, not
     # a Pallas kernel; its times are a level step of phase 2's
     # production gs stage (one launch a stage), and of its 'layer' stage

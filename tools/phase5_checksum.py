@@ -4,7 +4,8 @@ given checkout, on one CUDA card: its seconds, peak memory and the
 sha256 of S and the populations.
 
     python3 tools/phase5_checksum.py [--repo DIR] [--dtype float32]
-                                     [--repeat N]
+                                     [--repeat N] [--save P.npy]
+                                     [--against P.npy]
 
 Runs phase 5's configuration (215x256x256 grid, 91 wavelengths, ul7n12,
 lambda-streamed, lambda_chunk 13, 4-angle groups; --dtype float32 makes
@@ -16,7 +17,11 @@ state_digest) are always this checkout's.  It prints each iteration's
 seconds and peak memory and the digests of the last run, the line
 phase 5 prints: equal digests from two checkouts on one card mean
 bit-equal results, and the seconds of two checkouts run in turns in one
-call compare them on that card.
+call compare them on that card.  --save writes the last run's
+populations to a .npy file; --against reads another checkout's (a
+--save of the same configuration) and prints the largest relative
+difference of the populations from them, and where it lies, when the
+two differ.
 """
 
 import argparse
@@ -46,6 +51,10 @@ def main():
     ap.add_argument("--dtype", default="float64",
                     choices=("float64", "float32"))
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--save", default=None,
+                    help="write the last run's populations here (.npy)")
+    ap.add_argument("--against", default=None,
+                    help="another checkout's populations (.npy) to compare")
     args = ap.parse_args()
     repo = os.path.abspath(args.repo)
     cs = _this_chip_smoke()
@@ -85,6 +94,23 @@ def main():
     d_S, d_P = cs.state_digest(res.S, res.populations)
     print(f"{repo} {args.dtype}: sha256 of S {d_S}, of the populations "
           f"{d_P}", flush=True)
+    import numpy as np
+    P = res.populations.cpu().numpy()
+    if args.save:
+        os.makedirs(os.path.dirname(os.path.abspath(args.save)),
+                    exist_ok=True)
+        np.save(args.save, P)
+    if args.against:
+        ref = np.load(args.against)
+        rel = np.abs(P / ref - 1.0)
+        per_nH = np.abs(P - ref) / ref.sum(-1, keepdims=True)
+        at = np.unravel_index(np.argmax(rel), rel.shape)
+        print(f"{repo} {args.dtype}: populations against {args.against}: "
+              f"bit-equal {np.array_equal(P, ref)}, largest relative "
+              f"difference {float(rel.max()):.3e} at (z, x, y, level) "
+              f"{tuple(int(i) for i in at)}, largest |difference| / n_H "
+              f"{float(per_nH.max()):.3e}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -15,15 +15,17 @@ RegularEngine.run() repeats:
   1. parts timed: host timers around synchronised calls of each part
      (the extinction's alpha_tot_group wrapper -- a mirror group's stack
      a launch -- and its per-direction alpha_tot, each group sweep by
-     plane-cut case, rate accumulation, S update, statistical
-     equilibrium; and inside the rates, not added to the parts, their
-     bound-bound profile's voigt_rows wrapper);
+     plane-cut case, rate accumulation (R1 a chunk), S update (S1 a
+     chunk), statistical equilibrium);
   2. plain: the iteration's wall seconds, as run() times it;
   3. profiled under torch.profiler: the kernels' summed device time
      against the plain iteration's wall gives the device's busy share;
      the kernels are listed by device time, and the extinction's kernels,
-     the J emit's (G1 group_emit, G2 group_stack, G3 group_fold) and
-     what is left of the eager flips, adds, multiplies and stack copies
+     the J emit's (G1 group_emit, G2 group_stack, G3 group_fold), the
+     rates' and S update's (R1 rates_chunk, S1 s_update: their device
+     time beside the least time an iteration's launches could take,
+     chip_smoke.py's bound of each launch on this run's inputs) and what
+     is left of the eager flips, adds, multiplies and stack copies
      (torch.cat) are summed apart.
 
 Then (unless --iteration-only) K1 both ways at the production shape in
@@ -60,6 +62,7 @@ from voronoirt_tpu_torch.engine import RegularEngine  # noqa: E402
 from voronoirt_tpu_torch.engine import lambda_iter  # noqa: E402
 from voronoirt_tpu_torch.kernels import build  # noqa: E402
 from voronoirt_tpu_torch.physics import rates  # noqa: E402
+import chip_smoke  # noqa: E402
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
 from voronoirt_tpu_torch.solvers import march_plane as mp  # noqa: E402
 from voronoirt_tpu_torch.solvers import xy_plane as xp  # noqa: E402
@@ -81,10 +84,6 @@ def _case(plans, *_):
     return "sweep " + "+".join(sorted({s.case for s in plans[0].segments}))
 
 
-# a part timed inside another: reported, not added to the parts
-NESTED = "voigt_rows (inside rates)"
-
-
 def parts_timed(eng, S, pops):
     """One iteration with every part behind synchronised host timers."""
     acc = defaultdict(float)
@@ -95,8 +94,6 @@ def parts_timed(eng, S, pops):
         mock.patch.object(lambda_iter, "alpha_tot",
                           _timed(lambda_iter.alpha_tot,
                                  "extinction (alpha_tot)", acc)),
-        mock.patch.object(rates, "voigt_rows",
-                          _timed(rates.voigt_rows, NESTED, acc)),
         mock.patch.object(lambda_iter, "sweep_group_J",
                           _timed(lambda_iter.sweep_group_J, _case, acc)),
         mock.patch.object(lambda_iter, "sweep_group_J_stack",
@@ -124,8 +121,7 @@ def parts_timed(eng, S, pops):
     finally:
         for p in patches:
             p.stop()
-    acc["other (unwrapped)"] = wall - sum(v for k, v in acc.items()
-                                          if k != NESTED)
+    acc["other (unwrapped)"] = wall - sum(acc.values())
     return S, pops, wall, dict(acc)
 
 
@@ -170,6 +166,8 @@ NAMED = {"alpha_tot_group (E1, a group)":
          "group_emit (G1)": r"group_emit_kernel",
          "group_stack (G2)": r"group_stack_kernel",
          "group_fold (G3)": r"group_fold_kernel",
+         "rates_chunk (R1)": r"rates_chunk_kernel",
+         "s_update (S1)": r"s_update_kernel",
          "flip (left)": r"flip",
          "add (left)": r"CUDAFunctor_add|AddFunctor",
          "mul (left)": r"MulFunctor",
@@ -185,6 +183,27 @@ def named_kernels(kernels):
         hits = [(c, s) for name, c, s in kernels if re.search(pat, name)]
         out[label] = (sum(c for c, _ in hits), sum(s for _, s in hits))
     return out
+
+
+def rates_bound(eng, pops):
+    """The least time (s) an iteration's R1 and S1 launches could take
+    on these inputs: chip_smoke.py's bound of each launch (bytes, and the
+    operations of each bound-bound point's Humlicek region), summed over
+    the lambda chunks."""
+    dtype_name = str(eng.dtype).replace("torch.", "")
+    F = {"line": eng.line, "T": eng.T, "g": eng._gamma_cell(pops)}
+    n, chunk = eng.line.n_lambda, eng.cfg.lambda_chunk
+    acc, r1, s1 = {}, 0.0, 0.0
+    for ci, sl in enumerate(lambda_iter._lambda_chunks(n, chunk)):
+        r0, n_rows = sl.start - (ci > 0), sl.stop - sl.start + (ci > 0)
+        r1 += chip_smoke._bound_ms(*chip_smoke._rates_work(F, r0, n_rows,
+                                                           acc),
+                                   dtype_name)[0]
+        for kind, _, _, _ in rates._chunk_windows(eng.line, r0, n_rows):
+            acc.update(dict.fromkeys(rates._RATE_KEYS[kind]))
+        s1 += chip_smoke._bound_ms(*chip_smoke._s_update_work(
+            F, sl.stop - sl.start), dtype_name)[0]
+    return r1 / 1e3, s1 / 1e3
 
 
 def _rand_planes(B, nx, ny, dtype, seed):
@@ -329,6 +348,11 @@ def main():
     for what, (count, s) in named.items():
         print(f"  {what}: {count} launches, {s:.4f} s of device time",
               flush=True)
+    b_r1, b_s1 = rates_bound(eng, pops)
+    d_rs = named["rates_chunk (R1)"][1] + named["s_update (S1)"][1]
+    print(f"  the rates and S update (R1 + S1): {d_rs:.4f} s of device "
+          f"time; bound {b_r1 + b_s1:.4f} s (R1 {b_r1:.4f}, S1 {b_s1:.4f}):"
+          f" {100 * (b_r1 + b_s1) / d_rs:.1f} % of it", flush=True)
     require_finite = bool(torch.isfinite(S).all()) and bool(
         torch.isfinite(pops).all())
     print(f"S, populations finite: {require_finite}", flush=True)
@@ -339,7 +363,9 @@ def main():
                "iteration_parts_timed_s": wall1, "parts_s": parts,
                "iteration_plain_s": wall2, "kernels_device_s": busy,
                "device_operations": n_launches, "kernels": kernels[:40],
-               "named_kernels": named, "finite": require_finite}
+               "named_kernels": named, "rates_s_update_device_s": d_rs,
+               "rates_bound_s": b_r1, "s_update_bound_s": b_s1,
+               "finite": require_finite}
     if args.iteration_only:
         _write(args.out, summary)
         if not require_finite:

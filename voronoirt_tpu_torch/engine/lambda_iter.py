@@ -66,6 +66,7 @@ from ..quadrature import get_quadrature
 from ..solvers.sweep_regular import (build_plan, group_plans, sweep,
                                      sweep_group_J, sweep_group_J_stack)
 from ..solvers.sweep_voronoi import device_plan, sweep_voronoi_t
+from . import s_update as _s1
 
 _C_KEYS = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
 
@@ -135,22 +136,18 @@ def _s_update_stream(line, S, Jc, eps, T, lam_c, start):
     criterion's partial max, and the write of S_new over the S_old chunk
     IN PLACE -- the chunk's sweep has consumed S_old by now (the JAX
     package donates S instead).  Returns (S, partial_max) with the max a
-    0-d tensor."""
-    S_old_c = S[start:start + Jc.shape[0]]
-    B0_c = B_lambda(lam_c.reshape((-1,) + (1,) * T.dim()), T[None])
-    S_new_c = ((1.0 - eps)[None] * Jc + eps[None] * B0_c).to(S.dtype)
-    denom = torch.where(S_new_c != 0.0, S_new_c, 1.0)
-    m = torch.max(torch.abs(S_new_c - S_old_c) / torch.abs(denom))
-    S_old_c.copy_(S_new_c)
-    return S, m
+    0-d tensor on S's device: one S1 launch on the card
+    (engine/s_update.py)."""
+    return _s1.s_update_stream(S, Jc, eps, T, lam_c, start)
 
 
 def _rates_accum(line, acc, carry, Jc, r0, g_cell, lte, T, compat):
     """Accumulate one lambda chunk's radiative-rate contributions; carry
-    is the previous chunk's last J row (None for the first chunk)."""
-    J_blk = Jc if carry is None else torch.cat([carry, Jc], 0)
-    return calculate_R_chunk(line, acc, J_blk, r0, g_cell, lte, T,
-                             compat=compat)
+    is the previous chunk's last J row (None for the first chunk), which
+    leads the chunk's rows: one R1 launch on the card, into acc's
+    tensors in place."""
+    return calculate_R_chunk(line, acc, Jc, r0, g_cell, lte, T,
+                             compat=compat, lead=carry)
 
 
 def _edge_pair(engine, acc, prev, first, g_cell):
@@ -161,9 +158,8 @@ def _edge_pair(engine, acc, prev, first, g_cell):
     if prev is None:
         return acc
     return calculate_R_chunk(
-        engine.line, acc, torch.cat([prev, first]),
-        engine.lam_block.start - 1, g_cell, engine.lte, engine.T,
-        compat=engine.cfg.compat)
+        engine.line, acc, first, engine.lam_block.start - 1, g_cell,
+        engine.lte, engine.T, compat=engine.cfg.compat, lead=prev)
 
 
 def _rates_and_populations(line, J, damping_lam, lte, C, temperature,
@@ -192,12 +188,11 @@ def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
     R = {}
     for s0 in range(0, n, step):
         sl = slice(s0, min(s0 + step, n))
-        J_sl = J[:, sl] if prev is None else torch.cat([prev[:, sl],
-                                                         J[:, sl]])
         acc = calculate_R_chunk(
-            dataclasses.replace(line, dlamD=line.dlamD[sl]), None, J_sl,
+            dataclasses.replace(line, dlamD=line.dlamD[sl]), None, J[:, sl],
             lo if prev is None else lo - 1, g_cell[sl], lte[sl],
-            temperature[sl], compat=compat)
+            temperature[sl], compat=compat,
+            lead=None if prev is None else prev[:, sl])
         for k, v in acc.items():
             R.setdefault(k, torch.zeros_like(temperature))[sl] = v
     R = _lam.all_reduce_rates(group, R, temperature)

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "vrt_group_emit": [_P] * 4 + [_I] * 10 + [_P],
     "vrt_group_stack": [_P] * 2 + [_I] * 5 + [_L] * 3 + [_I] * 3 + [_P],
     "vrt_group_fold": [_P] * 3 + [_I] * 4 + [_L] * 3 + [_P],
+    "vrt_rates_chunk": [_P] * 12 + [_I] + [_L] * 2 + [_I] * 3 + [_D] * 8
+    + [_P],
+    "vrt_s_update": [_P] * 6 + [_L] + [_I] + [_D] * 2 + [_P] * 2,
 }
 
 
