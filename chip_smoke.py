@@ -65,21 +65,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      production grid and a ragged (5, 37, 29) tile: R1 chunk after chunk
      over the iteration's 7 lambda chunks, the carried row leading each,
      the rates added in place, then the lambda split's edge pair onto
-     them; S1 at each chunk, and with a NaN in J; each bit-equal to its
-     plain version (or within TOL), then both timed at each production
-     chunk beside their bounds;
+     them; S1 at each chunk, and with a NaN in J; R1 as the standard
+     loop launches it, all 91 rows into new rates at 442,368 sites
+     (the production grid's first cells); each bit-equal to its plain
+     version (or within TOL), then both timed at each production chunk
+     beside their bounds, R1 by chunk kind (bound-bound, bound-free)
+     and at the 442,368-site launch too;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
-  4. the small entry() step on the card against the same step on the CPU;
+  4. the small entry() step on the card against the same step on the CPU,
+     its rates one R1 launch and no voigt_rows;
   5. one Lambda iteration of the production configuration
      (215x256x256 grid, 91 wavelengths, ul7n12, float64, lambda-streamed)
      through RegularEngine.run(), with every kernel's launch count
      (xy_segment one a piece of an xy segment, alpha_tot_group one a
      mirror group and lambda chunk, 21, alpha_tot and xy_plane none;
      rates_chunk and s_update one each a lambda chunk, 7, voigt_rows
-     none: E2 is left to calculate_R, the Voronoi paths' rates; R1 runs
-     once a slab of the rates in phase 8, and a chunk of a rank's block
-     and once more for its edge pair in phase 13;
+     none, as on every iteration path: R1 runs once a slab of the rates
+     in phase 8, a chunk of a rank's block and once more for its edge
+     pair in phase 13, and once an iteration (the standard loop's rates)
+     in phases 4, 6, 7 and 15's Voronoi iterations;
      every path below launches the extinction's kernels where it makes
      extinction -- the unsplit grouped path alpha_tot_group, the
      per-direction paths alpha_tot -- and never calls the eager
@@ -268,14 +273,14 @@ GROUP_KERNELS = ("group_emit", "group_stack", "group_fold")
 # (physics/rates.py calculate_R_chunk, engine/s_update.py; csrc/rates.cu):
 # R1 a lambda block's rate integrals added into the running rates, S1
 # the chunk's S update and the criterion's maximum; every rate path
-# through calculate_R_chunk (the streamed iteration and its lambda
-# split's edge pair, the standard loop's rates in slabs: phases 5, 8,
-# 13, 14, 15) launches R1, the streamed iteration S1 too
+# launches R1 (the streamed iteration and its lambda split's edge pair,
+# the standard loop's rates at once or in slabs, entry(): phases 4-8,
+# 13-15), the streamed iteration S1 too
 RATE_KERNELS = ("rates_chunk", "s_update")
 KERNELS = SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS + RATE_KERNELS
 # the extinction of the unsplit grouped regular path (phases 5, 13, 15)
-# and of the per-direction paths (Voronoi, Bezier, the split grid); the
-# Voronoi paths' rates (calculate_R) launch E2 for their profile
+# and of the per-direction paths (Voronoi, Bezier, the split grid); no
+# iteration path launches E2 (calculate_R's profile)
 GROUPED_EXT = ("alpha_tot_group",)
 PER_ANGLE_EXT = ("alpha_tot",)
 # the kernels that take one plane a launch
@@ -290,8 +295,9 @@ V1_CALLS = "stage calls"
 EAGER_LEVELS = "plain level loop on the card"
 EAGER_HOIST = "lean precompute on the card"
 # the kernels of the Voronoi NLTE iteration: a direction's extinction,
-# the rates' profile and the level steps
-VORONOI = PER_ANGLE_EXT + ("voigt_rows", V1)
+# the level steps and the rates (the standard loop's: one R1 launch an
+# iteration over all the line's rows)
+VORONOI = PER_ANGLE_EXT + ("rates_chunk", V1)
 # phase 2: V1's small plan (sites), its batches and the stage functions
 # a relax stage is held through (a plain lap, a lap with its change, the
 # hoisted lap without and with it); the directions of its holds: ul7n12
@@ -1362,6 +1368,10 @@ def _hold_recorded(atmos, seen, what, errs):
 
 # phase 2's rate shapes: the production grid and a ragged corner tile
 RATE_SHAPES = (("production", None), ("ragged", (5, 37, 29)))
+# the standard loop's R1 launch at the Voronoi production count: all the
+# line's rows at once into new rates, on the first VOR_SITES cells of
+# the production grid taken as sites
+RATE_SITES = VOR_SITES
 # the lambda split's edge pair at LAM_RANKS ranks: rank 1's first row
 # and the row before it, the pair R1 adds after the rank's chunks
 EDGE_ROW = -(-(PROD["nlam_bb"] + 2 * PROD["nlam_bf"]) // LAM_RANKS)
@@ -1480,21 +1490,28 @@ def check_rates(atmos):
     previous chunk's last J row leading each chunk, the rates added in
     place into the running rates, then the lambda split's edge pair onto
     them; S1 at each chunk, its rows one row into S, and with a NaN in J
-    at the production grid's first chunk.  Then R1 and S1 timed at each
-    production chunk (CUDA events), the plain versions once, beside
-    their bounds.  Returns {"errs": {dtype: {kernel: err}}, "times":
-    {dtype: {kernel: (ms a launch, plain ms a launch, bound ms a launch,
-    bound_by, ms an iteration, bound ms an iteration)}}}."""
+    at the production grid's first chunk; then R1 as the standard loop
+    launches it, all 91 rows into new rates, at RATE_SITES sites.  Then
+    R1 and S1 timed at each production chunk (CUDA events; R1's device
+    time under torch.profiler too), the plain versions once, beside
+    their bounds, R1 also by chunk kind (the
+    chunks that hold bound-bound rows and those that hold bound-free
+    rows only) and at the RATE_SITES launch.  Returns {"errs": {dtype:
+    {kernel: err}}, "times": {dtype: {kernel: (ms a launch, plain ms a
+    launch, bound ms a launch, bound_by, ms an iteration, bound ms an
+    iteration)}}, "r1": {dtype: {"bound-bound" | "bound-free" | "sites":
+    {"launches", "ms", "plain_ms", "bound_ms", "bound_by"} a launch}}}."""
     import torch
     from voronoirt_tpu_torch.engine import s_update as s1
     from voronoirt_tpu_torch.engine.lambda_iter import _lambda_chunks
     from voronoirt_tpu_torch.physics import rates
 
-    info = {"errs": {}, "times": {}}
+    info = {"errs": {}, "times": {}, "r1": {}}
     n_lambda = PROD["nlam_bb"] + 2 * PROD["nlam_bf"]
     chunks = _lambda_chunks(n_lambda, PROD["lambda_chunk"])
     for dtype_name in ("float64", "float32"):
         err = info["errs"].setdefault(dtype_name, {})
+        kinds = info["r1"].setdefault(dtype_name, {})
         for label, cells in RATE_SHAPES:
             F = _rate_fields(atmos, dtype_name, cells)
             line, T, eps = F["line"], F["T"], F["eps"]
@@ -1543,7 +1560,7 @@ def check_rates(atmos):
                           flush=True)
                     del S_k, S_p, Jn
                 if label == "production":
-                    _time_rates(F, J, r0, lead, acc_k, S, lam_c, t)
+                    _time_rates(F, J, r0, lead, acc_k, S, lam_c, t, kinds)
                 lead = J[-1:].clone()
                 del J, S
                 torch.cuda.empty_cache()
@@ -1574,14 +1591,68 @@ def check_rates(atmos):
             del F, acc_k, acc_p, lead, J2, got, want
             gc.collect()
             torch.cuda.empty_cache()
+        kinds["sites"] = _hold_rates_sites(atmos, dtype_name, err)
+        for kind, v in kinds.items():
+            print(f"  rates_chunk {dtype_name}, {kind} ({v['launches']} "
+                  f"launch{'es' if v['launches'] > 1 else ''}): "
+                  f"{v['ms']:.4f} ms a launch ({v['ms_device']:.4f} ms "
+                  f"on the device), plain "
+                  f"{v['plain_ms']:.4f} ms, "
+                  f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
+                  f"{100 * v['bound_ms'] / v['ms']:.1f} % of it", flush=True)
     return info
 
 
-def _time_rates(F, J, r0, lead, acc, S, lam_c, t):
+def _hold_rates_sites(atmos, dtype_name, err):
+    """R1 as the standard loop launches it (engine/lambda_iter.py
+    _rates_and_populations): all the line's rows from row 0 into new
+    rates, on the first RATE_SITES cells of the production grid as
+    sites; held against the plain version, then timed beside its bound.
+    Returns its times a launch."""
+    import torch
+    from voronoirt_tpu_torch.physics import rates
+    F = _rate_fields(atmos, dtype_name)
+    n = RATE_SITES
+    S = {k: v.reshape(-1)[:n].contiguous() for k, v in F.items()
+         if k not in ("line", "lte")}
+    S["lte"] = F["lte"].reshape(-1, F["lte"].shape[-1])[:n].contiguous()
+    S["line"] = dataclasses.replace(
+        F["line"], dlamD=F["line"].dlamD.reshape(-1)[:n].contiguous())
+    del F
+    line = S["line"]
+    J = _rows_like_B(S, slice(0, line.n_lambda), 7)
+    rest = (S["g"], S["lte"], S["T"], "reference")
+    got = rates.calculate_R_chunk(line, None, J, 0, *rest)
+    want = rates.calculate_R_chunk_plain(line, None, J, 0, *rest)
+    require(set(got) == set(want), f"rates_chunk keys {sorted(got)}, plain "
+            f"{sorted(want)}")
+    eq = all([_hold_ext("rates_chunk", got[k], want[k], dtype_name, err)
+              for k in want])
+    print(f"  rates_chunk {dtype_name} at {n} sites, rows [0, "
+          f"{line.n_lambda}) into new rates (the standard loop's launch): "
+          f"bit-equal {eq}", flush=True)
+    b_ms, by = _bound_ms(*_rates_work(S, 0, line.n_lambda, None), dtype_name)
+
+    def launch():
+        rates.calculate_R_chunk(line, None, J, 0, *rest)
+
+    out = {"launches": 1, "bound_ms": b_ms, "bound_by": by,
+           "ms": _time_ms(launch, 5),
+           "ms_device": _device_ms(launch, 5, "rates_chunk_kernel"),
+           "plain_ms": _time_ms(lambda: rates.calculate_R_chunk_plain(
+               line, None, J, 0, *rest), 1)}
+    del S, J, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_rates(F, J, r0, lead, acc, S, lam_c, t, kinds):
     """R1 and S1 at one production chunk, timed with CUDA events (R1
     into a copy of the running rates, S1 on a copy of S), the plain
     versions once; their bounds added into t[kernel] = [ms, plain ms,
-    bound ms, bound_by] summed over the chunks."""
+    bound ms, bound_by] summed over the chunks, R1's into kinds[its
+    chunk kind] too, as means a launch."""
     from voronoirt_tpu_torch.engine import s_update as s1
     from voronoirt_tpu_torch.physics import rates
     dtype_name = str(F["T"].dtype).replace("torch.", "")
@@ -1590,11 +1661,26 @@ def _time_rates(F, J, r0, lead, acc, S, lam_c, t):
     n_rows = J.shape[0] + (lead is not None)
     # the bound of a launch whose windows are all known to acc
     b_ms, by = _bound_ms(*_rates_work(F, r0, n_rows, acc_t), dtype_name)
-    ms = _time_ms(lambda: rates.calculate_R_chunk(
-        F["line"], acc_t, J, r0, *rest, lead=lead), 5)
+    def launch():
+        rates.calculate_R_chunk(F["line"], acc_t, J, r0, *rest, lead=lead)
+
+    # a call by CUDA events (its row table made once, the call is the
+    # launch), and R1's own device time under torch.profiler beside it
+    ms = _time_ms(launch, 5)
+    device = _device_ms(launch, 5, "rates_chunk_kernel")
     plain = _time_ms(lambda: rates.calculate_R_chunk_plain(
         F["line"], acc_t, J, r0, *rest, lead=lead), 1)
     _add_time(t["rates_chunk"], ms, plain, b_ms, by)
+    kind = ("bound-bound" if any(w[0] == "bb" for w in rates._chunk_windows(
+        F["line"], r0, n_rows)) else "bound-free")
+    k = kinds.setdefault(kind, {"launches": 0, "ms": 0.0, "ms_device": 0.0,
+                                "plain_ms": 0.0, "bound_ms": 0.0,
+                                "bound_by": by})
+    n = k["launches"]
+    for key, v in (("ms", ms), ("ms_device", device), ("plain_ms", plain),
+                   ("bound_ms", b_ms)):
+        k[key] = (k[key] * n + v) / (n + 1)
+    k["launches"] = n + 1
     S_t = S.clone()
     b_ms, by = _bound_ms(*_s_update_work(F, J.shape[0]), dtype_name)
     ms = _time_ms(lambda: s1.s_update_stream(S_t, J, F["eps"], F["T"], lam_c,
@@ -2053,17 +2139,29 @@ def _max_rel(a, b):
 
 
 def check_entry():
+    """Phase 4: entry()'s step on the card against the CPU; its rates
+    one R1 launch and no E2.  Returns the card step's launches."""
     import torch
     from voronoirt_tpu_torch.entry import entry
     step_g, args_g = entry()            # the card, by default
+    _launch_counts(reset=True)
     S_g, P_g = step_g(*args_g)
     torch.cuda.synchronize()
+    launches = _launch_counts()
+    print(f"  entry step launches: {launches}", flush=True)
+    require(launches["rates_chunk"] == 1,
+            f"rates_chunk: {launches['rates_chunk']} launches in the entry "
+            f"step, not 1")
+    require(launches["voigt_rows"] == 0 and launches[EAGER_VOIGT] == 0,
+            f"the entry step's rates reached E2 or the eager Voigt: "
+            f"{launches}")
     step_c, args_c = entry(device="cpu")
     S_c, P_c = step_c(*args_c)
     eS, eP = _max_rel(S_g.cpu(), S_c), _max_rel(P_g.cpu(), P_c)
     print(f"  entry step card vs CPU: S max rel diff {eS:.3e} (< 1e-10), "
           f"populations {eP:.3e} (< 1e-8)", flush=True)
     require(eS < 1e-10 and eP < 1e-8, "entry step: card disagrees with CPU")
+    return launches
 
 
 # ------------------------------------------------------------ phase 5
@@ -3939,7 +4037,7 @@ def main(argv=None):
         check_goldens()
     if want(4):
         phase("phase 4: small entry step, card vs CPU")
-        check_entry()
+        launches_entry = check_entry()
     if want(5):
         phase("phase 5: production iteration")
         launches, ref = held(lambda: run_production(atmos, keep_S=want(15)),
@@ -4019,12 +4117,13 @@ def main(argv=None):
     # 14's; for the per-direction alpha_tot, which the unsplit grouped
     # path no longer launches, phase 8's Bezier iteration, which calls it
     # at the shape phase 2 times; for voigt_rows, which R1 replaced on
-    # every calculate_R_chunk path, phase 7's Voronoi iterations
-    # (calculate_R)
+    # every rate path, phase 7's Voronoi iterations, which launch it no
+    # more (0: phase 2 holds it)
     path = dict.fromkeys(KERNELS, "phase 5: the streamed iteration")
     path["xy_plane"] = "phase 14: the y-split iteration, rank 0"
     path["alpha_tot"] = "phase 8: the Bezier iteration"
-    path["voigt_rows"] = "phase 7: the two Voronoi iterations"
+    path["voigt_rows"] = ("phase 7: the two Voronoi iterations (none: no "
+                          "iteration path launches E2)")
     path_launches = dict(launches,
                          xy_plane=mesh_ranks[0]["launches"]["xy_plane"],
                          alpha_tot=launches_bezier["alpha_tot"],
@@ -4091,6 +4190,8 @@ def main(argv=None):
             "bound_ms": t64[2], "bound_by": t64[3],
             "pct_of_bound": 100 * t64[2] / t64[0], "library_ms": None,
             "launches_voronoi_iterations": vor_ref["launches"][name],
+            "launches_f32_voronoi_iterations": launches32_vor[name],
+            "launches_entry_step": launches_entry[name],
             "launches_bezier_iteration": launches_bezier[name],
             "launches_continuum": launches_continuum[name],
             "launches_synthesize": {f"theta_{t:g}": n[name] for t, n in
@@ -4170,12 +4271,16 @@ def main(argv=None):
             "launches_mesh_y_ranks": [o["launches"][name]
                                       for o in mesh_ranks],
             "launches_voronoi_iterations": vor_ref["launches"][name],
+            "launches_f32_voronoi_iterations": launches32_vor[name],
+            "launches_entry_step": launches_entry[name],
             "max_abs_err_f32": e32["abs"], "max_rel_err_f32": e32["rel"],
             "bit_equal_f32": e32["equal"], "ms_f32": t32[0],
             "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],
             "bound_by_f32": t32[3], "pct_of_bound_f32": 100 * t32[2] / t32[0],
             "ms_iteration_f32": t32[4], "bound_ms_iteration_f32": t32[5],
-            "launches_f32_iteration": launches32[name]})
+            "launches_f32_iteration": launches32[name],
+            **({"by_kind": rate_info["r1"]} if name == "rates_chunk"
+               else {})})
     # V1: what it replaces is the JAX package's compiled level scan, not
     # a Pallas kernel; its times are a level step of phase 2's
     # production gs stage (one launch a stage), and of its 'layer' stage

@@ -20,6 +20,8 @@ from voronoirt_tpu_torch.engine.lambda_iter import (
     _rates_and_populations, _rates_and_populations_slabbed, _update_S)
 from voronoirt_tpu_torch.parallel import angles, distribute_angles
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+from voronoirt_tpu_torch.physics.rates import calculate_R
+from voronoirt_tpu_torch.physics.stateq import get_revised_populations
 
 CPU3 = ["cpu"] * 3
 
@@ -49,8 +51,9 @@ def _one_iteration(eng):
     damping_lam = eng.damping_lam(eng.lte)
     J = eng.compute_J(eng.B0, eng.lte, damping_lam)
     S = _update_S(eng.line, eng.eps, J, eng.B0)
-    P = _rates_and_populations(eng.line, J, damping_lam, eng.lte, eng.C,
-                               eng.T, eng.nH, eng.cfg.compat)
+    P = _rates_and_populations(eng.line, J, eng._gamma_cell(eng.lte),
+                               eng.lte, eng.C, eng.T, eng.nH,
+                               eng.cfg.compat)
     return J.numpy(), S.numpy(), P.numpy()
 
 
@@ -163,14 +166,15 @@ def _slab_inputs(eng):
 
 @pytest.mark.parametrize("chunk", [1, 3, 8, 100])
 def test_slabbed_populations_match_unslabbed(chunk):
-    """Slabs of z-planes against the whole-array rates.  Pointwise in
-    space, but eager slices may round a vectorised exp's tail
-    differently: held to rtol 1e-13."""
+    """Slabs of z-planes against the whole-array rates (calculate_R
+    from the damping cube).  Pointwise in space, but eager slices may
+    round a vectorised exp's tail differently: held to rtol 1e-13."""
     atmos = synthetic_atmosphere(nz=8, nx=5, ny=5, seed=2)
     eng = _regular(atmos, quadrature="n2")
     J, g_cell = _slab_inputs(eng)
-    want = _rates_and_populations(eng.line, J, eng.damping_lam(eng.lte),
-                                  eng.lte, eng.C, eng.T, eng.nH, "reference")
+    want = get_revised_populations(
+        calculate_R(eng.line, J, eng.damping_lam(eng.lte), eng.lte, eng.T,
+                    compat="reference"), eng.C, eng.nH)
     got = _rates_and_populations_slabbed(eng.line, J, g_cell, eng.lte, eng.C,
                                          eng.T, eng.nH, "reference", chunk)
     assert got.shape == want.shape

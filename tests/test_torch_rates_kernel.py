@@ -25,13 +25,24 @@ and bound-free rows 11-15 and 16-20, over 64 cells):
   (e) dispatch: CPU inputs launch nothing; mismatched dtype, device or
       shape raise;
   (f) marked cuda (skipped without a card): R1 and S1 against their
-      plain versions on the card, bit for bit.
+      plain versions on the card, bit for bit, R1 also at each of
+      R1_CASES (a one-pair chunk, a 14-row chunk with its lead, 91 rows,
+      odd cell counts whose rows start 8 bytes off 16 in float64, a
+      ragged tail tile, three tiles, a slab whose rows lie a stride
+      apart; rates added into and new), each case checked on the CPU
+      to build what it names;
+  (g) the standard loop's rates and statistical equilibrium
+      (_rates_and_populations, one R1 launch over all rows from the
+      per-cell gamma) against the JAX package's and against the port's
+      calculate_R path.
 
 The JAX package is imported inside the tests that use it, so the cuda
 tests run where only the port is installed.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -63,19 +74,20 @@ N = 64
 CHUNKS = (1, 3, 5, 7)
 
 
-def _fields(dtype=np.float64, seed=3):
-    """Seeded per-cell fields and J rows: T, n_e, n_H (N,), J (21, N)."""
+def _fields(dtype=np.float64, seed=3, n=N, nlam=NLAM):
+    """Seeded per-cell fields and J rows: T, n_e, n_H (n,), J (the
+    line's rows, n)."""
     rng = np.random.default_rng(seed)
-    T = rng.uniform(4000.0, 12000.0, N)
-    ne = 10.0 ** rng.uniform(16, 18, N)
-    nH = 10.0 ** rng.uniform(18, 20, N)
-    J = 10.0 ** rng.uniform(-8, -5, (sum(NLAM) + NLAM[1], N))
+    T = rng.uniform(4000.0, 12000.0, n)
+    ne = 10.0 ** rng.uniform(16, 18, n)
+    nH = 10.0 ** rng.uniform(18, 20, n)
+    J = 10.0 ** rng.uniform(-8, -5, (sum(nlam) + nlam[1], n))
     return tuple(a.astype(dtype) for a in (T, ne, nH, J))
 
 
-def _torch_side(T, ne, nH):
+def _torch_side(T, ne, nH, nlam=NLAM):
     T, ne, nH = (torch.from_numpy(a) for a in (T, ne, nH))
-    line = lyman_alpha_line(*NLAM, T)
+    line = lyman_alpha_line(*nlam, T)
     lte = lte_populations(line, T, ne, nH)
     g = gamma_constant(line, T, lte[..., 0] + lte[..., 1], ne)
     return line, lte, g, T
@@ -170,6 +182,73 @@ def test_chunks_sum_to_calculate_R(chunk, compat):
     _close(got, want, 5e-13)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("compat", ["reference", "fixed"])
+def test_rates_and_populations_vs_jax(compat, dtype):
+    """The standard loop's rates and statistical equilibrium (the
+    unslabbed Voronoi iteration's and entry()'s): the port's one R1
+    launch over all rows from the per-cell gamma against the JAX
+    package's _rates_and_populations, calculate_R from the damping
+    cube, on the same J and collisional rates.  The rates R1 integrates
+    (calculate_R_chunk over every row from row 0) against JAX's
+    calculate_R at RTOL float64 (7e-15 measured), at _f32_pair_rtol and
+    ATOL_F32 float32.  The populations: float32 at _f32_pair_rtol;
+    float64 at rtol 2e-11 (measured: 5.9e-12 'reference', 2.0e-12
+    'fixed', on level 0, ~6e-13 n_H; calculate_R's populations from the
+    damping cube differ from JAX's alike, and JAX's statistical
+    equilibrium on the port's own rates by 7.0e-12: the solve's rounding,
+    not the rates')."""
+    import jax.numpy as jnp
+    from voronoirt_tpu.engine.lambda_iter import \
+        _rates_and_populations as j_rates
+    from voronoirt_tpu.physics.broadening import damping as j_damping
+    from voronoirt_tpu.physics.rates import calculate_R as j_calculate_R
+    T, ne, nH, J = _fields(dtype)
+    tl, tlte, tg, tT = _torch_side(T, ne, nH)
+    jl, jlte, jg, jT = _jax_side(T, ne, nH)
+    J = J[:tl.n_lambda]
+    C = t_rates.calculate_C(torch.from_numpy(ne), tT, tlte)
+    n0 = t_rates.LAUNCHES
+    got = t_li._rates_and_populations(tl, torch.from_numpy(J), tg, tlte, C,
+                                      tT, torch.from_numpy(nH), compat)
+    assert t_rates.LAUNCHES == n0       # the CPU takes the plain version
+    lam = jnp.asarray(np.asarray(jl.lam)).reshape(-1, 1)
+    damp = j_damping(jg[None], lam, jl.dlamD[None])
+    want = j_rates(jl, jnp.asarray(J), damp, jlte,
+                   {k: jnp.asarray(v.numpy()) for k, v in C.items()}, jT,
+                   jnp.asarray(nH), compat)
+    assert got.shape == want.shape and got.dtype == torch.from_numpy(T).dtype
+    R = t_rates.calculate_R_chunk(tl, None, torch.from_numpy(J), 0, tg,
+                                  tlte, tT, compat)
+    R_jax = j_calculate_R(jl, jnp.asarray(J), damp, jlte, jT, compat=compat)
+    if dtype == np.float64:
+        _close(R, R_jax, RTOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-11, atol=0)
+    else:
+        _close(R, R_jax, _f32_pair_rtol(tl), ATOL_F32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=_f32_pair_rtol(tl), atol=0)
+
+
+def test_rates_and_populations_equal_calculate_R():
+    """The standard loop's rates through R1's plain version against
+    calculate_R's from the damping cube (the port's path until R1 took
+    it): the same populations within rounding (5e-13, the chunks' bar)."""
+    from voronoirt_tpu_torch.physics.stateq import get_revised_populations
+    T, ne, nH, J = _fields()
+    line, lte, g, T = _torch_side(T, ne, nH)
+    J = torch.from_numpy(J[:line.n_lambda])
+    nH = torch.from_numpy(nH)
+    C = t_rates.calculate_C(torch.from_numpy(ne), T, lte)
+    lam = line.lam_tensor().reshape(-1, 1)
+    R = t_rates.calculate_R(line, J, damping(g[None], lam, line.dlamD[None]),
+                            lte, T)
+    want = get_revised_populations(R, C, nH)
+    got = t_li._rates_and_populations(line, J, g, lte, C, T, nH, "reference")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=5e-13, atol=0)
+
+
 # ----------------------------------------------- (c): R1's loop emulated
 
 def _r1_emulated(line, acc, J_blk, r0, g_cell, lte, T, compat, lead):
@@ -250,6 +329,26 @@ def test_window_table():
     assert bool((sig[2:] > 0).all()) and bool((sig[:2] == 0).all())
     assert planck.shape == (7,)
     assert t_rates._r1_rows(line, 10, 2, T, "reference")[0] == []
+
+
+def test_row_table_made_once_a_line():
+    """The row table is made once a line, compat, dtype and device: a
+    slab's line (the same line with a slice of dlamD, as the standard
+    loop's slabs make) and any block of rows read views of the same
+    table; another compat or dtype, or other wavelengths, make their
+    own."""
+    T, ne, nH, _ = _fields()
+    line, _, _, T = _torch_side(T, ne, nH)
+    lam = t_rates._r1_rows(line, 0, 21, T, "reference")[1]
+    slab = dataclasses.replace(line, dlamD=line.dlamD[:8])
+    lam_slab = t_rates._r1_rows(slab, 9, 7, T, "reference")[1]
+    assert lam_slab.data_ptr() == lam[9:].data_ptr()
+    others = [t_rates._r1_rows(line, 0, 21, T, "fixed")[1],
+              t_rates._r1_rows(line, 0, 21, T.float(), "reference")[1],
+              t_rates._r1_rows(dataclasses.replace(line, lam=line.lam * 2),
+                               0, 21, T, "reference")[1]]
+    assert all(t.data_ptr() != lam.data_ptr() for t in others)
+    assert torch.equal(others[2], 2 * lam)
 
 
 # -------------------------------------------------------- (d): S1
@@ -388,6 +487,129 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+# the production line (51 + 2 x 20 rows: bb rows 0-50, bf0 51-70, bf1
+# 71-90) and R1's cases: (name, cells, J rows (first, stop) in the line,
+# with the row before them leading, and the windows whose rates the
+# running rates hold before the launch); J's cells a slab of a wider
+# grid where the cells are (a, b, width): rows a stride apart
+PROD_NLAM = (51, 20)
+R1_CASES = {
+    "one pair": (N, (4, 5), ()),
+    "14 rows with lead": (1024, (13, 26), ("bb",)),
+    "91 rows": (1024, (0, 91), ()),
+    "odd cells": (5365, (0, 91), ()),
+    "odd cells, chunk": (5365, (46, 59), ("bb",)),
+    "ragged tile": (1000, (65, 78), ("bf0",)),
+    "three tiles": (581, (13, 26), ("bb",)),
+    "slab": ((2, 6, 40), (26, 39), ("bb",)),
+}
+# R1's tile: a block of cells, one a thread (csrc/rates.cu R1_THREADS)
+R1_TILE = int(re.search(
+    r"#define R1_THREADS (\d+)",
+    (Path(t_rates.__file__).parents[1] / "csrc" / "rates.cu").read_text()
+).group(1))
+
+
+def _r1_case(name, dtype, device):
+    """(line, acc, J_blk, r0, g, lte, T, lead) of an R1_CASES case on
+    `device`: the lead row and acc's rates from seeded rows."""
+    cells, (a, b), held = R1_CASES[name]
+    nlam = NLAM if name == "one pair" else PROD_NLAM
+    slab = isinstance(cells, tuple)
+    n = 8 * cells[2] if slab else cells
+    T, ne, nH, J = _fields(dtype, seed=11, n=n, nlam=nlam)
+    line, lte, g, T = _torch_side(T, ne, nH, nlam)
+    J = torch.from_numpy(J)
+    if slab:
+        # the cells [c0, c1) x width of an (8, width) grid
+        c0, c1, width = cells
+        cut = (slice(None), slice(c0, c1))
+        J = J.reshape(J.shape[0], 8, width)[cut]
+        line = dataclasses.replace(
+            line, dlamD=line.dlamD.reshape(8, width)[c0:c1].contiguous())
+        g, T = (x.reshape(8, width)[c0:c1].contiguous() for x in (g, T))
+        lte = lte.reshape(8, width, -1)[c0:c1].contiguous()
+    to = {"device": device}
+    line = dataclasses.replace(line, dlamD=line.dlamD.to(**to))
+    J, g, lte, T = (x.to(**to) for x in (J, g, lte, T))
+    r0 = a - 1 if a > 0 else 0
+    lead = J[a - 1:a].contiguous() if a > 0 else None
+    acc = None
+    if held:
+        keys = {k for kind in held for k in t_rates._RATE_KEYS[kind]}
+        full = t_rates.calculate_R_chunk_plain(line, None, J, 0, g, lte, T)
+        acc = {k: v for k, v in full.items() if k in keys}
+    return line, acc, J[a:b], r0, g, lte, T, lead
+
+
+@pytest.mark.parametrize("name", sorted(R1_CASES))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_r1_cases_cover(name, dtype):
+    """Each case of the card's R1 holds exercises what it names: its
+    windows, all the line's rows, rows whose first value is not on 16
+    bytes, a short tail tile, rows a stride apart, rates added into and
+    new; and on the CPU the wrapper launches nothing and gives the plain
+    version's rates."""
+    line, acc, J, r0, g, lte, T, lead = _r1_case(name, dtype, "cpu")
+    n_rows = J.shape[0] + (lead is not None)
+    wins = t_rates._r1_rows(line, r0, n_rows, T, "reference")[0]
+    kinds = [w[0] for w in wins]
+    es = J.element_size()
+    n = T.numel()
+    if name == "one pair":
+        assert wins == [("bb", 0, 1)]
+    if name in ("91 rows", "odd cells"):
+        assert sorted(kinds) == ["bb", "bf0", "bf1"]
+        assert n_rows == line.n_lambda
+    if name.startswith("odd cells"):
+        assert n % 2 and (J.stride(0) * es) % 16
+    if name in ("ragged tile", "three tiles"):
+        assert n % R1_TILE
+    if name == "three tiles":
+        assert -(-n // R1_TILE) == 3
+    if name == "slab":
+        assert J.stride(0) > J[0].numel()
+    held = set(acc or {})
+    if name in ("14 rows with lead", "odd cells, chunk", "ragged tile",
+                "three tiles", "slab"):
+        # a production chunk: its 13 rows after the previous one's last
+        assert lead is not None and n_rows == 14
+        # the rates of one window added into, those of another new
+        keys = [k for w in kinds for k in t_rates._RATE_KEYS[w]]
+        assert any(k in held for k in keys)
+        if name in ("ragged tile", "odd cells, chunk"):
+            assert any(k not in held for k in keys)
+    n0 = t_rates.LAUNCHES
+    got = t_rates.calculate_R_chunk(line, acc, J, r0, g, lte, T, lead=lead)
+    want = t_rates.calculate_R_chunk_plain(line, acc, J, r0, g, lte, T,
+                                           lead=lead)
+    assert t_rates.LAUNCHES == n0
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                         for k in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(R1_CASES))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_r1_cases_match_plain_on_card(cuda, dtype, name):
+    """R1 at each case against its plain version on the card, bit for
+    bit, one launch a call; the running rates it adds into unchanged
+    but for the launch's own."""
+    line, acc, J, r0, g, lte, T, lead = _r1_case(name, dtype, cuda)
+    before = None if acc is None else {k: v.clone() for k, v in acc.items()}
+    want = t_rates.calculate_R_chunk_plain(line, acc, J, r0, g, lte, T,
+                                           lead=lead)
+    n0 = t_rates.LAUNCHES
+    got = t_rates.calculate_R_chunk(line, acc, J, r0, g, lte, T, lead=lead)
+    torch.cuda.synchronize()
+    assert t_rates.LAUNCHES == n0 + 1
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    # the rates added into are acc's own tensors, updated in place
+    for k in before or {}:
+        assert got[k] is acc[k] and not torch.equal(acc[k], before[k])
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 """Where the time of the port's Voronoi Lambda iteration goes, on one
 CUDA card.
 
-    python3 tools/profile_voronoi.py [--n-sites 3522560] [--out profile.json]
+    python3 tools/profile_voronoi.py [--n-sites 3522560] [--layer-only]
+                                     [--repeat N] [--repo DIR]
+                                     [--out profile.json]
 
 Drives the path of chip_smoke.py phase 7 at --n-sites sites (default
 3,522,560, the reference's half-resolution production count,
@@ -18,7 +20,8 @@ chunking.
      allocator's first pass over every level shape), one with
      synchronised host timers around each part (per direction:
      extinction, sweep; then the S update and the rates with
-     statistical equilibrium), then one plain;
+     statistical equilibrium), then --repeat plain ones (their median
+     is the plain iteration's seconds);
   3. 'wavefront': a first compute_J (cold), one with the parts timed
      (per direction: extinction, the rest of the sweep; the relax
      stages' eager weight hoist, _precompute_lean, is counted and timed
@@ -34,6 +37,12 @@ chunking.
      apart; for the 'layer' window, V1's bytes bound a step on its
      stages (chip_smoke._v1_stage_work).
 
+--layer-only runs 1, 2 and the 'layer' window of 4 (no 'wavefront'
+plans or passes); --repo runs the voronoirt_tpu_torch package of
+another checkout (its kernels built there), e.g. the parent commit
+unpacked with git archive, with this checkout's helpers: run with and
+without it in one call to compare two checkouts on one card.
+
 Level steps (sweep_voronoi.LEVEL_STEPS), stage calls
 (sweep_voronoi.STAGE_CALLS) and V1's launches (voronoi_level.LAUNCHES,
 one a stage call) are counted per parts-timed iteration or J pass.
@@ -43,6 +52,7 @@ Prints a summary; --out also writes it as JSON.
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -50,11 +60,33 @@ import warnings
 from collections import defaultdict
 from unittest import mock
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _repo():
+    """--repo's checkout, read before its package is imported."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--repo", default=ROOT)
+    return os.path.abspath(ap.parse_known_args()[0].repo)
+
+
+def _this_chip_smoke():
+    """This checkout's chip_smoke.py as a module, whatever --repo
+    names."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    return cs
+
+
+sys.path.insert(0, _repo())
 
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
+chip_smoke = _this_chip_smoke()
 from voronoirt_tpu_torch import (Config, get_quadrature, grid,  # noqa: E402
                                  require_cuda, synthetic_atmosphere)
 from voronoirt_tpu_torch.engine import VoronoiEngine, lambda_iter  # noqa: E402
@@ -234,6 +266,12 @@ def profiled_window(eng, S, pops):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-sites", type=int, default=3_522_560)
+    ap.add_argument("--layer-only", action="store_true",
+                    help="no 'wavefront' plans or passes")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="plain 'layer' iterations after the parts-timed one")
+    ap.add_argument("--repo", default=ROOT,
+                    help="the checkout whose package runs")
     ap.add_argument("--out", default=None, help="write the summary as JSON")
     args = ap.parse_args()
     require_cuda()
@@ -257,9 +295,10 @@ def main():
     sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
     setup["tessellation"] = time.perf_counter() - t
     del atmos, pos
+    orders = ("layer",) if args.layer_only else ("layer", "wavefront")
     cfgs = {order: Config(nlam_bb=51, nlam_bf=20, quadrature="ul7n12",
                           voronoi_order=order, maxiter=1, eps=0.0)
-            for order in ("layer", "wavefront")}
+            for order in orders}
     quad = get_quadrature("ul7n12")
     plans = {}
     for order, cfg in cfgs.items():
@@ -277,10 +316,11 @@ def main():
     torch.cuda.synchronize()
     setup["engine set-up"] = time.perf_counter() - t
     n_dir = quad.n_angles
-    print(f"{sites.n} sites, {line.n_lambda} wavelengths, {n_dir} "
-          f"directions; set-up s {json.dumps(setup)}", flush=True)
+    print(f"{args.repo}: {sites.n} sites, {line.n_lambda} wavelengths, "
+          f"{n_dir} directions; set-up s {json.dumps(setup)}", flush=True)
 
-    out = {"device": smi, "n_sites": sites.n, "setup_s": setup}
+    out = {"device": smi, "repo": os.path.abspath(args.repo),
+           "n_sites": sites.n, "setup_s": setup}
     torch.cuda.reset_peak_memory_stats()
     out["layer_iteration_cold_s"] = eng.run().timings[0]
     res = None
@@ -291,8 +331,12 @@ def main():
 
     out["layer_iteration_parts_timed"] = summarise(
         *parts_timed(eng, iterate), n_dir)
-    res = eng.run()
-    out["layer_iteration_plain_s"] = res.timings[0]
+    runs = []
+    for _ in range(args.repeat):
+        res = eng.run()
+        runs.append(res.timings[0])
+    out["layer_iteration_plain_runs_s"] = runs
+    out["layer_iteration_plain_s"] = statistics.median(runs)
     S, pops = res.S, res.populations
     if not (bool(torch.isfinite(S).all())
             and bool(torch.isfinite(pops).all())):
@@ -300,6 +344,12 @@ def main():
     del res
     out["layer_window"] = profiled_window(eng, S, pops)
     out["layer_window"]["bound"] = window_bound_ms(eng)
+    if args.layer_only:
+        out["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        report(out, line, n_dir, ("layer_iteration_parts_timed",),
+               ("layer_window",))
+        _write(out, args.out)
+        return
 
     eng_w = VoronoiEngine(sites, line, cfgs["wavefront"],
                           plans=plans["wavefront"], device="cuda")
@@ -319,8 +369,24 @@ def main():
     out["wavefront_window"] = profiled_window(eng_w, S, pops)
     out["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
 
-    rays = sites.n * line.n_lambda * n_dir
-    for key in ("layer_iteration_parts_timed", "wavefront_J_parts_timed"):
+    report(out, line, n_dir, ("layer_iteration_parts_timed",
+                              "wavefront_J_parts_timed"),
+           ("layer_window", "wavefront_window"))
+    _write(out, args.out)
+
+
+def _write(out, path):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+def report(out, line, n_dir, timed, windows):
+    """Print the summary of the parts-timed runs `timed` and the
+    profiled `windows`."""
+    rays = out["n_sites"] * line.n_lambda * n_dir
+    for key in timed:
         r = out[key]
         print(f"{key}: {r['wall_s']:.4f} s, {r['level_steps']} level "
               f"steps, {r['stage_calls']} stage calls, {r['v1_launches']} "
@@ -333,12 +399,15 @@ def main():
         print(f"  seconds per direction "
               f"{[round(x, 4) for x in r['direction_s']]}", flush=True)
     print(f"layer iteration: first {out['layer_iteration_cold_s']:.4f} s,"
-          f" plain {out['layer_iteration_plain_s']:.4f} s; wavefront J pass:"
-          f" first {out['wavefront_J_cold_s']:.4f} s, plain "
-          f"{out['wavefront_J_plain_s']:.4f} s, "
-          f"{rays / out['wavefront_J_plain_s']:.4e} "
-          f"sites*wavelengths*rays/s", flush=True)
-    for key in ("layer_window", "wavefront_window"):
+          f" plain {out['layer_iteration_plain_s']:.4f} s (median of "
+          f"{[round(x, 4) for x in out['layer_iteration_plain_runs_s']]})",
+          flush=True)
+    if "wavefront_J_plain_s" in out:
+        print(f"wavefront J pass: first {out['wavefront_J_cold_s']:.4f} s, "
+              f"plain {out['wavefront_J_plain_s']:.4f} s, "
+              f"{rays / out['wavefront_J_plain_s']:.4e} "
+              f"sites*wavelengths*rays/s", flush=True)
+    for key in windows:
         w = out[key]
         print(f"{key} (directions {w['directions']}): plain "
               f"{w['plain_wall_s']:.4f} s, kernels' device time "
@@ -355,16 +424,13 @@ def main():
                   f"step", flush=True)
         for name, count, s in w["kernels"][:10]:
             print(f"  {s:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
-    print(f"the lean pair, no longer allocated on the card: "
-          f"{out['lean_pair_bytes_max_direction'] / 2**30:.3f} GiB for the "
-          f"largest direction, {out['lean_pair_bytes_sum'] / 2**30:.3f} GiB "
-          f"over the {n_dir} directions", flush=True)
+    if "lean_pair_bytes_sum" in out:
+        print(f"the lean pair, no longer allocated on the card: "
+              f"{out['lean_pair_bytes_max_direction'] / 2**30:.3f} GiB for "
+              f"the largest direction, "
+              f"{out['lean_pair_bytes_sum'] / 2**30:.3f} GiB over the "
+              f"{n_dir} directions", flush=True)
     print(f"peak device memory {out['peak_GiB']:.3f} GiB", flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":

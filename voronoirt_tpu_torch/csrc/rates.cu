@@ -46,15 +46,26 @@
 // libdevice's exp and expm1 as PyTorch's CUDA kernels call them, and the
 // Voigt profile as E2's (csrc/voigt.cuh humlicek_H, shared).
 //
-// Bound on the card: bytes.  R1 reads each J row once (13-14 a chunk),
-// the per-cell fields once and the accumulators once, and in float64 its
-// bound-bound rows add a Humlicek evaluation a point (60-110 FP64
-// operations, the same order as the bytes' time); S1 reads J and S_old
-// and writes S_new, 24 bytes a point in float64.  Design: one thread a
-// cell loops over the chunk's rows, so each per-cell field is read once
-// and the rows' loads coalesce across the warp; each point's f is formed
-// once and carried to the next pair in registers; 64-bit offsets (a
-// 14M-cell row times 14 rows passes 2^31).
+// Bound on the card, by the roofline: bytes.  R1 reads each J row once
+// (13-14 a chunk, 91 in the standard loop's launch), the per-cell
+// fields once and the accumulators once, and in float64 its bound-bound
+// rows add a Humlicek evaluation a point (60-110 FP64 operations, the
+// same order as the bytes' time); S1 reads J and S_old and writes
+// S_new, 24 bytes a point in float64.
+//
+// R1's design: one thread a cell loops over the block's rows, so each
+// per-cell field is read once and the rows' loads coalesce across the
+// warp; each point's f is formed once and carried to the next pair in
+// registers, in the row order of the plain version; 64-bit offsets (a
+// 14M-cell row times 14 rows passes 2^31).  A launch without a
+// bound-bound window runs an instance that compiles no Humlicek
+// evaluation, so a thread needs fewer registers and an SM holds more
+// warps.  Measured on the card (PERF.md section 6), R1 is bound by
+// instruction issue, not by bytes -- a bound-bound point issues 370-580
+// instructions (120-220 FP64), a bound-free one ~145 (39 FP64) -- so
+// what moves it is the warps an SM holds, not the bytes in flight (the
+// section compares this design with a ring of J rows in shared memory
+// filled by bulk copies, TMA).
 #include "voigt.cuh"
 
 #define R1_THREADS 256
@@ -94,7 +105,9 @@ struct R1Args {
   T lam0, sqrt_pi, damp_k, sigma_bb, iunit, neg_hc_k, k2pi_hc, inv_1000;
 };
 
-template <typename T>
+// BB: the launch holds a bound-bound window (the Humlicek evaluation is
+// compiled in); without one a thread needs fewer registers.
+template <typename T, bool BB>
 __global__ void __launch_bounds__(R1_THREADS)
 rates_chunk_kernel(const __grid_constant__ R1Args<T> p) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -105,7 +118,7 @@ rates_chunk_kernel(const __grid_constant__ R1Args<T> p) {
 #pragma unroll 1
   for (int w = 0; w < p.n_win; ++w) {
     const RWindow<T> wn = p.win[w];
-    const bool bb = wn.kind == 2;
+    const bool bb = BB && wn.kind == 2;
     // (n_i / n_j): bb 0 / 1, bf0 0 / 2, bf1 1 / 2
     const T nr = bb ? pop[0] / pop[1] : pop[wn.kind] / pop[2];
     T dD = T(0), dK = T(0), dS = T(0), gc = T(0);
@@ -264,6 +277,7 @@ static int launch_rates_chunk(const T* J, const T* lead, const T* lam,
   p.n_win = n_win;
   p.fixed = fixed;
   p.reference = reference;
+  bool bb = false;
   for (int w = 0; w < n_win; ++w) {
     const int* q = win + 4 * w;
     if (q[1] <= q[0] || q[0] < 0 || q[2] < 0 || q[2] > 2) {
@@ -271,6 +285,7 @@ static int launch_rates_chunk(const T* J, const T* lead, const T* lam,
     }
     p.win[w] = {q[0], q[1], q[2], q[3], (T*)outs[2 * w],
                 (T*)outs[2 * w + 1]};
+    bb |= q[2] == 2;
   }
   p.lam0 = T(lam0);
   p.sqrt_pi = T(sqrt_pi);
@@ -280,8 +295,11 @@ static int launch_rates_chunk(const T* J, const T* lead, const T* lam,
   p.neg_hc_k = T(neg_hc_k);
   p.k2pi_hc = T(k2pi_hc);
   p.inv_1000 = T(inv_1000);
-  const unsigned blocks = (unsigned)((n + R1_THREADS - 1) / R1_THREADS);
-  rates_chunk_kernel<T><<<blocks, R1_THREADS, 0, (cudaStream_t)stream>>>(p);
+  const long long blocks = (n + R1_THREADS - 1) / R1_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      bb ? rates_chunk_kernel<T, true> : rates_chunk_kernel<T, false>;
+  kernel<<<(unsigned)blocks, R1_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

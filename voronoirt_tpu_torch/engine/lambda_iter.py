@@ -60,7 +60,7 @@ from ..physics.lte import lte_populations
 from ..physics.opacity import (alpha_absorption, alpha_scattering,
                                warn_charge_inconsistency)
 from ..physics.planck import B_lambda
-from ..physics.rates import calculate_C, calculate_R, calculate_R_chunk
+from ..physics.rates import calculate_C, calculate_R_chunk
 from ..physics.stateq import get_revised_populations
 from ..quadrature import get_quadrature
 from ..solvers.sweep_regular import (build_plan, group_plans, sweep,
@@ -162,10 +162,15 @@ def _edge_pair(engine, acc, prev, first, g_cell):
         engine.lte, engine.T, compat=engine.cfg.compat, lead=prev)
 
 
-def _rates_and_populations(line, J, damping_lam, lte, C, temperature,
+def _rates_and_populations(line, J, g_cell, lte, C, temperature,
                            hydrogen_density, compat):
-    R = calculate_R(line, J, damping_lam, lte, temperature, compat=compat)
-    return get_revised_populations(R, C, hydrogen_density)
+    """The standard loop's rates and statistical equilibrium: the rate
+    integrals over all of J's rows from the per-cell gamma, one R1
+    launch on the card (calculate_R_chunk), as calculate_R computes them
+    from the damping cube (the JAX package's _rates_and_populations)."""
+    return _rates_and_populations_slabbed(line, J, g_cell, lte, C,
+                                          temperature, hydrogen_density,
+                                          compat, None)
 
 
 def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
@@ -193,6 +198,9 @@ def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
             lo if prev is None else lo - 1, g_cell[sl], lte[sl],
             temperature[sl], compat=compat,
             lead=None if prev is None else prev[:, sl])
+        if step >= n:
+            R = acc     # one slab: its rates are the rates
+            break
         for k, v in acc.items():
             R.setdefault(k, torch.zeros_like(temperature))[sl] = v
     R = _lam.all_reduce_rates(group, R, temperature)
@@ -973,13 +981,17 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
                 engine.lam_group, engine.lam_block.start)
             del g_cell
         else:
+            # the damping cube for the J pass; the rates take the
+            # per-cell gamma (one R1 launch over all of J's rows)
             damping_lam = engine.damping_lam(populations)
             J = engine.compute_J(S_old, populations, damping_lam)
+            del damping_lam
+            g_cell = engine._gamma_cell(populations)
             S_new = _update_S(line, engine.eps, J, engine.B0)
             populations = _rates_and_populations(
-                line, J, damping_lam, engine.lte, engine.C, engine.T,
+                line, J, g_cell, engine.lte, engine.C, engine.T,
                 engine.nH, cfg.compat)
-            del damping_lam
+            del g_cell
         _sync(populations)
         timings.append(time.perf_counter() - t0)
 

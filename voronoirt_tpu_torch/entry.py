@@ -66,8 +66,10 @@ def entry(device=None):
         damping_lam = eng.damping_lam(populations)
         J = eng.compute_J(S, populations, damping_lam)
         S_new = _update_S(eng.line, eng.eps, J, eng.B0)
-        pops_new = _rates_and_populations(eng.line, J, damping_lam, eng.lte,
-                                          eng.C, eng.T, eng.nH, cfg.compat)
+        # the rates from the per-cell gamma: one R1 launch on the card
+        pops_new = _rates_and_populations(
+            eng.line, J, eng._gamma_cell(populations), eng.lte, eng.C,
+            eng.T, eng.nH, cfg.compat)
         return S_new, pops_new
 
     return step, (eng.B0, eng.lte)

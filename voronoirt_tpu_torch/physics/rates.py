@@ -9,12 +9,14 @@ sums (f_l + f_{l+1}) dlam, and sigma_ic takes the window's last
 wavelength as its edge and n_eff from chi_j - chi_i for both levels.
 compat == 'fixed' uses 0.5x trapezoids and per-level n_eff.
 
-calculate_R_chunk, the streamed form that every rate path on the card
-but calculate_R's takes, wraps the kernel R1 (csrc/rates.cu
+calculate_R_chunk, the streamed form that every rate path of the
+engines takes (the streamed iteration's chunks, the standard loop's
+rows at once or in slabs, entry()), wraps the kernel R1 (csrc/rates.cu
 vrt_rates_chunk: a lambda block's rate integrals in one launch, added
 into the running rates in place); calculate_R_chunk_plain is its plain
-version, which a CPU tensor takes.  calculate_R keeps E2 (voigt_rows)
-for its bound-bound profile.
+version, which a CPU tensor takes.  calculate_R, the counterpart of the
+JAX package's, keeps E2 (voigt_rows) for its bound-bound profile and
+runs on no iteration path.
 """
 
 import ctypes
@@ -274,22 +276,43 @@ def _cells_contiguous(t):
     return True
 
 
+# R1's row tables, one a line (its wavelengths and energies), compat,
+# dtype and device: {key: (lam, dlam, sig, planck)} over all the line's
+# rows.  A table's wavelengths cross to the card by a copy that
+# synchronises the stream, so each is made once and every launch slices
+# its rows from it, whatever line object (a slab's dlamD) it comes with.
+_R1_ROWS = {}
+
+
 def _r1_rows(line, r0, n_rows, ref, compat):
     """What an R1 launch reads besides the tensors: the block's windows as
     (kind, first row, last row), rows of the block, and its rows' lam,
     dlam (lam[r + 1] - lam[r]), bf sigma (0 on other rows) and Planck
-    prefactor, made with the plain version's ops on ref's device."""
+    prefactor, sliced from the line's table (_r1_line_table; not to be
+    written)."""
+    key = (np.asarray(line.lam).tobytes(), tuple(line.lam_idx), line.chi_i,
+           line.chi_j, line.chi_inf, line.Z, compat, ref.dtype, ref.device)
+    if key not in _R1_ROWS:
+        _R1_ROWS[key] = _r1_line_table(line, ref, compat)
+    lam, dlam, sig, planck = _R1_ROWS[key]
+    rows = slice(r0, r0 + n_rows)
+    wins = [(kind, a - r0, b - r0)
+            for kind, a, b, _ in _chunk_windows(line, r0, n_rows)]
+    return wins, lam[rows], dlam[r0:r0 + n_rows - 1], sig[rows], planck[rows]
+
+
+def _r1_line_table(line, ref, compat):
+    """The line's rows' lam, dlam, bf sigma and Planck prefactor, made
+    with the plain version's elementwise ops on ref's device."""
     lam_all = np.asarray(line.lam)
-    lam = _lam(lam_all[r0:r0 + n_rows], ref)
+    lam = _lam(lam_all, ref)
     sig = torch.zeros_like(lam)
-    wins = []
-    for kind, a, b, p1 in _chunk_windows(line, r0, n_rows):
+    for kind, a, b, p1 in _chunk_windows(line, 0, len(lam_all)):
         if kind != "bb":
-            sig[a - r0:b - r0 + 1] = _sigma_ic_rows(
-                0 if kind == "bf0" else 1, line, lam[a - r0:b - r0 + 1],
+            sig[a:b + 1] = _sigma_ic_rows(
+                0 if kind == "bf0" else 1, line, lam[a:b + 1],
                 float(lam_all[p1]), compat)
-        wins.append((kind, a - r0, b - r0))
-    return wins, lam, torch.diff(lam), sig, _planck_iunit(lam)
+    return lam, torch.diff(lam), sig, _planck_iunit(lam)
 
 
 def _launch_r1(line, acc, J_blk, r0, g_cell, lte_pops, temperature, compat,
