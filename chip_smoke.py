@@ -70,7 +70,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (the production grid's first cells); each bit-equal to its plain
      version (or within TOL), then both timed at each production chunk
      beside their bounds, R1 by chunk kind (bound-bound, bound-free)
-     and at the 442,368-site launch too;
+     and at the 442,368-site launch too; then X1, the Bezier xy plane
+     step (solvers/xy_bezier.py, csrc/xy_bezier.cu), float64 and
+     float32, at (13, 256, 256), (1, 256, 256), (5, 37, 29) and a
+     y-split tile padded with 2-cell halos, over both stencil shifts in
+     x and y, first 0 and 1 and fractions at 0, 1 and between, bit-equal
+     to its plain version, one launch a call, then timed at (13, 256,
+     256) beside its bytes bound and the plain version's time;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU,
@@ -115,17 +121,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      run again through V1 and through the plain level loop, timed, both
      bit-equal to the iteration's own output;
   8. the Bezier formal solution: Bezier (and linear) sweeps of every
-     ul7n12 direction at a small size, card against CPU; then one full
-     Lambda iteration at the phase-5 grid through RegularEngine.run()
-     with formal_interpolation='bezier', lambda_chunk 13 and the rates
-     in slabs of z-planes (the standard loop: S_old, S_new, J and B0
-     resident), with seconds, the J-pass share, the kernels' launch
-     counts and peak memory; one march_plane call of that iteration, on
-     its own inputs, against the plain version; a Bezier xy plane step's
-     time beside K1's, K1 held against its plain version there too;
+     ul7n12 direction at a small size, card against CPU, the Bezier
+     ones one X1 launch a Bezier xy plane step and the linear ones none;
+     then one full Lambda iteration at the phase-5 grid through
+     RegularEngine.run() with formal_interpolation='bezier', lambda_chunk
+     13 and the rates in slabs of z-planes (the standard loop: S_old,
+     S_new, J and B0 resident), with seconds, the J-pass share, the
+     kernels' launch counts (X1's equal to the iteration's Bezier xy
+     steps) and peak memory; one march_plane and one X1 call of that
+     iteration, on their own inputs, against the plain versions (X1 bit
+     for bit); a Bezier xy plane step's time (X1 and its plain version)
+     beside K1's, K1 held against its plain version there too;
   9. angle distribution: compute_J serial against
      distribute_angles(engine, [cuda:0, cuda:0]), regular (linear and
-     Bezier) and Voronoi (its launches), at a small size;
+     Bezier: X1's launches equal on both sides, none in the linear
+     ones) and Voronoi (its launches), at a small size;
  10. the continuum scattering iteration (a batch of ONE wavelength
      through every sweep): card against CPU at a small size, then
      lambda_continuum_regular at the phase-5 grid, 3 iterations, with
@@ -137,8 +147,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      imports, through the HDF5 file; one small J pass under
      observability.device_trace; then the searchlight driver (flux kept
      for all 12 directions; then --irregular --n 21, through V1) and
-     the line_nlte driver with --interpolation bezier, as a user calls
-     them;
+     the line_nlte driver with --interpolation bezier (through X1), as a
+     user calls them;
  12. the last two drivers at full width: synthesize() on phase 5's
      populations through the synthesize driver's _load_regular
      (215x256x256, 91 wavelengths, float64), disk centre (theta 180)
@@ -277,7 +287,12 @@ GROUP_KERNELS = ("group_emit", "group_stack", "group_fold")
 # the standard loop's rates at once or in slabs, entry(): phases 4-8,
 # 13-15), the streamed iteration S1 too
 RATE_KERNELS = ("rates_chunk", "s_update")
-KERNELS = SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS + RATE_KERNELS
+# X1, the Bezier xy plane step (solvers/xy_bezier.py, csrc/xy_bezier.cu):
+# one launch a plane of every Bezier xy segment (phases 8, 9, 11); no
+# linear path launches it
+X1 = "xy_bezier"
+KERNELS = (SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS + RATE_KERNELS
+           + (X1,))
 # the extinction of the unsplit grouped regular path (phases 5, 13, 15)
 # and of the per-direction paths (Voronoi, Bezier, the split grid); no
 # iteration path launches E2 (calculate_R's profile)
@@ -771,6 +786,109 @@ def time_kernels(B, dtype_name="float64"):
           f"{100 * bound['march_plane'][0] / times['march_plane'][0]:.1f}"
           f" % of its bound", flush=True)
     return times, bound
+
+
+# ------------------------------------------------- phase 2: the Bezier xy step
+
+# X1's holds (B, Nx, Ny): the Bezier iteration's plane (a lambda chunk),
+# a batch of one, a ragged plane and a y-split rank's tile of the
+# production grid padded with 2-cell halos
+X1_SHAPES = ((PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
+             (1, PROD["nx"], PROD["ny"]), (5, 37, 29),
+             (PROD["lambda_chunk"], PROD["nx"] + 4, PROD["ny"] // 2 + 4))
+# (fx, fy, fx_prev, fy_prev): all zero, all one, between, mixed
+X1_FRACTIONS = ((0.0, 0.0, 0.0, 0.0), (1.0, 1.0, 1.0, 1.0),
+                (0.3, 0.8, 0.55, 0.1), (0.0, 1.0, 0.45, 1.0))
+# floating-point operations of csrc/xy_bezier.cu a point: three stencils
+# (9 each), two composed ones (45 each), dtau and dtau_uu (3 each), the
+# control point (27) and the weights' middle branch (17: six divisions
+# and the exp counted as one each), the update (7)
+X1_OPS = 3 * 9 + 2 * 45 + 2 * 3 + 27 + 17 + 7
+
+
+def _x1_planes(gen, B, nx, ny, dtype):
+    """I_p, alpha_c, alpha_p, S_c, S_p, alpha_pp, S_pp on the card;
+    alpha over 10^-2.5 .. 10^2.2, so dtau crosses the Bezier weights'
+    0.05 and 50 branches."""
+    def alpha():
+        return _rand(gen, (B, nx, ny), -2.5, 2.2, dtype, log=True)
+
+    def source():
+        return _rand(gen, (B, nx, ny), 0.1, 1.0, dtype)
+
+    I_p = _rand(gen, (B, nx, ny), 0.0, 1.0, dtype)
+    a_c, a_p, S_c, S_p = alpha(), alpha(), source(), source()
+    return I_p, a_c, a_p, S_c, S_p, alpha(), source()
+
+
+def check_xy_bezier():
+    """Phase 2: X1 against its plain version on the card, float64 and
+    float32, at X1_SHAPES over both stencil base shifts in x and y,
+    first 0 and 1 and X1_FRACTIONS, bit for bit, one launch a call.
+    Returns {dtype name: max abs err}."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_bezier as xb
+
+    gen = torch.Generator().manual_seed(17)
+    worst = {}
+    for dtype_name in TOL:
+        dtype = getattr(torch, dtype_name)
+        worst[dtype_name] = 0.0
+        for (B, nx, ny) in X1_SHAPES:
+            planes = _x1_planes(gen, B, nx, ny, dtype)
+            n0, n = xb.LAUNCHES, 0
+            for sxs in (0, -1):
+                for sys_ in (0, -1):
+                    for first in (0.0, 1.0):
+                        for fx, fy, fxp, fyp in X1_FRACTIONS:
+                            geom = (1.0, fx, fy, 0.7, fxp, fyp, first)
+                            got = xb.xy_bezier(*planes, *geom, sxs, sys_)
+                            want = xb.xy_bezier_plain(*planes, *geom, sxs,
+                                                      sys_)
+                            torch.cuda.synchronize()
+                            n += 1
+                            e, _ = _compare(X1, got, want, dtype_name)
+                            worst[dtype_name] = max(worst[dtype_name], e)
+                            require(torch.equal(got, want),
+                                    f"{X1} differs from its plain version "
+                                    f"at ({B}, {nx}, {ny}) {dtype_name}, "
+                                    f"shifts ({sxs}, {sys_}), first "
+                                    f"{first}: max abs err {e:.3e}")
+            require(xb.LAUNCHES - n0 == n,
+                    f"{X1}: {xb.LAUNCHES - n0} launches for {n} calls")
+            print(f"  {X1} {dtype_name} ({B}, {nx}, {ny}): {n} calls bit-"
+                  f"equal to the plain version", flush=True)
+    return worst
+
+
+def time_xy_bezier(B, dtype_name):
+    """X1 and its plain version at (B, 256, 256) in `dtype_name`, ms a
+    plane step, beside X1's bound: seven planes read and one written,
+    X1_OPS a point.  X1's own time is its device time (torch.profiler):
+    CUDA events around back-to-back calls measure the host's launch rate
+    (the wrapper's checks and the ctypes call, ~0.05 ms), which they
+    give beside it.  Returns (device ms, plain ms, bound ms, bound_by,
+    events ms)."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_bezier as xb
+
+    nx, ny = PROD["nx"], PROD["ny"]
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator().manual_seed(9)
+    planes = _x1_planes(gen, B, nx, ny, dtype)
+    args = (*planes, 1.0, 0.3, 0.6, 0.8, 0.2, 0.5, 0.0, -1, 0)
+    events = _time_ms(lambda: xb.xy_bezier(*args), 50)
+    ms = _device_ms(lambda: xb.xy_bezier(*args), 50, "xy_bezier_kernel")
+    plain = _time_ms(lambda: xb.xy_bezier_plain(*args), 10)
+    pts = B * nx * ny
+    bound, by = _bound_ms(8 * ELEMENT_BYTES[dtype_name] * pts, X1_OPS * pts,
+                          dtype_name)
+    print(f"  {X1} (B={B}, {nx}x{ny}, {dtype_name}): kernel {ms:.5f} ms a "
+          f"plane step (device time; {events:.5f} ms by CUDA events over "
+          f"back-to-back calls), plain {plain:.4f} ms, bound {bound:.5f} ms "
+          f"({by}), {100 * bound / ms:.1f} % of it", flush=True)
+    del planes
+    return ms, plain, bound, by, events
 
 
 # ------------------------------------------------------ phase 2: extinction
@@ -2199,11 +2317,12 @@ def _launch_counts(reset=False):
     from voronoirt_tpu_torch.solvers import march_plane as mp
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
     from voronoirt_tpu_torch.solvers import voronoi_level as vl
+    from voronoirt_tpu_torch.solvers import xy_bezier as xb
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     from voronoirt_tpu_torch.solvers import xy_segment as xs
     _count_eager_voigt()
     if reset:
-        xp.LAUNCHES = xs.LAUNCHES = 0
+        xp.LAUNCHES = xs.LAUNCHES = xb.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
         ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
         ge.EMIT_LAUNCHES = ge.STACK_LAUNCHES = ge.FOLD_LAUNCHES = 0
@@ -2218,7 +2337,7 @@ def _launch_counts(reset=False):
             "voigt_rows": ex.VOIGT_LAUNCHES, "group_emit": ge.EMIT_LAUNCHES,
             "group_stack": ge.STACK_LAUNCHES, "group_fold": ge.FOLD_LAUNCHES,
             "rates_chunk": rates.LAUNCHES, "s_update": s1.LAUNCHES,
-            V1: vl.LAUNCHES,
+            X1: xb.LAUNCHES, V1: vl.LAUNCHES,
             V1_CALLS: sv.STAGE_CALLS, EAGER_VOIGT: _eager_voigt[0],
             EAGER_LEVELS: vl.PLAIN_ON_CARD, EAGER_HOIST: sv.LEAN_ON_CARD}
 
@@ -2788,78 +2907,88 @@ def check_bezier_sweeps():
     alpha = 10.0 ** gen.uniform(0.7, 2.5, (nz, B, nx, ny))
     I0 = gen.uniform(0.5, 1.0, (B, nx, ny))
     worst = {"linear": 0.0, "bezier": 0.0}
-    cases, differs = set(), 0.0
-    _launch_counts(reset=True)
+    launches = {interp: dict.fromkeys(_launch_counts(), 0)
+                for interp in worst}
+    cases, differs, n_xy = set(), 0.0, 0
     for i in range(quad.n_angles):
         plan = sr.build_plan(quad.k[i], z, 1.0 / nx, 1.0 / ny,
                              bool(quad.is_up[i]))
         cases |= {s.case for s in plan.segments}
+        n_xy += sum(len(s.steps) for s in plan.segments if s.case == "xy")
         out = {}
         for interp in worst:
             for dev in ("cuda", "cpu"):
                 t = lambda a: torch.as_tensor(a, dtype=torch.float64,
                                               device=dev)
+                _launch_counts(reset=True)
                 out[interp, dev] = sr.sweep(
                     plan, t(S), t(alpha), t(I0 if plan.up else 0.0 * I0),
                     n_sweeps=3, interpolation=interp).cpu()
+                for k, n in _launch_counts().items():
+                    launches[interp][k] += n
             worst[interp] = max(worst[interp],
                                 _rel_err(out[interp, "cuda"],
                                          out[interp, "cpu"]))
         differs = max(differs, _rel_err(out["bezier", "cuda"],
                                         out["linear", "cuda"]))
-    launches = _launch_counts()
     print(f"  sweeps of 12 directions ({nz}x{nx}x{ny}, B={B}, cases "
           f"{sorted(cases)}): card vs CPU max rel diff linear "
           f"{worst['linear']:.3e} (<= 1e-12), bezier {worst['bezier']:.3e} "
           f"(<= 1e-10); bezier vs linear on the card {differs:.3e}; "
-          f"launches {launches}", flush=True)
+          f"launches of the linear sweeps {launches['linear']}, of the "
+          f"Bezier sweeps {launches['bezier']} ({n_xy} Bezier xy plane "
+          f"steps)", flush=True)
     require(cases == {"xy", "yz", "xz"}, f"plane-cut cases {cases}")
     require(worst["linear"] <= 1e-12 and worst["bezier"] <= 1e-10,
             f"sweeps card vs CPU: {worst}")
     require(differs > 1e-3, "the Bezier sweep equals the linear one")
-    # the Bezier xy step bypasses K1 (only the linear sweeps launch it,
-    # as xy_segment); the marching segments of both go through K2
-    _require_path(launches, UNSPLIT, "the sweeps")
+    # the linear sweeps run their xy segments through K1 (xy_segment),
+    # the Bezier sweeps through X1, one launch a plane step; the
+    # marching segments of both go through K2
+    _require_path(launches["linear"], UNSPLIT, "the linear sweeps")
+    _require_path(launches["bezier"], (X1,) + UNSPLIT[1:],
+                  "the Bezier sweeps")
+    require(launches["bezier"][X1] == n_xy,
+            f"{X1}: {launches['bezier'][X1]} launches, not one a Bezier xy "
+            f"plane step ({n_xy})")
 
 
 def _time_bezier_step(B):
-    """ms of one Bezier xy plane step (plain torch) and of K1 at
-    (B, 256, 256), float64, CUDA events; K1 is held against its plain
-    version on the same planes first."""
+    """ms of one Bezier xy plane step at (B, 256, 256), float64: X1's
+    device time, its plain version's and X1's bound (time_xy_bezier),
+    and K1's (the linear step, one plane a launch), held
+    against its plain version on the same planes first.  Returns (X1 ms,
+    plain ms, K1 ms)."""
     import torch
-    from voronoirt_tpu_torch import get_quadrature
-    from voronoirt_tpu_torch.solvers import sweep_regular as sr
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
+    ms, plain, _, _, _ = time_xy_bezier(B, "float64")
     nx, ny = PROD["nx"], PROD["ny"]
     gen = torch.Generator().manual_seed(9)
     a_p, a_c, s_p, s_c, i_p = _planes(gen, B, nx, ny, torch.float64)
-    a_pp, _, s_pp, _, _ = _planes(gen, B, nx, ny, torch.float64)
-    quad = get_quadrature(PROD["quadrature"])
-    plan = sr.build_plan(quad.k[0], [0.0, 1.0], 1.0, 1.0, True)
-    bez = _time_ms(lambda: sr._xy_step_bezier(
-        plan, i_p, a_c, a_p, s_c, s_p, a_pp, s_pp, 0.7, 0.3, 0.6, 0.8, 0.2,
-        0.5, 0.0), 20)
     r = torch.full((B,), 0.7, dtype=torch.float64, device="cuda")
     fx, fy = 0.3 * torch.ones_like(r), 0.6 * torch.ones_like(r)
-    k1_args = (a_p, a_c, s_p, s_c, i_p, r, fx, fy, plan.sxs, plan.sys)
+    k1_args = (a_p, a_c, s_p, s_c, i_p, r, fx, fy, -1, 0)
     _compare("xy_plane", xp.xy_plane(*k1_args), xp.xy_plane_plain(*k1_args),
              "float64")
-    k1 = _time_ms(lambda: xp.xy_plane(*k1_args), 50)
-    return bez, k1
+    k1 = _device_ms(lambda: xp.xy_plane(*k1_args), 50, "xy_plane_kernel")
+    return ms, plain, k1
 
 
 # z-planes per slab of the rates in the Bezier production iteration
 BEZIER_RATES_PLANES = 8
-# which march_plane call of that iteration is held against the plain one
+# which march_plane call and which X1 call of that iteration are held
+# against the plain versions (mid-sweep, the carried intensity no longer
+# the boundary's)
 K2_CALL = 1000
+X1_CALL = 3000
 
 
 @contextmanager
 def _keep_call(name, n, batch=None, shape=None):
     """Keep the arguments and result of the n-th call that the regular
-    sweep makes of the kernel wrapper `name` ('xy_segment', 'xy_plane' or
-    'march_plane'), to hold against the plain version afterwards; with
+    sweep makes of the kernel wrapper `name` ('xy_segment', 'xy_plane',
+    'march_plane' or 'xy_bezier'), to hold against the plain version afterwards; with
     `batch`, the n-th call on a batch of that many planes; with `shape`,
     the n-th call on planes of that shape.  An xy_segment call is held
     at once, inside the sweep, before the next piece reuses its planes:
@@ -2909,6 +3038,7 @@ def _hold_kept(name, kept, n, what):
     same inputs, at TOL of the call's dtype; returns the max abs
     error."""
     from voronoirt_tpu_torch.solvers import march_plane as mp
+    from voronoirt_tpu_torch.solvers import xy_bezier as xb
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     require("shape" in kept, f"{what} made {kept['seen']} {name} calls, "
                              f"fewer than {n}")
@@ -2917,7 +3047,8 @@ def _hold_kept(name, kept, n, what):
         e_abs, e_rel = kept["err"]
     else:
         plain = {"xy_plane": xp.xy_plane_plain,
-                 "march_plane": mp.march_plane_plain}[name]
+                 "march_plane": mp.march_plane_plain,
+                 X1: xb.xy_bezier_plain}[name]
         e_abs, e_rel = _compare(name, kept["out"],
                                 plain(*kept["args"], **kept["statics"]),
                                 dtype_name)
@@ -2964,9 +3095,10 @@ def run_bezier_production(atmos):
 
     eng.compute_J = timed_J
     _launch_counts(reset=True)
-    # keep one march_plane call of the iteration (the K2_CALL-th:
-    # mid-sweep, the carried intensity no longer the boundary's)
-    with _keep_call("march_plane", K2_CALL) as kept, timer.phase("run"):
+    # keep one march_plane call (the K2_CALL-th) and one X1 call (the
+    # X1_CALL-th) of the iteration
+    with _keep_call("march_plane", K2_CALL) as kept, \
+            _keep_call(X1, X1_CALL) as kept_x1, timer.phase("run"):
         res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2996,27 +3128,39 @@ def run_bezier_production(atmos):
           f"J pass {j:.4f} s ({100 * j / it:.1f}%), {rate:.4e} "
           f"grid-points*rays/s", flush=True)
     print(f"  Bezier xy plane steps in the iteration: {n_xy * n_chunks} "
-          f"({n_xy} a chunk, plain torch, no K1 launch); launches "
-          f"{launches}; criterion {res.convergence}; peak device memory "
-          f"{peak / 2**30:.3f} GiB (max_memory_allocated); "
-          f"sum(populations)/n_H - 1 max {mass:.3e}", flush=True)
+          f"({n_xy} a chunk x {n_chunks} chunks, one {X1} launch each, no "
+          f"K1 launch); launches {launches}; criterion {res.convergence}; "
+          f"peak device memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated); sum(populations)/n_H - 1 max "
+          f"{mass:.3e}", flush=True)
     # the rates in slabs: one R1 launch a slab of z-planes
     n_slabs = -(-p["nz"] // BEZIER_RATES_PLANES)
-    _require_path(launches, ("march_plane", "march_coeffs", "march_chain")
-                  + PER_ANGLE_EXT + ("rates_chunk",), "the Bezier iteration")
+    _require_path(launches, (X1, "march_plane", "march_coeffs",
+                             "march_chain") + PER_ANGLE_EXT
+                  + ("rates_chunk",), "the Bezier iteration")
     require(launches["rates_chunk"] == n_slabs,
             f"rates_chunk: {launches['rates_chunk']} launches, not one a "
             f"slab ({n_slabs})")
+    require(launches[X1] == n_xy * n_chunks,
+            f"{X1}: {launches[X1]} launches, not one a Bezier xy plane "
+            f"step ({n_xy * n_chunks})")
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
     _hold_kept("march_plane", kept, K2_CALL, "the Bezier iteration")
     require(tuple(kept["out"].shape) == (B, p["nx"], p["ny"]),
             f"march_plane plane {tuple(kept['out'].shape)} in the iteration")
-    bez, k1 = _time_bezier_step(B)
+    e_x1 = _hold_kept(X1, kept_x1, X1_CALL, "the Bezier iteration")
+    require(e_x1 == 0.0 and tuple(kept_x1["out"].shape) == (B, p["nx"],
+                                                            p["ny"]),
+            f"{X1} call {X1_CALL}: max abs err {e_x1:.3e}, plane "
+            f"{kept_x1['shape']}")
+    del kept, kept_x1
+    x1, plain, k1 = _time_bezier_step(B)
     print(f"  one xy plane step at (B={B}, {p['nx']}x{p['ny']}, float64): "
-          f"Bezier (plain torch) {bez:.4f} ms, K1 (linear) {k1:.4f} ms, "
-          f"ratio {bez / k1:.1f}", flush=True)
+          f"Bezier X1 {x1:.5f} ms (device time), its plain version "
+          f"{plain:.4f} ms (CUDA events), K1 (linear, xy_plane) {k1:.5f} ms "
+          f"(device time); X1 / K1 {x1 / k1:.2f}", flush=True)
     return launches
 
 
@@ -3025,7 +3169,8 @@ def check_angle_distribution():
     dealt over two slots of the card, [cuda:0, cuda:0].  Bezier and
     Voronoi sweep angle by angle on both sides: 1e-12.  The serial
     linear J is the grouped one, which z-flips the down sweeps onto an
-    axis whose steps round differently (ROADMAP C3): 1e-11."""
+    axis whose steps round differently (ROADMAP C3): 1e-11.  Returns X1's
+    launches in the distributed Bezier J pass."""
     import torch
     from voronoirt_tpu_torch import Config, grid, synthetic_atmosphere
     from voronoirt_tpu_torch.engine import VoronoiEngine
@@ -3034,18 +3179,29 @@ def check_angle_distribution():
 
     two = [torch.device("cuda", 0)] * 2
     atmos = synthetic_atmosphere(nz=24, nx=32, ny=32)
+    x1 = {}
     for interp, bar in (("linear", 1e-11), ("bezier", 1e-12)):
         kw = dict(quadrature="ul7n12", lambda_chunk=4,
                   formal_interpolation=interp)
         serial = _small_line_engine(atmos, "cuda", **kw)
+        _launch_counts(reset=True)
         J0 = serial.compute_J(serial.B0, serial.lte)
+        n_serial = _launch_counts()[X1]
         eng = distribute_angles(_small_line_engine(atmos, "cuda", **kw), two)
+        _launch_counts(reset=True)
         J1 = eng.compute_J(eng.B0, eng.lte)
+        x1[interp] = (n_serial, _launch_counts()[X1])
         err = _rel_err(J1, J0)
         print(f"  regular {interp}: distributed vs serial J max rel diff "
-              f"{err:.3e} (<= {bar:g})", flush=True)
+              f"{err:.3e} (<= {bar:g}); {X1} launches serial, distributed "
+              f"{x1[interp]}", flush=True)
         require(J1.is_cuda and err <= bar,
                 f"regular {interp} distributed J: {err:.3e}")
+    # every Bezier J pass runs its xy steps through X1, the same steps
+    # whichever slot sweeps an angle; no linear one launches it
+    require(x1["linear"] == (0, 0) and x1["bezier"][0] > 0
+            and x1["bezier"][0] == x1["bezier"][1],
+            f"{X1} launches (serial, distributed) {x1}")
 
     pos, bounds = _sample(atmos, 5000)
     sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
@@ -3069,6 +3225,7 @@ def check_angle_distribution():
           f"{launches}", flush=True)
     _require_path(launches, ("alpha_tot", V1), "the distributed J pass")
     require(J1.is_cuda and err <= 1e-12, f"Voronoi distributed J: {err:.3e}")
+    return x1["bezier"][1]
 
 
 def run_continuum(atmos, sites):
@@ -3269,7 +3426,8 @@ def check_device_trace():
 
 
 def run_drivers():
-    """Phase 11c: the drivers as a user calls them, on the card."""
+    """Phase 11c: the drivers as a user calls them, on the card.  Returns
+    X1's launches in the Bezier line_nlte run."""
     import math
     from voronoirt_tpu_torch.drivers import line_nlte, searchlight
 
@@ -3288,12 +3446,16 @@ def run_drivers():
                                    for r in res),
             "searchlight --irregular: not 12 finite directions")
     _require_path(launches, (V1,), "searchlight --irregular")
+    _launch_counts(reset=True)
     summary = line_nlte.main(["--interpolation", "bezier", "--maxiter", "3"])
-    print(f"  line_nlte --interpolation bezier --maxiter 3: {summary}",
-          flush=True)
+    n_x1 = _launch_counts()[X1]
+    print(f"  line_nlte --interpolation bezier --maxiter 3: {summary}; "
+          f"{X1} launches {n_x1}", flush=True)
     require(summary["grid"] == "regular" and 1 <= summary["iterations"] <= 3
             and math.isfinite(summary["final_diff"]),
             f"line_nlte summary {summary}")
+    require(n_x1 > 0, f"line_nlte --interpolation bezier: no {X1} launch")
+    return n_x1
 
 
 # ------------------------------------------------------------ phase 12-13
@@ -4032,6 +4194,8 @@ def main(argv=None):
         group_info = check_group_emit(atmos)
         rate_info = check_rates(atmos)
         v1_info = check_voronoi_level(atmos)
+        x1_errs = check_xy_bezier()
+        x1_times = {d: time_xy_bezier(B13, d) for d in TOL}
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
         check_goldens()
@@ -4058,7 +4222,7 @@ def main(argv=None):
                                "phase 8")
     if want(9):
         phase("phase 9: angle distribution, serial vs two slots on the card")
-        check_angle_distribution()
+        launches_x1_slots = check_angle_distribution()
     if want(10):
         phase("phase 10: continuum scattering iteration")
         launches_continuum = run_continuum(atmos, sites)
@@ -4066,7 +4230,7 @@ def main(argv=None):
         phase("phase 11: checkpoint/resume on the card, the drivers")
         check_checkpoint_resume()
         check_device_trace()
-        run_drivers()
+        launches_x1_driver = run_drivers()
     if want(12):
         phase("phase 12: the synthesize and continuum_study drivers at full "
               "width")
@@ -4312,6 +4476,31 @@ def main(argv=None):
         "pct_of_bound_f32": 100 * t32["bound_ms"] / t32["ms"],
         "ms_b1": t1["ms"], "plain_ms_b1": t1["plain_ms"],
         "bound_ms_b1": t1["bound_ms"], **layer})
+    # X1: what it replaces is the JAX package's lax.scan body of a Bezier
+    # xy segment, plain XLA, not a Pallas kernel; its time is a plane
+    # step at the Bezier iteration's plane (phase 2)
+    t64, t32 = x1_times["float64"], x1_times["float32"]
+    kernels.append({
+        "name": X1, "route": "cuda",
+        "source": "voronoirt_tpu_torch/csrc/xy_bezier.cu",
+        "replaces": "voronoirt_tpu/solvers/sweep_regular.py:245",
+        "replaces_a_tpu_kernel": False,
+        "launches": launches_bezier[X1],
+        "launches_path": "phase 8: the Bezier iteration, one a Bezier xy "
+                         "plane step",
+        "max_abs_err": x1_errs["float64"], "bit_equal": True,
+        "ms": t64[0], "plain_ms": t64[1], "bound_ms": t64[2],
+        "bound_by": t64[3], "pct_of_bound": 100 * t64[2] / t64[0],
+        "library_ms": None,
+        "ms_is": f"a plane step at ({B13}, {PROD['nx']}, {PROD['ny']}): "
+                 f"the kernel's device time (torch.profiler)",
+        "ms_events": t64[4], "ms_events_f32": t32[4],
+        "launches_angle_slots": launches_x1_slots,
+        "launches_line_nlte_bezier": launches_x1_driver,
+        "launches_streamed_iteration": launches[X1],
+        "max_abs_err_f32": x1_errs["float32"], "ms_f32": t32[0],
+        "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],
+        "bound_by_f32": t32[3], "pct_of_bound_f32": 100 * t32[2] / t32[0]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

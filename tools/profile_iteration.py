@@ -4,7 +4,8 @@ CUDA card.
 
     python3 tools/profile_iteration.py [--nz 215] [--dtype float32]
                                        [--iteration-only]
-                                       [--out profile.json]
+                                       [--interpolation bezier]
+                                       [--repo DIR] [--out profile.json]
 
 Builds the configuration of chip_smoke.py phase 5 (215x256x256 grid, 91
 wavelengths, ul7n12, float64, lambda-streamed, lambda_chunk 13, 4-angle
@@ -40,6 +41,26 @@ multiply-add contraction (-fmad=true), timed in the order A B B A, with
 each variant's largest relative difference from the plain version in
 float64 and float32.
 
+With --interpolation bezier it profiles chip_smoke.py phase 8's
+iteration instead: the standard (not streamed) loop of
+RegularEngine.run() with formal_interpolation='bezier', one sweep an
+angle at B = lambda_chunk, the rates in slabs of
+chip_smoke.BEZIER_RATES_PLANES z-planes.  Three runs of one iteration
+each: parts timed (host timers around synchronised calls: the
+extinction a direction, the sweeps with their Bezier xy segments --
+X1 a plane, or the eager step in revisions before it -- apart from the
+rest of each sweep (K2's marching segments, the emit), the per-angle J
+accumulation, the rates and statistical equilibrium in slabs (R1 a
+slab), the S update and the criterion), plain, and profiled (the
+kernels by device time, X1, K2, E1 and R1 summed apart, and the
+device's busy share against the plain run's iteration seconds).
+
+--repo DIR profiles the voronoirt_tpu_torch package of another checkout
+(its kernels built there), e.g. the parent commit unpacked with git
+archive; the helpers (chip_smoke.py, this directory's modules) are
+always this checkout's, so two revisions are measured by the same code
+in one call.
+
 Prints a summary; --out also writes it as JSON.
 """
 
@@ -52,18 +73,28 @@ import time
 from collections import defaultdict
 from unittest import mock
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402  (this checkout's; imports no package)
+
+# --repo: the checkout whose package is profiled goes first on the path
+# before the package is imported
+_pre = argparse.ArgumentParser(add_help=False)
+_pre.add_argument("--repo", default=HERE)
+REPO = os.path.abspath(_pre.parse_known_args()[0].repo)
+sys.path.insert(0, REPO)
 
 from voronoirt_tpu_torch import Config, require_cuda, synthetic_atmosphere  # noqa: E402
 from voronoirt_tpu_torch.engine import RegularEngine  # noqa: E402
 from voronoirt_tpu_torch.engine import lambda_iter  # noqa: E402
 from voronoirt_tpu_torch.kernels import build  # noqa: E402
 from voronoirt_tpu_torch.physics import rates  # noqa: E402
-import chip_smoke  # noqa: E402
 from voronoirt_tpu_torch.physics.atom import lyman_alpha_line  # noqa: E402
+from voronoirt_tpu_torch.solvers import sweep_regular  # noqa: E402
 from voronoirt_tpu_torch.solvers import march_plane as mp  # noqa: E402
 from voronoirt_tpu_torch.solvers import xy_plane as xp  # noqa: E402
 from profile_xy_segment import measure as k1_segment_vs_plane  # noqa: E402
@@ -206,6 +237,135 @@ def rates_bound(eng, pops):
     return r1 / 1e3, s1 / 1e3
 
 
+# phase 8's Bezier iteration: its kernels summed apart, by a pattern of
+# their name, and what is left of the eager tensor operations (the
+# plain Bezier xy step in revisions before X1; the J accumulation, the S
+# update and the criterion in every revision)
+NAMED_BEZIER = {"xy_bezier (X1)": r"xy_bezier_kernel",
+                "march_coeffs (K2a)": r"march_coeffs_kernel",
+                "march_chain (K2b)": r"march_chain_kernel",
+                "alpha_tot (E1, a direction)":
+                r"alpha_tot_kernel(I.Lb0|<\w+, false>)",
+                "rates_chunk (R1)": r"rates_chunk_kernel",
+                "roll (left)": r"roll",
+                "add (left)": r"CUDAFunctor_add|AddFunctor",
+                "mul (left)": r"MulFunctor",
+                "div (left)": r"DivFunctor|div_true",
+                "where (left)": r"where"}
+
+
+def bezier_parts_timed(eng):
+    """One Bezier iteration (eng.run(), maxiter 1) with every part behind
+    synchronised host timers; the Bezier xy segments are timed inside
+    the sweeps and taken out of them."""
+    from voronoirt_tpu_torch.parallel import angles
+    acc = defaultdict(float)
+    wraps = [(lambda_iter, "alpha_tot", "extinction (alpha_tot)"),
+             (lambda_iter, "sweep", "sweeps"),
+             (sweep_regular, "_xy_segment_bezier",
+              "sweeps: Bezier xy segments"),
+             (angles, "partial_accumulate", "J accumulation (per angle)"),
+             (lambda_iter, "_rates_and_populations_slabbed",
+              "rates and statistical equilibrium (slabs)"),
+             (lambda_iter, "_update_S", "S update"),
+             (lambda_iter, "_criterion", "criterion")]
+    patches = [mock.patch.object(mod, name,
+                                 _timed(getattr(mod, name), label, acc))
+               for mod, name, label in wraps]
+    for p in patches:
+        p.start()
+    try:
+        res = eng.run()
+    finally:
+        for p in patches:
+            p.stop()
+    acc["sweeps"] -= acc["sweeps: Bezier xy segments"]
+    acc = {("sweeps: the rest (K2, emit)" if k == "sweeps" else k): v
+           for k, v in acc.items()}
+    # the criterion runs at the loop heads, outside the timed iteration
+    wall = res.timings[0]
+    acc["other (unwrapped)"] = wall - sum(v for k, v in acc.items()
+                                          if k != "criterion")
+    return res, wall, acc
+
+
+def bezier_profile(args, smi):
+    """chip_smoke.py phase 8's Bezier iteration: parts timed, plain and
+    profiled, one run of one iteration each."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    p = chip_smoke.PROD
+    cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
+                 quadrature=p["quadrature"], formal_interpolation="bezier",
+                 lambda_chunk=args.lambda_chunk,
+                 rates_site_chunk=chip_smoke.BEZIER_RATES_PLANES, maxiter=1,
+                 eps=0.0, dtype=args.dtype)
+    dtype = getattr(torch, args.dtype)
+    atmos = synthetic_atmosphere(nz=args.nz, nx=p["nx"], ny=p["ny"])
+    T = torch.as_tensor(atmos.temperature, dtype=dtype, device="cuda")
+    line = lyman_alpha_line(cfg.nlam_bb, cfg.nlam_bf, T)
+    build.library()
+    eng = RegularEngine(atmos, line, cfg, device="cuda")
+    n_xy = sum(len(s.steps) for pl in eng.plans for s in pl.segments
+               if s.case == "xy")
+    n_chunks = -(-line.n_lambda // cfg.lambda_chunk)
+
+    res, wall1, parts = bezier_parts_timed(eng)
+    print(f"iteration 1 (Bezier, parts timed, {args.dtype}, {REPO}): "
+          f"{wall1:.4f} s; {n_xy * n_chunks} Bezier xy plane steps", flush=True)
+    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"  {k:42s} {v:9.4f} s  {100 * v / wall1:5.1f} %", flush=True)
+    del res
+    torch.cuda.synchronize()
+    res = eng.run()
+    wall2 = res.timings[0]
+    print(f"iteration 2 (plain): {wall2:.4f} s", flush=True)
+    del res
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = eng.run()
+        torch.cuda.synchronize()
+    finite = bool(torch.isfinite(res.S).all()) and bool(
+        torch.isfinite(res.populations).all())
+    del res
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((e.key, e.count, us * 1e-6))
+    kernels.sort(key=lambda k: -k[2])
+    busy = sum(k[2] for k in kernels)
+    n_ops = sum(k[1] for k in kernels)
+    print(f"iteration 3 (profiled): kernels' device time {busy:.4f} s = "
+          f"{100 * busy / wall2:.1f} % of the plain iteration's "
+          f"{wall2:.4f} s; {n_ops} device operations", flush=True)
+    for name, count, sec in kernels[:15]:
+        print(f"  {sec:9.4f} s  {count:7d} x  {name[:90]}", flush=True)
+    named = {}
+    for label, pat in NAMED_BEZIER.items():
+        hits = [(c, sec) for name, c, sec in kernels if re.search(pat, name)]
+        named[label] = (sum(c for c, _ in hits), sum(sec for _, sec in hits))
+        print(f"  {label}: {named[label][0]} launches, "
+              f"{named[label][1]:.4f} s of device time", flush=True)
+    print(f"S, populations finite: {finite}", flush=True)
+    summary = {"device": smi, "repo": REPO, "interpolation": "bezier",
+               "nz": args.nz, "dtype": args.dtype,
+               "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
+               "bezier_xy_steps": n_xy * n_chunks,
+               "iteration_parts_timed_s": wall1, "parts_s": parts,
+               "iteration_plain_s": wall2, "kernels_device_s": busy,
+               "busy_share": busy / wall2, "device_operations": n_ops,
+               "kernels": kernels[:40], "named_kernels": named,
+               "finite": finite}
+    _write(args.out, summary)
+    if not finite:
+        raise SystemExit("S or populations not finite")
+
+
 def _rand_planes(B, nx, ny, dtype, seed):
     g = torch.Generator().manual_seed(seed)
 
@@ -305,6 +465,12 @@ def main():
     ap.add_argument("--iteration-only", action="store_true",
                     help="profile the iteration only, not K1 and the "
                          "-fmad variants")
+    ap.add_argument("--interpolation", default="linear",
+                    choices=("linear", "bezier"),
+                    help="bezier: profile chip_smoke.py phase 8's standard-"
+                         "loop Bezier iteration instead")
+    ap.add_argument("--repo", default=HERE,
+                    help="the checkout whose package is profiled")
     ap.add_argument("--out", default=None, help="write the summary as JSON")
     args = ap.parse_args()
     require_cuda()
@@ -313,6 +479,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi, flush=True)
+    if args.interpolation == "bezier":
+        bezier_profile(args, smi)
+        return
 
     cfg = Config(nlam_bb=51, nlam_bf=20, quadrature="ul7n12",
                  stream_rates=True, lambda_chunk=args.lambda_chunk,

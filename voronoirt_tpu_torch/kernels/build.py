@@ -38,6 +38,7 @@ _L = ctypes.c_longlong
 # (name, argtypes) of every exported launch function
 _SIGNATURES = {
     "vrt_xy_plane": [_P] * 9 + [_I] * 5 + [_P],
+    "vrt_xy_bezier": [_P] * 8 + [_I] * 5 + [_D] * 7 + [_P],
     "vrt_march_coeffs": [_P] * 10 + [_I] * 7 + [_P],
     "vrt_march_chain": [_P] * 3 + [_I] * 8 + [_P],
     "vrt_xy_segment": [_P] * 7 + [_I] * 8 + [_P],

@@ -57,8 +57,9 @@ def bezier_weights(dtau):
     """Quadratic (DELO-)Bezier formal-solution weights.
 
     Same formulae and branch thresholds as the JAX package
-    (de la Cruz Rodriguez & Piskunov 2013).  Returns
-    (w_up, w_c, w_ctrl, exp(-dtau)).
+    (de la Cruz Rodriguez & Piskunov 2013); csrc/formal.cuh branches per
+    point on the same thresholds.  Returns (w_up, w_c, w_ctrl,
+    exp(-dtau)).
     """
     dt = torch.clamp(dtau, 0.05, 50.0)     # safe lanes for the mid branch
     E = torch.exp(-dt)
@@ -70,16 +71,22 @@ def bezier_weights(dtau):
     w_ctrl_mid = 2.0 * (J1 / dt - J2 / (dt * dt))
     w_c_mid = J2 / (dt * dt)
 
-    # small-dtau series (J2/dt^2 cancels catastrophically otherwise)
+    # small-dtau series (J2/dt^2 cancels catastrophically otherwise); the
+    # divisions by 36, 90, 360 and 6 true divisions on every device, as
+    # in linear_weights and the kernel (csrc/formal.cuh)
     d = dtau
-    w_up_small = d * (1.0 / 3.0 + d * (-0.25 + d * (0.1 - d / 36.0)))
+    c36, c90, c360, c6 = (torch.full((), v, dtype=d.dtype, device=d.device)
+                          for v in (36.0, 90.0, 360.0, 6.0))
+    w_up_small = d * (1.0 / 3.0 + d * (-0.25 + d * (0.1 - d / c36)))
     w_ctrl_small = d * (1.0 / 3.0 + d * (-1.0 / 6.0
-                                         + d * (0.05 - d / 90.0)))
+                                         + d * (0.05 - d / c90)))
     w_c_small = d * (1.0 / 3.0 + d * (-1.0 / 12.0
-                                      + d * (1.0 / 60.0 - d / 360.0)))
-    exp_small = 1.0 - d + 0.5 * d * d - d * d * d / 6.0
+                                      + d * (1.0 / 60.0 - d / c360)))
+    exp_small = 1.0 - d + 0.5 * d * d - d * d * d / c6
 
-    # large-dtau limit (E -> 0; true dtau, not the mid-branch clip)
+    # large-dtau limit (E -> 0; true dtau, not the mid-branch clip); a
+    # Python float over a tensor is reciprocal() * the float on every
+    # device (Tensor.__rtruediv__), as the kernel reproduces it
     dl = torch.clamp(dtau, min=1.0)
     w_up_large = 2.0 / (dl * dl)
     w_ctrl_large = 2.0 / dl - 4.0 / (dl * dl)

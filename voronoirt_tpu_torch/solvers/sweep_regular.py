@@ -30,10 +30,11 @@ the buffer starts at zero once and persists across passes; xz_down
 reads its centre alpha/S from the upper plane.
 
 interpolation='bezier' (the single-direction `sweep` only, as in the JAX
-package) runs each xy segment with the quadratic-Bezier update,
-_xy_step_bezier, in plain torch on every device: the JAX package runs it
-as plain XLA outside any Pallas kernel.  The marching segments stay
-linear and go through march_plane as ever.
+package) runs each xy segment with the quadratic-Bezier update through
+xy_bezier.xy_bezier, one launch a plane (X1; the JAX package runs it as
+plain XLA outside any Pallas kernel); the second-upwind plane's index
+clamp and the segment-start flag stay on the host.  The marching
+segments stay linear and go through march_plane as ever.
 
 halo: on a grid split over ranks in x and / or y (parallel/mesh.Halo),
 S, alpha and I0 are the rank's padded tiles, halos filled.  An xy step
@@ -52,10 +53,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .formal import bezier_control, bezier_weights
 from .group_emit import flip_field, group_emit, group_fold, group_stack
 from .march_plane import march_plane
-from .xy_plane import stencil_xy, xy_plane
+from .xy_bezier import xy_bezier
+from .xy_plane import xy_plane
 from .xy_segment import piece_steps, xy_segment
 
 
@@ -222,29 +223,11 @@ def _per_element(vals, B_lam, ref):
 def _xy_step_bezier(plan, I_p, alpha_c, alpha_p, S_c, S_p, alpha_pp, S_pp,
                     r, fx, fy, r_prev, fx_prev, fy_prev, first):
     """xy plane update with quadratic-Bezier source integration
-    (sweep_regular._xy_step_bezier of the JAX package).
-
-    The control point needs the source and extinction one more interval
-    upstream along the ray: the second-upwind point, on the plane two
-    z-steps back, is sampled by composing the previous step's stencil
-    (inside) with this step's (outside).  r, fx, fy and their _prev
-    counterparts are Python floats; first is 1.0 where there is no
-    upstream sample (a segment's first step) and the control point falls
-    back to the secant slope.
-    """
-    def st(A, f, g):
-        return stencil_xy(A, plan.sxs, plan.sys, f, g)
-
-    a_up = st(alpha_p, fx, fy)
-    S_up = st(S_p, fx, fy)
-    I_up = st(I_p, fx, fy)
-    a_uu = st(st(alpha_pp, fx_prev, fy_prev), fx, fy)
-    S_uu = st(st(S_pp, fx_prev, fy_prev), fx, fy)
-    dtau = r * (alpha_c + a_up) * 0.5
-    dtau_uu = r_prev * (a_up + a_uu) * 0.5
-    C = bezier_control(S_uu, S_up, S_c, dtau_uu, dtau, first)
-    wu, wc, wk, ew = bezier_weights(dtau)
-    return ew * I_up + wu * S_up + wc * S_c + wk * C
+    (sweep_regular._xy_step_bezier of the JAX package) through
+    xy_bezier.xy_bezier, X1 on a CUDA tensor, with the plan's stencil
+    base shifts."""
+    return xy_bezier(I_p, alpha_c, alpha_p, S_c, S_p, alpha_pp, S_pp, r, fx,
+                     fy, r_prev, fx_prev, fy_prev, first, plan.sxs, plan.sys)
 
 
 def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill):
