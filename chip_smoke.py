@@ -76,7 +76,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      y-split tile padded with 2-cell halos, over both stencil shifts in
      x and y, first 0 and 1 and fractions at 0, 1 and between, bit-equal
      to its plain version, one launch a call, then timed at (13, 256,
-     256) beside its bytes bound and the plain version's time;
+     256) beside its bytes bound and the plain version's time; then X1
+     as a segment piece (solvers/xy_bezier_segment.py,
+     csrc/xy_bezier_segment.cu), float64 and float32, at (13, 256, 256),
+     (1, 256, 256) and (5, 37, 29) on 48 planes, every shift pair, both
+     directions, segments from the boundary plane and after a march
+     segment of 1, 2, 7 and 40 steps, each plane bit-equal to its plain
+     version, a 40-step segment in pieces of 13 (piece boundaries inside
+     it) bit-equal to one call, one launch a piece; at (2, 16, 1040), a
+     plane that does not fit its band, the wrapper refuses and a Bezier
+     sweep steps through X1 a plane, bit-equal to the plain step's; then
+     a step of a 214-step segment timed at (13, 256, 256) (both types)
+     and (1, 256, 256) beside its bound (alpha[t] and S[t] read, I[t]
+     written; X1_OPS a point), X1's plane step and the plain version's
+     on the same inputs, with its registers, local memory and the
+     clusters the card runs at once;
   3. the 8 regular-sweep goldens (tests/golden/regular_sweep_fixtures.npz)
      through the port's short_characteristics on the card, float64;
   4. the small entry() step on the card against the same step on the CPU,
@@ -122,20 +136,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      bit-equal to the iteration's own output;
   8. the Bezier formal solution: Bezier (and linear) sweeps of every
      ul7n12 direction at a small size, card against CPU, the Bezier
-     ones one X1 launch a Bezier xy plane step and the linear ones none;
+     ones one xy_bezier_segment launch a piece of a Bezier xy segment
+     and no X1, the linear ones neither; a Bezier sweep at a plane that
+     does not fit the segment kernel's band, one X1 launch a plane step;
      then one full Lambda iteration at the phase-5 grid through
      RegularEngine.run() with formal_interpolation='bezier', lambda_chunk
      13 and the rates in slabs of z-planes (the standard loop: S_old,
      S_new, J and B0 resident), with seconds, the J-pass share, the
-     kernels' launch counts (X1's equal to the iteration's Bezier xy
-     steps) and peak memory; one march_plane and one X1 call of that
-     iteration, on their own inputs, against the plain versions (X1 bit
-     for bit); a Bezier xy plane step's time (X1 and its plain version)
+     kernels' launch counts (xy_bezier_segment's one a piece of the
+     iteration's Bezier xy segments, X1's none), peak memory and the
+     sha256 of S and the populations (tools/profile_iteration.py
+     --interpolation bezier prints them of any checkout); one
+     march_plane call against its plain version on its own inputs and
+     one xy_bezier_segment call (the second piece of a segment, which
+     starts inside it) on its first XBS_HOLD planes against its plain
+     version, bit for bit; a Bezier xy step's
+     time (a segment's step, X1's plane step and the plain step's)
      beside K1's, K1 held against its plain version there too;
   9. angle distribution: compute_J serial against
      distribute_angles(engine, [cuda:0, cuda:0]), regular (linear and
-     Bezier: X1's launches equal on both sides, none in the linear
-     ones) and Voronoi (its launches), at a small size;
+     Bezier: xy_bezier_segment's launches one a piece on both sides,
+     no X1, neither in the linear ones) and Voronoi (its launches), at
+     a small size;
  10. the continuum scattering iteration (a batch of ONE wavelength
      through every sweep): card against CPU at a small size, then
      lambda_continuum_regular at the phase-5 grid, 3 iterations, with
@@ -147,8 +169,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      imports, through the HDF5 file; one small J pass under
      observability.device_trace; then the searchlight driver (flux kept
      for all 12 directions; then --irregular --n 21, through V1) and
-     the line_nlte driver with --interpolation bezier (through X1), as a
-     user calls them;
+     the line_nlte driver with --interpolation bezier (through
+     xy_bezier_segment, no X1), as a user calls them;
  12. the last two drivers at full width: synthesize() on phase 5's
      populations through the synthesize driver's _load_regular
      (215x256x256, 91 wavelengths, float64), disk centre (theta 180)
@@ -287,12 +309,16 @@ GROUP_KERNELS = ("group_emit", "group_stack", "group_fold")
 # the standard loop's rates at once or in slabs, entry(): phases 4-8,
 # 13-15), the streamed iteration S1 too
 RATE_KERNELS = ("rates_chunk", "s_update")
-# X1, the Bezier xy plane step (solvers/xy_bezier.py, csrc/xy_bezier.cu):
-# one launch a plane of every Bezier xy segment (phases 8, 9, 11); no
-# linear path launches it
+# X1, the Bezier xy step, as a segment piece (solvers/xy_bezier_segment.py,
+# csrc/xy_bezier_segment.cu): one launch a piece of every Bezier xy
+# segment on an unsplit grid whose plane fits its band (phases 8, 9,
+# 11); and one plane a launch (solvers/xy_bezier.py, csrc/xy_bezier.cu)
+# on a split grid and on planes that do not fit (phase 8's wide sweeps);
+# no linear path launches either
 X1 = "xy_bezier"
+XBS = "xy_bezier_segment"
 KERNELS = (SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS + RATE_KERNELS
-           + (X1,))
+           + (X1, XBS))
 # the extinction of the unsplit grouped regular path (phases 5, 13, 15)
 # and of the per-direction paths (Voronoi, Bezier, the split grid); no
 # iteration path launches E2 (calculate_R's profile)
@@ -889,6 +915,269 @@ def time_xy_bezier(B, dtype_name):
           f"({by}), {100 * bound / ms:.1f} % of it", flush=True)
     del planes
     return ms, plain, bound, by, events
+
+
+# ------------------------------------------- phase 2: the Bezier xy segment
+
+# the segment kernel's holds (B, Nx, Ny): the Bezier iteration's plane (a
+# lambda chunk), a batch of one and a ragged plane, on XBS_NZ planes;
+# segment lengths held, and a segment cut into pieces (its length and
+# the pieces' steps: boundaries inside it); a plane that does not fit
+# the kernel's band (more runs of a band than its threads: the sweep's
+# per-plane rule) and the z planes of its Bezier sweep
+XBS_SHAPES = ((PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
+              (1, PROD["nx"], PROD["ny"]), (5, 37, 29))
+XBS_NZ = 48
+XBS_LENGTHS = (1, 2, 7, 40)
+XBS_CUT = (40, 13)
+XBS_WIDE = (2, 16, 1040)
+XBS_WIDE_NZ = 12
+
+
+def _xbs_fields(gen, nz, B, nx, ny, dtype):
+    """alpha (10^-2.5 .. 10^2.2: dtau crosses the Bezier weights' 0.05
+    and 50 branches), S and I0 of a Bezier xy segment, made on the card
+    from `gen` (a CUDA generator)."""
+    import torch
+    u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda",
+                                  dtype=torch.float64)
+    alpha = (10.0 ** (-2.5 + 4.7 * u(nz, B, nx, ny))).to(dtype)
+    S = (0.1 + 0.9 * u(nz, B, nx, ny)).to(dtype)
+    return alpha, S, u(B, nx, ny).to(dtype)
+
+
+def _xbs_segment(gen, nz, L, dirn, start):
+    """The z indices and per-step Python-float geometry (r, fx, fy) of an
+    L-step Bezier xy segment from the boundary plane (t = 1 up, nz - 2
+    down: its second-upwind index clamps) or after a march segment (4
+    planes in); gen a CPU generator; exact 0 and 1 fractions among
+    them."""
+    import torch
+    off = 1 if start == "boundary" else 4
+    t0 = off if dirn == 1 else nz - 1 - off
+    u = torch.rand((3, L), generator=gen, dtype=torch.float64).tolist()
+    fx, fy = list(u[1]), list(u[2])
+    fx[0], fy[-1] = 0.0, 1.0
+    return (tuple(t0 + j * dirn for j in range(L)),
+            tuple(10.0 ** (v - 0.5) for v in u[0]), tuple(fx), tuple(fy))
+
+
+class _Against:
+    """Stands for the output cube of xy_bezier_segment_plain: each plane
+    the plain version makes is held against the kernel's plane `got[t]`
+    at its index, bit for bit (and finite), as it is made, so no second
+    cube is held."""
+
+    def __init__(self, got):
+        self.got, self.off, self.last = got, [], None
+
+    def __setitem__(self, t, plane):
+        import torch
+        self.off.append((self.got[t] != plane).any()
+                        | ~torch.isfinite(plane).all())
+        self.last = plane
+
+    def __getitem__(self, t):
+        return self.last
+
+
+def _hold_bezier_piece(args, got):
+    """The planes an xy_bezier_segment call with `args` (its arguments
+    but the cube) wrote into `got`, against its plain version on the same
+    inputs, bit for bit.  Returns the planes held."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
+    against = _Against(got)
+    xbs.xy_bezier_segment_plain(*args, against)
+    n_off = int(torch.stack(against.off).sum())
+    require(n_off == 0, f"{XBS} differs from its plain version (or is not "
+                        f"finite) on {n_off} of {len(against.off)} planes")
+    return len(against.off)
+
+
+def _bezier_wide_sweep(dtype):
+    """A Bezier sweep on the card at XBS_WIDE, a plane that does not fit
+    the segment kernel's band: its xy steps go through X1, one launch a
+    plane, and no segment launch; bit-equal to the same sweep with the
+    plain step.  Returns (X1 launches, Bezier xy steps)."""
+    import numpy as np
+    import torch
+    from voronoirt_tpu_torch.solvers import sweep_regular as sr
+    from voronoirt_tpu_torch.solvers import xy_bezier as xb
+    from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
+    B, nx, ny = XBS_WIDE
+    require(not xbs.fits(nx, ny), f"{nx}x{ny} fits the segment kernel")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    alpha, S, I0 = _xbs_fields(gen, XBS_WIDE_NZ, B, nx, ny, dtype)
+    try:
+        xbs.xy_bezier_segment(alpha, S, I0, (1, 2), 0, 2, 1, (1.0, 1.0),
+                              (0.5, 0.5), (0.5, 0.5), 0, 0,
+                              torch.empty_like(alpha))
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"{XBS} took a plane that does not fit its band")
+    t = np.deg2rad(160.0)
+    k = np.array([np.cos(t), 0.6 * np.sin(t), 0.8 * np.sin(t)])
+    plan = sr.build_plan(k, np.linspace(0.0, 0.3, XBS_WIDE_NZ), 1.0 / 6,
+                         1.0 / 5, True)
+    n_xy = sum(len(s.steps) for s in plan.segments if s.case == "xy")
+    n0, m0 = _launch_counts()[X1], _launch_counts()[XBS]
+    got = sr.sweep(plan, S, alpha, I0, interpolation="bezier")
+    n_x1 = _launch_counts()[X1] - n0
+    require(n_xy > 0 and n_x1 == n_xy and _launch_counts()[XBS] == m0,
+            f"the Bezier sweep at {nx}x{ny}: {n_x1} {X1} launches for "
+            f"{n_xy} xy steps, {_launch_counts()[XBS] - m0} {XBS}")
+    step = sr.xy_bezier
+    sr.xy_bezier = xb.xy_bezier_plain
+    try:
+        want = sr.sweep(plan, S, alpha, I0, interpolation="bezier")
+    finally:
+        sr.xy_bezier = step
+    require(torch.equal(got, want), f"the Bezier sweep at {nx}x{ny} through "
+                                    f"{X1} differs from the plain step's")
+    return n_x1, n_xy
+
+
+def check_xy_bezier_segment():
+    """Phase 2: the Bezier xy segment kernel against its plain version on
+    the card, float64 and float32, bit for bit: at XBS_SHAPES (XBS_NZ
+    planes) over every shift pair, both directions, a segment from the
+    boundary plane and one after a march segment, at XBS_LENGTHS; a
+    segment of XBS_CUT[0] steps in pieces of XBS_CUT[1] (each from the
+    plane the one before left) against the whole; one launch a piece.
+    Then XBS_WIDE, which does not fit: the wrapper refuses it and a
+    Bezier sweep there steps through X1 a plane (_bezier_wide_sweep).
+    Returns {dtype name: max abs err (0: bit-equal)}."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
+
+    worst = {}
+    for dtype_name in TOL:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        ggen = torch.Generator().manual_seed(18)
+        for (B, nx, ny) in XBS_SHAPES:
+            alpha, S, I0 = _xbs_fields(gen, XBS_NZ, B, nx, ny, dtype)
+            cube = torch.empty_like(alpha)
+            n0, n, held = xbs.LAUNCHES, 0, 0
+            n_seg = 16 * len(XBS_LENGTHS)
+            for sxs in (0, -1):
+                for sys_ in (0, -1):
+                    for dirn in (1, -1):
+                        for start in ("boundary", "after-march"):
+                            for L in XBS_LENGTHS:
+                                geom = _xbs_segment(ggen, XBS_NZ, L, dirn,
+                                                    start)
+                                args = (alpha, S, I0, geom[0], 0, L, dirn,
+                                        *geom[1:], sxs, sys_)
+                                xbs.xy_bezier_segment(*args, cube)
+                                n += 1
+                                held += _hold_bezier_piece(args, cube)
+            # the segment in pieces, each from the plane the one before
+            # left in the cube, against the whole segment
+            L, k = XBS_CUT
+            steps, r, fx, fy = _xbs_segment(ggen, XBS_NZ, L, -1,
+                                            "after-march")
+            whole = torch.empty_like(alpha)
+            xbs.xy_bezier_segment(alpha, S, I0, steps, 0, L, -1, r, fx, fy,
+                                  -1, 0, whole)
+            carry = I0
+            for j0 in range(0, L, k):
+                carry = xbs.xy_bezier_segment(alpha, S, carry, steps, j0,
+                                              min(j0 + k, L), -1, r, fx, fy,
+                                              -1, 0, cube)
+                n += 1
+            n += 1
+            sl = slice(min(steps), max(steps) + 1)
+            torch.cuda.synchronize()
+            require(torch.equal(cube[sl], whole[sl]),
+                    f"{XBS} in pieces of {k} differs from the whole "
+                    f"segment at ({B}, {nx}, {ny}) {dtype_name}")
+            require(xbs.LAUNCHES - n0 == n,
+                    f"{XBS}: {xbs.LAUNCHES - n0} launches for {n} calls")
+            print(f"  {XBS} {dtype_name} ({B}, {nx}, {ny}): {n_seg} "
+                  f"segments of lengths {XBS_LENGTHS}, 4 shift pairs, both "
+                  f"directions, from the boundary and after a march: "
+                  f"{held} planes bit-equal to the plain version; {L} "
+                  f"steps in pieces of {k} bit-equal to one call; "
+                  f"{xbs.layout(nx, ny, dtype)}", flush=True)
+            del alpha, S, I0, cube, whole
+            torch.cuda.empty_cache()
+        n_x1, n_xy = _bezier_wide_sweep(dtype)
+        print(f"  {XBS} {dtype_name} at {XBS_WIDE} (does not fit): refused; "
+              f"its Bezier sweep {n_x1} {X1} launches for {n_xy} xy steps, "
+              f"bit-equal to the plain step's", flush=True)
+        worst[dtype_name] = 0.0
+    return worst
+
+
+def time_xy_bezier_segment(B, dtype_name):
+    """A 214-step Bezier xy segment at (B, 256, 256) in `dtype_name`, in
+    the sweep's pieces (piece_steps planes), each plane into the output
+    cube: the kernel's ms a step by CUDA events around the pieces (a
+    launch runs for milliseconds, so the events read the kernel, not the
+    host's launch rate) and by device time (torch.profiler, None where
+    it records none of the kernel: so in the full smoke after phase 2's
+    other profiler sessions), X1's a plane step on the same inputs
+    (device time), the plain version's (CUDA events), the bound of a
+    step (alpha[t] and S[t] read, I[t] written; X1_OPS a point) and the
+    kernel's layout (cluster, band, registers, local memory, clusters at
+    once).  Returns a dict."""
+    import torch
+    from voronoirt_tpu_torch.solvers import xy_bezier as xb
+    from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
+    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
+
+    nz, nx, ny = PROD["nz"], PROD["nx"], PROD["ny"]
+    dtype = getattr(torch, dtype_name)
+    n = nz - 1
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    alpha, S, I0 = _xbs_fields(gen, nz, B, nx, ny, dtype)
+    steps, r, fx, fy = _xbs_segment(torch.Generator().manual_seed(19), nz,
+                                    n, 1, "boundary")
+    cube = torch.empty_like(alpha)
+    k = min(n, piece_steps(B, nx, ny, dtype))
+
+    def segment():
+        carry = I0
+        for j0 in range(0, n, k):
+            carry = xbs.xy_bezier_segment(alpha, S, carry, steps, j0,
+                                          min(j0 + k, n), 1, r, fx, fy, -1,
+                                          0, cube)
+
+    def per_plane(step):
+        def run():
+            I = I0
+            for j, t in enumerate(steps):
+                jp, t2 = max(j - 1, 0), max(t - 2, 0)
+                I = step(I, alpha[t], alpha[t - 1], S[t], S[t - 1],
+                         alpha[t2], S[t2], r[j], fx[j], fy[j], r[jp],
+                         fx[jp], fy[jp], 1.0 if j == 0 else 0.0, -1, 0)
+        return run
+
+    ms = _time_ms(segment, 3) / n
+    try:
+        device = _device_ms(segment, 3, "xy_bezier_segment_kernel") / n
+    except RuntimeError:
+        device = None
+    x1 = _device_ms(per_plane(xb.xy_bezier), 1, "xy_bezier_kernel") / n
+    plain = _time_ms(per_plane(xb.xy_bezier_plain), 1) / n
+    pts = B * nx * ny
+    bound, by = _bound_ms(3 * ELEMENT_BYTES[dtype_name] * pts, X1_OPS * pts,
+                          dtype_name)
+    lay = xbs.layout(nx, ny, dtype)
+    dev = "not recorded" if device is None else f"{device:.5f} ms"
+    print(f"  {XBS}, {n} steps at (B={B}, {nx}x{ny}, {dtype_name}) in pieces "
+          f"of {k}: {ms:.5f} ms a step (CUDA events; device time {dev}); "
+          f"{X1} a plane on the same inputs {x1:.5f} ms (device time); plain "
+          f"{plain:.4f} ms; bound {bound:.5f} ms ({by}: 3 planes, {X1_OPS} "
+          f"operations a point), {100 * bound / ms:.1f} % of it; {lay}",
+          flush=True)
+    del alpha, S, I0, cube
+    torch.cuda.empty_cache()
+    return {"ms": ms, "ms_device": device, "x1_ms": x1, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "piece": k, **lay}
 
 
 # ------------------------------------------------------ phase 2: extinction
@@ -2318,11 +2607,12 @@ def _launch_counts(reset=False):
     from voronoirt_tpu_torch.solvers import sweep_voronoi as sv
     from voronoirt_tpu_torch.solvers import voronoi_level as vl
     from voronoirt_tpu_torch.solvers import xy_bezier as xb
+    from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
     from voronoirt_tpu_torch.solvers import xy_plane as xp
     from voronoirt_tpu_torch.solvers import xy_segment as xs
     _count_eager_voigt()
     if reset:
-        xp.LAUNCHES = xs.LAUNCHES = xb.LAUNCHES = 0
+        xp.LAUNCHES = xs.LAUNCHES = xb.LAUNCHES = xbs.LAUNCHES = 0
         mp.LAUNCHES = mp.COEFFS_LAUNCHES = mp.CHAIN_LAUNCHES = 0
         ex.LAUNCHES = ex.GROUP_LAUNCHES = ex.VOIGT_LAUNCHES = 0
         ge.EMIT_LAUNCHES = ge.STACK_LAUNCHES = ge.FOLD_LAUNCHES = 0
@@ -2337,7 +2627,7 @@ def _launch_counts(reset=False):
             "voigt_rows": ex.VOIGT_LAUNCHES, "group_emit": ge.EMIT_LAUNCHES,
             "group_stack": ge.STACK_LAUNCHES, "group_fold": ge.FOLD_LAUNCHES,
             "rates_chunk": rates.LAUNCHES, "s_update": s1.LAUNCHES,
-            X1: xb.LAUNCHES, V1: vl.LAUNCHES,
+            X1: xb.LAUNCHES, XBS: xbs.LAUNCHES, V1: vl.LAUNCHES,
             V1_CALLS: sv.STAGE_CALLS, EAGER_VOIGT: _eager_voigt[0],
             EAGER_LEVELS: vl.PLAIN_ON_CARD, EAGER_HOIST: sv.LEAN_ON_CARD}
 
@@ -2374,6 +2664,23 @@ def _xy_pieces(eng, dtype):
             n += sum(-(-len(s.steps) // piece_steps(B, *eng.atmos.shape[1:],
                                                     dtype))
                      for s in g[0][1].segments if s.case == "xy")
+    return n
+
+
+def _bezier_pieces(eng):
+    """xy_bezier_segment launches one Bezier J pass of `eng` makes: a
+    piece of at most piece_steps planes of every xy segment of every
+    direction, in every lambda chunk (one sweep an angle at B = the
+    chunk's wavelengths)."""
+    import torch
+    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
+    chunk, (nx, ny) = eng.cfg.lambda_chunk, eng.atmos.shape[1:]
+    n = 0
+    for lo in range(0, eng.line.n_lambda, chunk):
+        k = piece_steps(min(chunk, eng.line.n_lambda - lo), nx, ny,
+                        getattr(torch, eng.cfg.sweep_dtype))
+        n += sum(-(-len(s.steps) // k) for plan in eng.plans
+                 for s in plan.segments if s.case == "xy")
     return n
 
 
@@ -2888,11 +3195,16 @@ def check_bezier_sweeps():
     ul7n12 direction on a stretched z axis, card against CPU.  The linear
     bar is 1e-12; the Bezier one 1e-10, because the Bezier weights
     cancel digits near their dtau = 0.05 branch, where one-ulp exp
-    differences between the devices' libraries grow (ROADMAP C3)."""
+    differences between the devices' libraries grow (ROADMAP C3).  The
+    Bezier sweeps' xy segments go through the segment kernel, one launch
+    a piece; then a Bezier sweep at a plane that does not fit its band
+    steps through X1, a launch a plane (_bezier_wide_sweep).  Returns
+    X1's launches there."""
     import numpy as np
     import torch
     from voronoirt_tpu_torch import get_quadrature
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
+    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
 
     quad = get_quadrature("ul7n12")
     gen = np.random.default_rng(8)
@@ -2909,12 +3221,15 @@ def check_bezier_sweeps():
     worst = {"linear": 0.0, "bezier": 0.0}
     launches = {interp: dict.fromkeys(_launch_counts(), 0)
                 for interp in worst}
-    cases, differs, n_xy = set(), 0.0, 0
+    cases, differs, n_xy, n_pieces = set(), 0.0, 0, 0
+    n_piece = piece_steps(B, nx, ny, torch.float64)
     for i in range(quad.n_angles):
         plan = sr.build_plan(quad.k[i], z, 1.0 / nx, 1.0 / ny,
                              bool(quad.is_up[i]))
         cases |= {s.case for s in plan.segments}
         n_xy += sum(len(s.steps) for s in plan.segments if s.case == "xy")
+        n_pieces += sum(-(-len(s.steps) // n_piece) for s in plan.segments
+                        if s.case == "xy")
         out = {}
         for interp in worst:
             for dev in ("cuda", "cpu"):
@@ -2937,32 +3252,38 @@ def check_bezier_sweeps():
           f"(<= 1e-10); bezier vs linear on the card {differs:.3e}; "
           f"launches of the linear sweeps {launches['linear']}, of the "
           f"Bezier sweeps {launches['bezier']} ({n_xy} Bezier xy plane "
-          f"steps)", flush=True)
+          f"steps in {n_pieces} pieces)", flush=True)
     require(cases == {"xy", "yz", "xz"}, f"plane-cut cases {cases}")
     require(worst["linear"] <= 1e-12 and worst["bezier"] <= 1e-10,
             f"sweeps card vs CPU: {worst}")
     require(differs > 1e-3, "the Bezier sweep equals the linear one")
     # the linear sweeps run their xy segments through K1 (xy_segment),
-    # the Bezier sweeps through X1, one launch a plane step; the
-    # marching segments of both go through K2
+    # the Bezier sweeps through the segment kernel, one launch a piece,
+    # and no X1; the marching segments of both go through K2
     _require_path(launches["linear"], UNSPLIT, "the linear sweeps")
-    _require_path(launches["bezier"], (X1,) + UNSPLIT[1:],
+    _require_path(launches["bezier"], (XBS,) + UNSPLIT[1:],
                   "the Bezier sweeps")
-    require(launches["bezier"][X1] == n_xy,
-            f"{X1}: {launches['bezier'][X1]} launches, not one a Bezier xy "
-            f"plane step ({n_xy})")
+    require(launches["bezier"][XBS] == n_pieces,
+            f"{XBS}: {launches['bezier'][XBS]} launches, not one a piece of "
+            f"a Bezier xy segment ({n_pieces})")
+    n_x1, n_wide = _bezier_wide_sweep(torch.float64)
+    print(f"  a Bezier sweep at {XBS_WIDE} (a plane that does not fit "
+          f"{XBS}'s band): {n_x1} {X1} launches, one an xy step of "
+          f"{n_wide}, bit-equal to the plain step's", flush=True)
+    return n_x1
 
 
 def _time_bezier_step(B):
-    """ms of one Bezier xy plane step at (B, 256, 256), float64: X1's
-    device time, its plain version's and X1's bound (time_xy_bezier),
-    and K1's (the linear step, one plane a launch), held
-    against its plain version on the same planes first.  Returns (X1 ms,
-    plain ms, K1 ms)."""
+    """ms of one Bezier xy step at (B, 256, 256), float64: a step of a
+    214-step segment through the segment kernel, X1's plane step and
+    the plain version's on the same inputs, and the bound
+    (time_xy_bezier_segment); and K1's (the linear step, one plane a
+    launch), held against its plain version on the same planes first.
+    Returns (time_xy_bezier_segment's dict, K1 ms)."""
     import torch
     from voronoirt_tpu_torch.solvers import xy_plane as xp
 
-    ms, plain, _, _, _ = time_xy_bezier(B, "float64")
+    seg = time_xy_bezier_segment(B, "float64")
     nx, ny = PROD["nx"], PROD["ny"]
     gen = torch.Generator().manual_seed(9)
     a_p, a_c, s_p, s_c, i_p = _planes(gen, B, nx, ny, torch.float64)
@@ -2972,33 +3293,39 @@ def _time_bezier_step(B):
     _compare("xy_plane", xp.xy_plane(*k1_args), xp.xy_plane_plain(*k1_args),
              "float64")
     k1 = _device_ms(lambda: xp.xy_plane(*k1_args), 50, "xy_plane_kernel")
-    return ms, plain, k1
+    return seg, k1
 
 
 # z-planes per slab of the rates in the Bezier production iteration
 BEZIER_RATES_PLANES = 8
-# which march_plane call and which X1 call of that iteration are held
-# against the plain versions (mid-sweep, the carried intensity no longer
-# the boundary's)
+# which march_plane call and which segment kernel call of that iteration
+# are held against the plain versions: mid-sweep, the carried intensity
+# no longer the boundary's; the segment's second call is the second
+# piece of the first xy segment, which starts inside the segment, held
+# on its first XBS_HOLD planes (in the sweep, so inside the timed
+# iteration: a plain step is ~3 ms; phase 2 holds whole segments)
 K2_CALL = 1000
-X1_CALL = 3000
+XBS_CALL = 2
+XBS_HOLD = 3
 
 
 @contextmanager
 def _keep_call(name, n, batch=None, shape=None):
     """Keep the arguments and result of the n-th call that the regular
     sweep makes of the kernel wrapper `name` ('xy_segment', 'xy_plane',
-    'march_plane' or 'xy_bezier'), to hold against the plain version afterwards; with
-    `batch`, the n-th call on a batch of that many planes; with `shape`,
-    the n-th call on planes of that shape.  An xy_segment call is held
-    at once, inside the sweep, before the next piece reuses its planes:
-    its inputs are the whole fields, too large to copy."""
+    'march_plane', 'xy_bezier' or 'xy_bezier_segment'), to hold against
+    the plain version afterwards; with `batch`, the n-th call on a batch
+    of that many planes; with `shape`, the n-th call on planes of that
+    shape.  An xy_segment or xy_bezier_segment call is held at once,
+    inside the sweep, before the next piece reuses its planes or the
+    sweep goes on: its inputs are the whole fields, too large to
+    copy."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
     fn, kept = getattr(sr, name), {"seen": 0}
     # the batch plane: I0 of a segment, the first plane of a plane call
-    plane_of = (lambda args: args[2]) if name == "xy_segment" else \
-        (lambda args: args[0])
+    plane_of = (lambda args: args[2]) if name in ("xy_segment", XBS) \
+        else (lambda args: args[0])
 
     def keeping(*args, **kwargs):
         plane = plane_of(args)
@@ -3008,6 +3335,21 @@ def _keep_call(name, n, batch=None, shape=None):
         kept["seen"] += 1
         if kept["seen"] != n:
             return fn(*args, **kwargs)
+        if name == XBS:
+            out = fn(*args, **kwargs)
+            j0, j1 = args[4], min(args[5], args[4] + XBS_HOLD)
+            kept["planes"] = _hold_bezier_piece(
+                args[:5] + (j1,) + args[6:12], args[12])
+            kept["err"] = (0.0, 0.0)
+            kept["shape"], kept["dtype"] = tuple(out.shape), out.dtype
+            steps = args[3]
+            kept["statics"] = {"steps": f"{steps[j0]}..{steps[args[5] - 1]}",
+                               "held": f"{steps[j0]}..{steps[j1 - 1]}",
+                               "piece": f"{j0}..{args[5] - 1} of "
+                                        f"{len(steps)}",
+                               "dirn": args[6], "sxs": args[10],
+                               "sys": args[11]}
+            return out
         if name == "xy_segment":
             out = fn(*args, **kwargs)
             kept["err"] = _hold_segment(args, out)
@@ -3043,7 +3385,7 @@ def _hold_kept(name, kept, n, what):
     require("shape" in kept, f"{what} made {kept['seen']} {name} calls, "
                              f"fewer than {n}")
     dtype_name = str(kept["dtype"]).replace("torch.", "")
-    if name == "xy_segment":
+    if name in ("xy_segment", XBS):
         e_abs, e_rel = kept["err"]
     else:
         plain = {"xy_plane": xp.xy_plane_plain,
@@ -3069,6 +3411,7 @@ def run_bezier_production(atmos):
     from voronoirt_tpu_torch.engine import RegularEngine
     from voronoirt_tpu_torch.observability import nan_guard, throughput
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
 
     p = PROD
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
@@ -3086,6 +3429,8 @@ def run_bezier_production(atmos):
     cases = [sorted({s.case for s in pl.segments}) for pl in eng.plans]
     n_xy = sum(len(s.steps) for pl in eng.plans for s in pl.segments
                if s.case == "xy")
+    n_piece = piece_steps(cfg.lambda_chunk, p["nx"], p["ny"], torch.float64)
+    n_pieces = _bezier_pieces(eng)
     compute_J = eng.compute_J
 
     def timed_J(*args, **kwargs):
@@ -3095,10 +3440,10 @@ def run_bezier_production(atmos):
 
     eng.compute_J = timed_J
     _launch_counts(reset=True)
-    # keep one march_plane call (the K2_CALL-th) and one X1 call (the
-    # X1_CALL-th) of the iteration
+    # keep one march_plane call (the K2_CALL-th) and one segment kernel
+    # call (the XBS_CALL-th) of the iteration
     with _keep_call("march_plane", K2_CALL) as kept, \
-            _keep_call(X1, X1_CALL) as kept_x1, timer.phase("run"):
+            _keep_call(XBS, XBS_CALL) as kept_xbs, timer.phase("run"):
         res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -3128,39 +3473,47 @@ def run_bezier_production(atmos):
           f"J pass {j:.4f} s ({100 * j / it:.1f}%), {rate:.4e} "
           f"grid-points*rays/s", flush=True)
     print(f"  Bezier xy plane steps in the iteration: {n_xy * n_chunks} "
-          f"({n_xy} a chunk x {n_chunks} chunks, one {X1} launch each, no "
+          f"({n_xy} a chunk x {n_chunks} chunks) in {n_pieces} pieces of "
+          f"at most {n_piece}, one {XBS} launch each, no {X1} or "
           f"K1 launch); launches {launches}; criterion {res.convergence}; "
           f"peak device memory {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated); sum(populations)/n_H - 1 max "
           f"{mass:.3e}", flush=True)
     # the rates in slabs: one R1 launch a slab of z-planes
     n_slabs = -(-p["nz"] // BEZIER_RATES_PLANES)
-    _require_path(launches, (X1, "march_plane", "march_coeffs",
+    _require_path(launches, (XBS, "march_plane", "march_coeffs",
                              "march_chain") + PER_ANGLE_EXT
                   + ("rates_chunk",), "the Bezier iteration")
     require(launches["rates_chunk"] == n_slabs,
             f"rates_chunk: {launches['rates_chunk']} launches, not one a "
             f"slab ({n_slabs})")
-    require(launches[X1] == n_xy * n_chunks,
-            f"{X1}: {launches[X1]} launches, not one a Bezier xy plane "
-            f"step ({n_xy * n_chunks})")
+    require(launches[XBS] == n_pieces,
+            f"{XBS}: {launches[XBS]} launches, not one a piece of a Bezier "
+            f"xy segment ({n_pieces})")
+    d_S, d_P = state_digest(res.S, res.populations)
+    print(f"  sha256 of S {d_S}, of the populations {d_P} (equal digests "
+          f"from tools/profile_iteration.py --interpolation bezier on "
+          f"another checkout: bit-equal)", flush=True)
     del res, eng
     torch.cuda.empty_cache()
     B = cfg.lambda_chunk
     _hold_kept("march_plane", kept, K2_CALL, "the Bezier iteration")
     require(tuple(kept["out"].shape) == (B, p["nx"], p["ny"]),
             f"march_plane plane {tuple(kept['out'].shape)} in the iteration")
-    e_x1 = _hold_kept(X1, kept_x1, X1_CALL, "the Bezier iteration")
-    require(e_x1 == 0.0 and tuple(kept_x1["out"].shape) == (B, p["nx"],
-                                                            p["ny"]),
-            f"{X1} call {X1_CALL}: max abs err {e_x1:.3e}, plane "
-            f"{kept_x1['shape']}")
-    del kept, kept_x1
-    x1, plain, k1 = _time_bezier_step(B)
-    print(f"  one xy plane step at (B={B}, {p['nx']}x{p['ny']}, float64): "
-          f"Bezier X1 {x1:.5f} ms (device time), its plain version "
-          f"{plain:.4f} ms (CUDA events), K1 (linear, xy_plane) {k1:.5f} ms "
-          f"(device time); X1 / K1 {x1 / k1:.2f}", flush=True)
+    _hold_kept(XBS, kept_xbs, XBS_CALL, "the Bezier iteration")
+    require(kept_xbs["shape"] == (B, p["nx"], p["ny"])
+            and kept_xbs["planes"] > 0,
+            f"{XBS} call {XBS_CALL}: plane {kept_xbs['shape']}")
+    print(f"  {XBS} call {XBS_CALL}: {kept_xbs['planes']} planes bit-equal "
+          f"to its plain version", flush=True)
+    del kept, kept_xbs
+    seg, k1 = _time_bezier_step(B)
+    print(f"  one xy step at (B={B}, {p['nx']}x{p['ny']}, float64): Bezier "
+          f"{XBS} {seg['ms']:.5f} ms a step of a segment (CUDA events), "
+          f"{X1} {seg['x1_ms']:.5f} ms a plane and K1 (linear, xy_plane) "
+          f"{k1:.5f} ms a plane (device times); the plain step "
+          f"{seg['plain_ms']:.4f} ms (CUDA events); {XBS} / K1 "
+          f"{seg['ms'] / k1:.2f}", flush=True)
     return launches
 
 
@@ -3169,8 +3522,8 @@ def check_angle_distribution():
     dealt over two slots of the card, [cuda:0, cuda:0].  Bezier and
     Voronoi sweep angle by angle on both sides: 1e-12.  The serial
     linear J is the grouped one, which z-flips the down sweeps onto an
-    axis whose steps round differently (ROADMAP C3): 1e-11.  Returns X1's
-    launches in the distributed Bezier J pass."""
+    axis whose steps round differently (ROADMAP C3): 1e-11.  Returns the
+    segment kernel's launches in the distributed Bezier J pass."""
     import torch
     from voronoirt_tpu_torch import Config, grid, synthetic_atmosphere
     from voronoirt_tpu_torch.engine import VoronoiEngine
@@ -3179,29 +3532,34 @@ def check_angle_distribution():
 
     two = [torch.device("cuda", 0)] * 2
     atmos = synthetic_atmosphere(nz=24, nx=32, ny=32)
-    x1 = {}
+    xbs, x1, want = {}, {}, {}
     for interp, bar in (("linear", 1e-11), ("bezier", 1e-12)):
         kw = dict(quadrature="ul7n12", lambda_chunk=4,
                   formal_interpolation=interp)
         serial = _small_line_engine(atmos, "cuda", **kw)
+        want[interp] = _bezier_pieces(serial) if interp == "bezier" else 0
         _launch_counts(reset=True)
         J0 = serial.compute_J(serial.B0, serial.lte)
-        n_serial = _launch_counts()[X1]
+        n_serial = _launch_counts()
         eng = distribute_angles(_small_line_engine(atmos, "cuda", **kw), two)
         _launch_counts(reset=True)
         J1 = eng.compute_J(eng.B0, eng.lte)
-        x1[interp] = (n_serial, _launch_counts()[X1])
+        n_dist = _launch_counts()
+        xbs[interp] = (n_serial[XBS], n_dist[XBS])
+        x1[interp] = (n_serial[X1], n_dist[X1])
         err = _rel_err(J1, J0)
         print(f"  regular {interp}: distributed vs serial J max rel diff "
-              f"{err:.3e} (<= {bar:g}); {X1} launches serial, distributed "
-              f"{x1[interp]}", flush=True)
+              f"{err:.3e} (<= {bar:g}); {XBS} launches serial, distributed "
+              f"{xbs[interp]}, {X1} {x1[interp]}", flush=True)
         require(J1.is_cuda and err <= bar,
                 f"regular {interp} distributed J: {err:.3e}")
-    # every Bezier J pass runs its xy steps through X1, the same steps
-    # whichever slot sweeps an angle; no linear one launches it
-    require(x1["linear"] == (0, 0) and x1["bezier"][0] > 0
-            and x1["bezier"][0] == x1["bezier"][1],
-            f"{X1} launches (serial, distributed) {x1}")
+    # every Bezier J pass runs its xy segments through the segment
+    # kernel, one launch a piece whichever slot sweeps an angle, and no
+    # X1 (an unsplit grid); no linear one launches either
+    require(all(xbs[i] == (want[i], want[i]) for i in xbs)
+            and want["bezier"] > 0 and x1 == {i: (0, 0) for i in x1},
+            f"{XBS} launches (serial, distributed) {xbs}, not {want}; "
+            f"{X1} {x1}")
 
     pos, bounds = _sample(atmos, 5000)
     sites = grid.build_sites(pos, bounds, grid.initialise_sites(pos, atmos))
@@ -3225,7 +3583,7 @@ def check_angle_distribution():
           f"{launches}", flush=True)
     _require_path(launches, ("alpha_tot", V1), "the distributed J pass")
     require(J1.is_cuda and err <= 1e-12, f"Voronoi distributed J: {err:.3e}")
-    return x1["bezier"][1]
+    return xbs["bezier"][1]
 
 
 def run_continuum(atmos, sites):
@@ -3427,9 +3785,11 @@ def check_device_trace():
 
 def run_drivers():
     """Phase 11c: the drivers as a user calls them, on the card.  Returns
-    X1's launches in the Bezier line_nlte run."""
+    the segment kernel's launches in the Bezier line_nlte run (one a
+    piece the sweep asks for, none through X1)."""
     import math
     from voronoirt_tpu_torch.drivers import line_nlte, searchlight
+    from voronoirt_tpu_torch.solvers import sweep_regular as sr
 
     res = searchlight.main(["--n", "51"])
     worst = max(abs(r["flux_out"] / r["flux_in"] - 1.0) for r in res)
@@ -3447,15 +3807,30 @@ def run_drivers():
             "searchlight --irregular: not 12 finite directions")
     _require_path(launches, (V1,), "searchlight --irregular")
     _launch_counts(reset=True)
-    summary = line_nlte.main(["--interpolation", "bezier", "--maxiter", "3"])
-    n_x1 = _launch_counts()[X1]
+    # the pieces the sweeps ask for: the wrapper's calls
+    fn, pieces = sr.xy_bezier_segment, [0]
+
+    def counting(*args, **kwargs):
+        pieces[0] += 1
+        return fn(*args, **kwargs)
+
+    sr.xy_bezier_segment = counting
+    try:
+        summary = line_nlte.main(["--interpolation", "bezier", "--maxiter",
+                                  "3"])
+    finally:
+        sr.xy_bezier_segment = fn
+    n = _launch_counts()
     print(f"  line_nlte --interpolation bezier --maxiter 3: {summary}; "
-          f"{X1} launches {n_x1}", flush=True)
+          f"{XBS} launches {n[XBS]} for {pieces[0]} pieces, {X1} {n[X1]}",
+          flush=True)
     require(summary["grid"] == "regular" and 1 <= summary["iterations"] <= 3
             and math.isfinite(summary["final_diff"]),
             f"line_nlte summary {summary}")
-    require(n_x1 > 0, f"line_nlte --interpolation bezier: no {X1} launch")
-    return n_x1
+    require(n[XBS] == pieces[0] > 0 and n[X1] == 0,
+            f"line_nlte --interpolation bezier: {n[XBS]} {XBS} launches for "
+            f"{pieces[0]} pieces, {n[X1]} {X1}")
+    return n[XBS]
 
 
 # ------------------------------------------------------------ phase 12-13
@@ -4196,6 +4571,8 @@ def main(argv=None):
         v1_info = check_voronoi_level(atmos)
         x1_errs = check_xy_bezier()
         x1_times = {d: time_xy_bezier(B13, d) for d in TOL}
+        xbs_errs = check_xy_bezier_segment()
+        xbs_times = {d: time_xy_bezier_segment(B13, d) for d in TOL}
     if want(3):
         phase("phase 3: regular-sweep goldens on the card")
         check_goldens()
@@ -4217,12 +4594,12 @@ def main(argv=None):
     if want(8):
         phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
               "iteration")
-        check_bezier_sweeps()
+        launches_x1_wide = check_bezier_sweeps()
         launches_bezier = held(lambda: run_bezier_production(atmos),
                                "phase 8")
     if want(9):
         phase("phase 9: angle distribution, serial vs two slots on the card")
-        launches_x1_slots = check_angle_distribution()
+        launches_xbs_slots = check_angle_distribution()
     if want(10):
         phase("phase 10: continuum scattering iteration")
         launches_continuum = run_continuum(atmos, sites)
@@ -4230,7 +4607,7 @@ def main(argv=None):
         phase("phase 11: checkpoint/resume on the card, the drivers")
         check_checkpoint_resume()
         check_device_trace()
-        launches_x1_driver = run_drivers()
+        launches_xbs_driver = run_drivers()
     if want(12):
         phase("phase 12: the synthesize and continuum_study drivers at full "
               "width")
@@ -4477,17 +4854,52 @@ def main(argv=None):
         "ms_b1": t1["ms"], "plain_ms_b1": t1["plain_ms"],
         "bound_ms_b1": t1["bound_ms"], **layer})
     # X1: what it replaces is the JAX package's lax.scan body of a Bezier
-    # xy segment, plain XLA, not a Pallas kernel; its time is a plane
-    # step at the Bezier iteration's plane (phase 2)
+    # xy segment, plain XLA, not a Pallas kernel; as the segment kernel
+    # (one launch a piece: every unsplit Bezier path) its time is a step
+    # of a 214-step segment at the Bezier iteration's plane (phase 2), and
+    # as the per-plane kernel (split grids, planes that do not fit) a
+    # plane step there
+    t64, t32 = xbs_times["float64"], xbs_times["float32"]
+    kernels.append({
+        "name": XBS, "route": "cuda",
+        "source": "voronoirt_tpu_torch/csrc/xy_bezier_segment.cu",
+        "replaces": "voronoirt_tpu/solvers/sweep_regular.py:245",
+        "replaces_a_tpu_kernel": False,
+        "launches": launches_bezier[XBS],
+        "launches_path": "phase 8: the Bezier iteration, one a piece of a "
+                         "Bezier xy segment",
+        "max_abs_err": xbs_errs["float64"], "bit_equal": True,
+        "ms": t64["ms"], "plain_ms": t64["plain_ms"],
+        "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
+        "pct_of_bound": 100 * t64["bound_ms"] / t64["ms"],
+        "library_ms": None,
+        "ms_is": f"a step of a {PROD['nz'] - 1}-step segment at "
+                 f"({B13}, {PROD['nx']}, {PROD['ny']}) in pieces of "
+                 f"{t64['piece']}: CUDA events around the pieces",
+        "ms_device": t64["ms_device"], "x1_ms_same_inputs": t64["x1_ms"],
+        "registers": t64["registers"], "local_bytes": t64["local_bytes"],
+        "max_active_clusters": t64["max_active_clusters"],
+        "launches_angle_slots": launches_xbs_slots,
+        "launches_line_nlte_bezier": launches_xbs_driver,
+        "launches_streamed_iteration": launches[XBS],
+        "max_abs_err_f32": xbs_errs["float32"], "ms_f32": t32["ms"],
+        "plain_ms_f32": t32["plain_ms"], "bound_ms_f32": t32["bound_ms"],
+        "bound_by_f32": t32["bound_by"],
+        "pct_of_bound_f32": 100 * t32["bound_ms"] / t32["ms"],
+        "ms_device_f32": t32["ms_device"],
+        "x1_ms_same_inputs_f32": t32["x1_ms"],
+        "registers_f32": t32["registers"],
+        "local_bytes_f32": t32["local_bytes"],
+        "max_active_clusters_f32": t32["max_active_clusters"]})
     t64, t32 = x1_times["float64"], x1_times["float32"]
     kernels.append({
         "name": X1, "route": "cuda",
         "source": "voronoirt_tpu_torch/csrc/xy_bezier.cu",
         "replaces": "voronoirt_tpu/solvers/sweep_regular.py:245",
         "replaces_a_tpu_kernel": False,
-        "launches": launches_bezier[X1],
-        "launches_path": "phase 8: the Bezier iteration, one a Bezier xy "
-                         "plane step",
+        "launches": launches_x1_wide,
+        "launches_path": f"phase 8: a Bezier sweep at {XBS_WIDE}, a plane "
+                         f"that does not fit {XBS}'s band, one a plane step",
         "max_abs_err": x1_errs["float64"], "bit_equal": True,
         "ms": t64[0], "plain_ms": t64[1], "bound_ms": t64[2],
         "bound_by": t64[3], "pct_of_bound": 100 * t64[2] / t64[0],
@@ -4495,8 +4907,7 @@ def main(argv=None):
         "ms_is": f"a plane step at ({B13}, {PROD['nx']}, {PROD['ny']}): "
                  f"the kernel's device time (torch.profiler)",
         "ms_events": t64[4], "ms_events_f32": t32[4],
-        "launches_angle_slots": launches_x1_slots,
-        "launches_line_nlte_bezier": launches_x1_driver,
+        "launches_bezier_iteration": launches_bezier[X1],
         "launches_streamed_iteration": launches[X1],
         "max_abs_err_f32": x1_errs["float32"], "ms_f32": t32[0],
         "plain_ms_f32": t32[1], "bound_ms_f32": t32[2],

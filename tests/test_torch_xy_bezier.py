@@ -16,7 +16,10 @@ from seeded numpy inputs at small shapes:
       above 0.2, clear of the float32 cancellation at 0.05, where a
       one-ulp exp difference grows to ~3e-5 of the plane (ROADMAP C3);
   (b) a CPU tensor takes the plain version and launches nothing, and
-      the Bezier sweep calls the wrapper once an xy plane;
+      the Bezier sweep calls the wrapper once an xy plane where the
+      plane does not fit the segment kernel's band (a fitting plane
+      goes through solvers/xy_bezier_segment.py, one call a piece:
+      tests/test_torch_xy_bezier_segment.py);
   (c) the wrapper refuses a wrong shape, dtype, device or layout;
   (d) the kernel's C entry points and their ctypes signature, from the
       source text (no build);
@@ -124,11 +127,14 @@ def test_cpu_takes_plain_and_the_sweep_calls_it_a_plane(monkeypatch):
 
     monkeypatch.setattr(sr, "xy_bezier", counting)
     rng = np.random.default_rng(4)
-    nz, B, nx, ny = 9, 2, 6, 5
+    # 520 columns: more runs of a band than the segment kernel's threads
+    nz, B, nx, ny = 9, 2, 3, 520
+    assert not sr.bezier_fits(nx, ny)
     z = np.concatenate([[0.0], np.cumsum(rng.uniform(0.02, 0.3, nz - 1))])
     k = np.array([np.cos(np.deg2rad(150.0)), 0.3, -0.2])
     k /= np.linalg.norm(k)
-    plan = sr.build_plan(k, z, 1.0 / nx, 1.0 / ny, True)
+    # the cell sizes of a 6 x 5 plane, so most steps are xy steps
+    plan = sr.build_plan(k, z, 1.0 / 6, 1.0 / 5, True)
     n_xy = sum(len(s.steps) for s in plan.segments if s.case == "xy")
     assert n_xy > 0
     t = torch.from_numpy

@@ -48,12 +48,15 @@ angle at B = lambda_chunk, the rates in slabs of
 chip_smoke.BEZIER_RATES_PLANES z-planes.  Three runs of one iteration
 each: parts timed (host timers around synchronised calls: the
 extinction a direction, the sweeps with their Bezier xy segments --
-X1 a plane, or the eager step in revisions before it -- apart from the
+X1 a piece of a segment, X1 a plane in revisions before it, or the
+eager step before that -- apart from the
 rest of each sweep (K2's marching segments, the emit), the per-angle J
 accumulation, the rates and statistical equilibrium in slabs (R1 a
 slab), the S update and the criterion), plain, and profiled (the
 kernels by device time, X1, K2, E1 and R1 summed apart, and the
-device's busy share against the plain run's iteration seconds).
+device's busy share against the plain run's iteration seconds), and
+the sha256 of the profiled run's S and populations: equal digests from
+two checkouts, bit-equal iterations.
 
 --repo DIR profiles the voronoirt_tpu_torch package of another checkout
 (its kernels built there), e.g. the parent commit unpacked with git
@@ -241,7 +244,9 @@ def rates_bound(eng, pops):
 # their name, and what is left of the eager tensor operations (the
 # plain Bezier xy step in revisions before X1; the J accumulation, the S
 # update and the criterion in every revision)
-NAMED_BEZIER = {"xy_bezier (X1)": r"xy_bezier_kernel",
+NAMED_BEZIER = {"xy_bezier_segment (X1 a piece)":
+                r"xy_bezier_segment_kernel",
+                "xy_bezier (X1 a plane)": r"xy_bezier_kernel",
                 "march_coeffs (K2a)": r"march_coeffs_kernel",
                 "march_chain (K2b)": r"march_chain_kernel",
                 "alpha_tot (E1, a direction)":
@@ -328,6 +333,7 @@ def bezier_profile(args, smi):
         torch.cuda.synchronize()
     finite = bool(torch.isfinite(res.S).all()) and bool(
         torch.isfinite(res.populations).all())
+    d_S, d_P = chip_smoke.state_digest(res.S, res.populations)
     del res
     kernels = []
     for e in prof.key_averages():
@@ -351,7 +357,8 @@ def bezier_profile(args, smi):
         named[label] = (sum(c for c, _ in hits), sum(sec for _, sec in hits))
         print(f"  {label}: {named[label][0]} launches, "
               f"{named[label][1]:.4f} s of device time", flush=True)
-    print(f"S, populations finite: {finite}", flush=True)
+    print(f"S, populations finite: {finite}; sha256 of S {d_S}, of the "
+          f"populations {d_P}", flush=True)
     summary = {"device": smi, "repo": REPO, "interpolation": "bezier",
                "nz": args.nz, "dtype": args.dtype,
                "lambda_chunk": cfg.lambda_chunk, "n_chunks": n_chunks,
@@ -360,7 +367,7 @@ def bezier_profile(args, smi):
                "iteration_plain_s": wall2, "kernels_device_s": busy,
                "busy_share": busy / wall2, "device_operations": n_ops,
                "kernels": kernels[:40], "named_kernels": named,
-               "finite": finite}
+               "finite": finite, "sha256_S": d_S, "sha256_populations": d_P}
     _write(args.out, summary)
     if not finite:
         raise SystemExit("S or populations not finite")

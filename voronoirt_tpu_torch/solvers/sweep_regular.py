@@ -30,11 +30,14 @@ the buffer starts at zero once and persists across passes; xz_down
 reads its centre alpha/S from the upper plane.
 
 interpolation='bezier' (the single-direction `sweep` only, as in the JAX
-package) runs each xy segment with the quadratic-Bezier update through
-xy_bezier.xy_bezier, one launch a plane (X1; the JAX package runs it as
-plain XLA outside any Pallas kernel); the second-upwind plane's index
-clamp and the segment-start flag stay on the host.  The marching
-segments stay linear and go through march_plane as ever.
+package) runs each xy segment with the quadratic-Bezier update (the JAX
+package runs it as plain XLA outside any Pallas kernel): on an unsplit
+grid through xy_bezier_segment.xy_bezier_segment, one launch a piece of
+at most xy_segment.piece_steps() planes, written straight into the
+sweep's output; on a split grid, or a plane whose band does not fit
+that kernel (xy_bezier_segment.fits, a rule of the shape taken before
+any launch), through xy_bezier.xy_bezier, one launch a plane (X1).  The
+marching segments stay linear and go through march_plane as ever.
 
 halo: on a grid split over ranks in x and / or y (parallel/mesh.Halo),
 S, alpha and I0 are the rank's padded tiles, halos filled.  An xy step
@@ -56,6 +59,8 @@ import torch
 from .group_emit import flip_field, group_emit, group_fold, group_stack
 from .march_plane import march_plane
 from .xy_bezier import xy_bezier
+from .xy_bezier_segment import fits as bezier_fits
+from .xy_bezier_segment import xy_bezier_segment
 from .xy_plane import xy_plane
 from .xy_segment import piece_steps, xy_segment
 
@@ -230,15 +235,31 @@ def _xy_step_bezier(plan, I_p, alpha_c, alpha_p, S_c, S_p, alpha_pp, S_pp,
                      fy, r_prev, fx_prev, fy_prev, first, plan.sxs, plan.sys)
 
 
-def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill):
-    """One xy segment of a single-direction sweep, Bezier update.  The
-    second-upwind plane index is clamped at the boundary; at the
-    segment's first step the previous step's ray geometry repeats this
-    step's and `first` selects the secant slope.  refill: the carried
-    plane's halo refill on a split grid (two cells: the second-upwind
-    sample composes two one-sided stencils), else the identity."""
+def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill,
+                       out=None):
+    """One xy segment of a single-direction sweep, Bezier update; returns
+    the carried plane after it.  The second-upwind plane index is
+    clamped at the boundary; at the segment's first step the previous
+    step's ray geometry repeats this step's and `first` selects the
+    secant slope.
+
+    out: the sweep's output cube, on an unsplit grid whose plane fits
+    xy_bezier_segment: one launch a piece of at most piece_steps()
+    planes, each plane written into out at its index (emit is not called
+    for them).  None (a split grid, or a plane that does not fit): one
+    X1 launch a plane, each emitted; refill is then the carried plane's
+    halo refill on a split grid (two cells: the second-upwind sample
+    composes two one-sided stencils), else the identity."""
     nz = S.shape[0]
     dirn = 1 if plan.up else -1
+    if out is not None:
+        L = len(seg.steps)
+        n = min(L, piece_steps(*carry.shape, carry.dtype))
+        for j0 in range(0, L, n):
+            carry = xy_bezier_segment(alpha, S, carry, seg.steps, j0,
+                                      min(j0 + n, L), dirn, seg.r, seg.fx,
+                                      seg.fy, plan.sxs, plan.sys, out)
+        return carry
     for j, t in enumerate(seg.steps):
         jp = max(j - 1, 0)
         t2 = min(max(t - 2 * dirn, 0), nz - 1)
@@ -272,7 +293,7 @@ def _xy_segment_pieces(plan, seg, S, alpha, carry, r, fx, fy, emit):
 
 
 def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
-                        interpolation="linear", halo=None):
+                        interpolation="linear", halo=None, out=None):
     """Shared body of sweep / sweep_batched / sweep_batched_J.
 
     Runs the batched multi-angle sweep and calls emit(steps, planes) on
@@ -280,9 +301,11 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
     consecutive z indices `steps` (a piece of an xy segment at once, a
     march or split-grid step and the boundary plane one at a time), so
     that every plane is emitted once.
-    interpolation='bezier' is for one plan only (`sweep`).  halo: the
-    split grid's parallel/mesh.Halo (S, alpha, I0 and the planes padded
-    tiles), or None.
+    interpolation='bezier' is for one plan only (`sweep`), whose output
+    cube `out` the Bezier xy pieces write into directly on an unsplit
+    grid (their planes are not emitted).  halo: the split grid's
+    parallel/mesh.Halo (S, alpha, I0 and the planes padded tiles), or
+    None.
     """
     lead = plans[0]
     nz = S.shape[0]
@@ -300,8 +323,10 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
     for si, seg in enumerate(lead.segments):
         segs_p = [p.segments[si] for p in plans]
         if seg.case == "xy" and interpolation == "bezier":
+            direct = out if halo is None and bezier_fits(*S.shape[2:]) \
+                else None
             carry = _xy_segment_bezier(lead, seg, S, alpha, carry, emit,
-                                       refill)
+                                       refill, direct)
             continue
         if seg.case == "xy":
             r = _per_element([s.r for s in segs_p], B_lam, S)
@@ -381,7 +406,7 @@ def sweep(plan: RegularPlan, S, alpha, I0, n_sweeps=3,
         raise ValueError(f"unknown interpolation {interpolation!r}")
     out = torch.empty(S.shape, dtype=S.dtype, device=S.device)
     _sweep_batched_impl((plan,), S, alpha, I0, n_sweeps, None, _stacker(out),
-                        interpolation, halo)
+                        interpolation, halo, out)
     return out
 
 
