@@ -75,19 +75,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      float32, at (13, 256, 256), (1, 256, 256), (5, 37, 29) and a
      y-split tile padded with 2-cell halos, over both stencil shifts in
      x and y, first 0 and 1 and fractions at 0, 1 and between, bit-equal
-     to its plain version, one launch a call, then timed at (13, 256,
-     256) beside its bytes bound and the plain version's time; then X1
-     as a segment piece (solvers/xy_bezier_segment.py,
-     csrc/xy_bezier_segment.cu), float64 and float32, at (13, 256, 256),
-     (1, 256, 256) and (5, 37, 29) on 48 planes, every shift pair, both
-     directions, segments from the boundary plane and after a march
-     segment of 1, 2, 7 and 40 steps, each plane bit-equal to its plain
-     version, a 40-step segment in pieces of 13 (piece boundaries inside
-     it) bit-equal to one call, one launch a piece; at (2, 16, 1040), a
+     to its plain version, one launch a call, then timed at (13, 512,
+     512), the plane phase 8c steps it on, beside its bytes bound and
+     the plain version's time; then X1 as a segment
+     (solvers/xy_bezier_segment.py, csrc/xy_bezier_segment.cu), float64
+     and float32, at (13, 256, 256), (1, 256, 256) and (5, 37, 29) on 48
+     planes, every shift pair, both directions, segments from the
+     boundary plane and after a march segment of 1, 2, 7 and 40 steps,
+     each plane bit-equal to its plain version, one launch a segment;
+     at (2, 16, 1040), a
      plane that does not fit its band, the wrapper refuses and a Bezier
      sweep steps through X1 a plane, bit-equal to the plain step's; then
-     a step of a 214-step segment timed at (13, 256, 256) (both types)
-     and (1, 256, 256) beside its bound (alpha[t] and S[t] read, I[t]
+     a step of a 214-step segment (one launch) timed at (13, 256, 256)
+     (both types) beside its bound (alpha[t] and S[t] read, I[t]
      written; X1_OPS a point), X1's plane step and the plain version's
      on the same inputs, with its registers, local memory and the
      clusters the card runs at once;
@@ -136,26 +136,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      bit-equal to the iteration's own output;
   8. the Bezier formal solution: Bezier (and linear) sweeps of every
      ul7n12 direction at a small size, card against CPU, the Bezier
-     ones one xy_bezier_segment launch a piece of a Bezier xy segment
-     and no X1, the linear ones neither; a Bezier sweep at a plane that
-     does not fit the segment kernel's band, one X1 launch a plane step;
-     then one full Lambda iteration at the phase-5 grid through
+     ones one xy_bezier_segment launch a Bezier xy segment and no X1,
+     the linear ones neither; then one full Lambda iteration at the phase-5 grid through
      RegularEngine.run() with formal_interpolation='bezier', lambda_chunk
      13 and the rates in slabs of z-planes (the standard loop: S_old,
      S_new, J and B0 resident), with seconds, the J-pass share, the
-     kernels' launch counts (xy_bezier_segment's one a piece of the
-     iteration's Bezier xy segments, X1's none), peak memory and the
+     kernels' launch counts (xy_bezier_segment's one a Bezier xy
+     segment of the iteration, X1's none), peak memory and the
      sha256 of S and the populations (tools/profile_iteration.py
      --interpolation bezier prints them of any checkout); one
      march_plane call against its plain version on its own inputs and
-     one xy_bezier_segment call (the second piece of a segment, which
-     starts inside it) on its first XBS_HOLD planes against its plain
-     version, bit for bit; a Bezier xy step's
+     one xy_bezier_segment call (the second) on its first XBS_HOLD
+     planes against its plain version, bit for bit; a Bezier xy step's
      time (a segment's step, X1's plane step and the plain step's)
-     beside K1's, K1 held against its plain version there too;
+     beside K1's, K1 held against its plain version there too; then
+     (8c) one Bezier J pass on a 48x512x512 grid, whose plane does not
+     fit the segment kernel's band, 13 wavelengths: one X1 launch a
+     Bezier xy step and no segment launch, an X1 call and a march_plane
+     call held against their plain versions, the extinction's new call
+     shapes held too, J finite and positive;
   9. angle distribution: compute_J serial against
      distribute_angles(engine, [cuda:0, cuda:0]), regular (linear and
-     Bezier: xy_bezier_segment's launches one a piece on both sides,
+     Bezier: xy_bezier_segment's launches one a segment on both sides,
      no X1, neither in the linear ones) and Voronoi (its launches), at
      a small size;
  10. the continuum scattering iteration (a batch of ONE wavelength
@@ -309,12 +311,12 @@ GROUP_KERNELS = ("group_emit", "group_stack", "group_fold")
 # the standard loop's rates at once or in slabs, entry(): phases 4-8,
 # 13-15), the streamed iteration S1 too
 RATE_KERNELS = ("rates_chunk", "s_update")
-# X1, the Bezier xy step, as a segment piece (solvers/xy_bezier_segment.py,
-# csrc/xy_bezier_segment.cu): one launch a piece of every Bezier xy
-# segment on an unsplit grid whose plane fits its band (phases 8, 9,
-# 11); and one plane a launch (solvers/xy_bezier.py, csrc/xy_bezier.cu)
-# on a split grid and on planes that do not fit (phase 8's wide sweeps);
-# no linear path launches either
+# X1, the Bezier xy step, as a segment (solvers/xy_bezier_segment.py,
+# csrc/xy_bezier_segment.cu): one launch a Bezier xy segment on an
+# unsplit grid whose plane fits its band (phases 8, 9, 11); and one
+# plane a launch (solvers/xy_bezier.py, csrc/xy_bezier.cu) on a split
+# grid and on planes that do not fit (phase 8c's 512 x 512 J pass); no
+# linear path launches either
 X1 = "xy_bezier"
 XBS = "xy_bezier_segment"
 KERNELS = (SWEEP_KERNELS + EXT_KERNELS + GROUP_KERNELS + RATE_KERNELS
@@ -887,8 +889,8 @@ def check_xy_bezier():
     return worst
 
 
-def time_xy_bezier(B, dtype_name):
-    """X1 and its plain version at (B, 256, 256) in `dtype_name`, ms a
+def time_xy_bezier(B, dtype_name, plane=(PROD["nx"], PROD["ny"])):
+    """X1 and its plain version at (B, *plane) in `dtype_name`, ms a
     plane step, beside X1's bound: seven planes read and one written,
     X1_OPS a point.  X1's own time is its device time (torch.profiler):
     CUDA events around back-to-back calls measure the host's launch rate
@@ -898,7 +900,7 @@ def time_xy_bezier(B, dtype_name):
     import torch
     from voronoirt_tpu_torch.solvers import xy_bezier as xb
 
-    nx, ny = PROD["nx"], PROD["ny"]
+    nx, ny = plane
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator().manual_seed(9)
     planes = _x1_planes(gen, B, nx, ny, dtype)
@@ -921,15 +923,13 @@ def time_xy_bezier(B, dtype_name):
 
 # the segment kernel's holds (B, Nx, Ny): the Bezier iteration's plane (a
 # lambda chunk), a batch of one and a ragged plane, on XBS_NZ planes;
-# segment lengths held, and a segment cut into pieces (its length and
-# the pieces' steps: boundaries inside it); a plane that does not fit
-# the kernel's band (more runs of a band than its threads: the sweep's
-# per-plane rule) and the z planes of its Bezier sweep
+# segment lengths held; a plane that does not fit the kernel's band (more
+# runs of a band than its threads: the sweep's per-plane rule) and the z
+# planes of its Bezier sweep
 XBS_SHAPES = ((PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
               (1, PROD["nx"], PROD["ny"]), (5, 37, 29))
 XBS_NZ = 48
 XBS_LENGTHS = (1, 2, 7, 40)
-XBS_CUT = (40, 13)
 XBS_WIDE = (2, 16, 1040)
 XBS_WIDE_NZ = 12
 
@@ -981,9 +981,10 @@ class _Against:
         return self.last
 
 
-def _hold_bezier_piece(args, got):
+def _hold_bezier_segment(args, got):
     """The planes an xy_bezier_segment call with `args` (its arguments
-    but the cube) wrote into `got`, against its plain version on the same
+    but the cube; a segment's first steps hold the planes of its first
+    steps) wrote into `got`, against its plain version on the same
     inputs, bit for bit.  Returns the planes held."""
     import torch
     from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
@@ -1010,7 +1011,7 @@ def _bezier_wide_sweep(dtype):
     gen = torch.Generator(device="cuda").manual_seed(5)
     alpha, S, I0 = _xbs_fields(gen, XBS_WIDE_NZ, B, nx, ny, dtype)
     try:
-        xbs.xy_bezier_segment(alpha, S, I0, (1, 2), 0, 2, 1, (1.0, 1.0),
+        xbs.xy_bezier_segment(alpha, S, I0, (1, 2), 1, (1.0, 1.0),
                               (0.5, 0.5), (0.5, 0.5), 0, 0,
                               torch.empty_like(alpha))
         refused = False
@@ -1022,12 +1023,12 @@ def _bezier_wide_sweep(dtype):
     plan = sr.build_plan(k, np.linspace(0.0, 0.3, XBS_WIDE_NZ), 1.0 / 6,
                          1.0 / 5, True)
     n_xy = sum(len(s.steps) for s in plan.segments if s.case == "xy")
-    n0, m0 = _launch_counts()[X1], _launch_counts()[XBS]
+    _launch_counts(reset=True)
     got = sr.sweep(plan, S, alpha, I0, interpolation="bezier")
-    n_x1 = _launch_counts()[X1] - n0
-    require(n_xy > 0 and n_x1 == n_xy and _launch_counts()[XBS] == m0,
-            f"the Bezier sweep at {nx}x{ny}: {n_x1} {X1} launches for "
-            f"{n_xy} xy steps, {_launch_counts()[XBS] - m0} {XBS}")
+    n = _launch_counts()
+    require(n_xy > 0 and n[X1] == n_xy and n[XBS] == 0,
+            f"the Bezier sweep at {nx}x{ny}: {n[X1]} {X1} launches for "
+            f"{n_xy} xy steps, {n[XBS]} {XBS}")
     step = sr.xy_bezier
     sr.xy_bezier = xb.xy_bezier_plain
     try:
@@ -1036,19 +1037,18 @@ def _bezier_wide_sweep(dtype):
         sr.xy_bezier = step
     require(torch.equal(got, want), f"the Bezier sweep at {nx}x{ny} through "
                                     f"{X1} differs from the plain step's")
-    return n_x1, n_xy
+    return n[X1], n_xy
 
 
 def check_xy_bezier_segment():
     """Phase 2: the Bezier xy segment kernel against its plain version on
     the card, float64 and float32, bit for bit: at XBS_SHAPES (XBS_NZ
     planes) over every shift pair, both directions, a segment from the
-    boundary plane and one after a march segment, at XBS_LENGTHS; a
-    segment of XBS_CUT[0] steps in pieces of XBS_CUT[1] (each from the
-    plane the one before left) against the whole; one launch a piece.
-    Then XBS_WIDE, which does not fit: the wrapper refuses it and a
-    Bezier sweep there steps through X1 a plane (_bezier_wide_sweep).
-    Returns {dtype name: max abs err (0: bit-equal)}."""
+    boundary plane and one after a march segment, at XBS_LENGTHS; one
+    launch a segment.  Then XBS_WIDE, which does not fit: the wrapper
+    refuses it and a Bezier sweep there steps through X1 a plane
+    (_bezier_wide_sweep).  Returns {dtype name: max abs err (0:
+    bit-equal)}."""
     import torch
     from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
 
@@ -1061,7 +1061,6 @@ def check_xy_bezier_segment():
             alpha, S, I0 = _xbs_fields(gen, XBS_NZ, B, nx, ny, dtype)
             cube = torch.empty_like(alpha)
             n0, n, held = xbs.LAUNCHES, 0, 0
-            n_seg = 16 * len(XBS_LENGTHS)
             for sxs in (0, -1):
                 for sys_ in (0, -1):
                     for dirn in (1, -1):
@@ -1069,40 +1068,19 @@ def check_xy_bezier_segment():
                             for L in XBS_LENGTHS:
                                 geom = _xbs_segment(ggen, XBS_NZ, L, dirn,
                                                     start)
-                                args = (alpha, S, I0, geom[0], 0, L, dirn,
+                                args = (alpha, S, I0, geom[0], dirn,
                                         *geom[1:], sxs, sys_)
                                 xbs.xy_bezier_segment(*args, cube)
                                 n += 1
-                                held += _hold_bezier_piece(args, cube)
-            # the segment in pieces, each from the plane the one before
-            # left in the cube, against the whole segment
-            L, k = XBS_CUT
-            steps, r, fx, fy = _xbs_segment(ggen, XBS_NZ, L, -1,
-                                            "after-march")
-            whole = torch.empty_like(alpha)
-            xbs.xy_bezier_segment(alpha, S, I0, steps, 0, L, -1, r, fx, fy,
-                                  -1, 0, whole)
-            carry = I0
-            for j0 in range(0, L, k):
-                carry = xbs.xy_bezier_segment(alpha, S, carry, steps, j0,
-                                              min(j0 + k, L), -1, r, fx, fy,
-                                              -1, 0, cube)
-                n += 1
-            n += 1
-            sl = slice(min(steps), max(steps) + 1)
-            torch.cuda.synchronize()
-            require(torch.equal(cube[sl], whole[sl]),
-                    f"{XBS} in pieces of {k} differs from the whole "
-                    f"segment at ({B}, {nx}, {ny}) {dtype_name}")
+                                held += _hold_bezier_segment(args, cube)
             require(xbs.LAUNCHES - n0 == n,
                     f"{XBS}: {xbs.LAUNCHES - n0} launches for {n} calls")
-            print(f"  {XBS} {dtype_name} ({B}, {nx}, {ny}): {n_seg} "
-                  f"segments of lengths {XBS_LENGTHS}, 4 shift pairs, both "
-                  f"directions, from the boundary and after a march: "
-                  f"{held} planes bit-equal to the plain version; {L} "
-                  f"steps in pieces of {k} bit-equal to one call; "
+            print(f"  {XBS} {dtype_name} ({B}, {nx}, {ny}): {n} segments of "
+                  f"lengths {XBS_LENGTHS}, 4 shift pairs, both directions, "
+                  f"from the boundary and after a march, one launch each: "
+                  f"{held} planes bit-equal to the plain version; "
                   f"{xbs.layout(nx, ny, dtype)}", flush=True)
-            del alpha, S, I0, cube, whole
+            del alpha, S, I0, cube
             torch.cuda.empty_cache()
         n_x1, n_xy = _bezier_wide_sweep(dtype)
         print(f"  {XBS} {dtype_name} at {XBS_WIDE} (does not fit): refused; "
@@ -1113,21 +1091,18 @@ def check_xy_bezier_segment():
 
 
 def time_xy_bezier_segment(B, dtype_name):
-    """A 214-step Bezier xy segment at (B, 256, 256) in `dtype_name`, in
-    the sweep's pieces (piece_steps planes), each plane into the output
-    cube: the kernel's ms a step by CUDA events around the pieces (a
-    launch runs for milliseconds, so the events read the kernel, not the
-    host's launch rate) and by device time (torch.profiler, None where
-    it records none of the kernel: so in the full smoke after phase 2's
-    other profiler sessions), X1's a plane step on the same inputs
-    (device time), the plain version's (CUDA events), the bound of a
-    step (alpha[t] and S[t] read, I[t] written; X1_OPS a point) and the
-    kernel's layout (cluster, band, registers, local memory, clusters at
-    once).  Returns a dict."""
+    """A 214-step Bezier xy segment at (B, 256, 256) in `dtype_name`, one
+    launch, each plane into the output cube: the kernel's ms a step by
+    CUDA events around the launch (it runs for milliseconds, so the
+    events read the kernel, not the host's launch rate), X1's plane step
+    on the same inputs (device time, torch.profiler), the plain
+    version's (CUDA events), the bound of a step (alpha[t] and S[t]
+    read, I[t] written; X1_OPS a point) and the kernel's layout
+    (cluster, band, registers, local memory, clusters at once).
+    Returns a dict."""
     import torch
     from voronoirt_tpu_torch.solvers import xy_bezier as xb
     from voronoirt_tpu_torch.solvers import xy_bezier_segment as xbs
-    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
 
     nz, nx, ny = PROD["nz"], PROD["nx"], PROD["ny"]
     dtype = getattr(torch, dtype_name)
@@ -1137,14 +1112,9 @@ def time_xy_bezier_segment(B, dtype_name):
     steps, r, fx, fy = _xbs_segment(torch.Generator().manual_seed(19), nz,
                                     n, 1, "boundary")
     cube = torch.empty_like(alpha)
-    k = min(n, piece_steps(B, nx, ny, dtype))
 
     def segment():
-        carry = I0
-        for j0 in range(0, n, k):
-            carry = xbs.xy_bezier_segment(alpha, S, carry, steps, j0,
-                                          min(j0 + k, n), 1, r, fx, fy, -1,
-                                          0, cube)
+        xbs.xy_bezier_segment(alpha, S, I0, steps, 1, r, fx, fy, -1, 0, cube)
 
     def per_plane(step):
         def run():
@@ -1157,27 +1127,21 @@ def time_xy_bezier_segment(B, dtype_name):
         return run
 
     ms = _time_ms(segment, 3) / n
-    try:
-        device = _device_ms(segment, 3, "xy_bezier_segment_kernel") / n
-    except RuntimeError:
-        device = None
     x1 = _device_ms(per_plane(xb.xy_bezier), 1, "xy_bezier_kernel") / n
     plain = _time_ms(per_plane(xb.xy_bezier_plain), 1) / n
     pts = B * nx * ny
     bound, by = _bound_ms(3 * ELEMENT_BYTES[dtype_name] * pts, X1_OPS * pts,
                           dtype_name)
     lay = xbs.layout(nx, ny, dtype)
-    dev = "not recorded" if device is None else f"{device:.5f} ms"
-    print(f"  {XBS}, {n} steps at (B={B}, {nx}x{ny}, {dtype_name}) in pieces "
-          f"of {k}: {ms:.5f} ms a step (CUDA events; device time {dev}); "
-          f"{X1} a plane on the same inputs {x1:.5f} ms (device time); plain "
-          f"{plain:.4f} ms; bound {bound:.5f} ms ({by}: 3 planes, {X1_OPS} "
-          f"operations a point), {100 * bound / ms:.1f} % of it; {lay}",
-          flush=True)
+    print(f"  {XBS}, {n} steps at (B={B}, {nx}x{ny}, {dtype_name}) in one "
+          f"launch: {ms:.5f} ms a step (CUDA events); {X1} a plane on the "
+          f"same inputs {x1:.5f} ms (device time); plain {plain:.4f} ms; "
+          f"bound {bound:.5f} ms ({by}: 3 planes, {X1_OPS} operations a "
+          f"point), {100 * bound / ms:.1f} % of it; {lay}", flush=True)
     del alpha, S, I0, cube
     torch.cuda.empty_cache()
-    return {"ms": ms, "ms_device": device, "x1_ms": x1, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "piece": k, **lay}
+    return {"ms": ms, "x1_ms": x1, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, **lay}
 
 
 # ------------------------------------------------------ phase 2: extinction
@@ -2667,21 +2631,16 @@ def _xy_pieces(eng, dtype):
     return n
 
 
-def _bezier_pieces(eng):
-    """xy_bezier_segment launches one Bezier J pass of `eng` makes: a
-    piece of at most piece_steps planes of every xy segment of every
-    direction, in every lambda chunk (one sweep an angle at B = the
-    chunk's wavelengths)."""
-    import torch
-    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
-    chunk, (nx, ny) = eng.cfg.lambda_chunk, eng.atmos.shape[1:]
-    n = 0
-    for lo in range(0, eng.line.n_lambda, chunk):
-        k = piece_steps(min(chunk, eng.line.n_lambda - lo), nx, ny,
-                        getattr(torch, eng.cfg.sweep_dtype))
-        n += sum(-(-len(s.steps) // k) for plan in eng.plans
-                 for s in plan.segments if s.case == "xy")
-    return n
+def _bezier_xy(eng):
+    """(segments, steps): the Bezier xy segments one J pass of `eng`
+    sweeps, and their z-steps: every xy segment of every direction, in
+    every lambda chunk (one sweep an angle at B = the chunk's
+    wavelengths).  An unsplit grid whose plane fits makes one
+    xy_bezier_segment launch a segment; one that does not fit one X1
+    launch a step."""
+    n_chunks = -(-eng.line.n_lambda // eng.cfg.lambda_chunk)
+    segs = [s for plan in eng.plans for s in plan.segments if s.case == "xy"]
+    return n_chunks * len(segs), n_chunks * sum(len(s.steps) for s in segs)
 
 
 def _group_launches(eng):
@@ -3197,14 +3156,11 @@ def check_bezier_sweeps():
     cancel digits near their dtau = 0.05 branch, where one-ulp exp
     differences between the devices' libraries grow (ROADMAP C3).  The
     Bezier sweeps' xy segments go through the segment kernel, one launch
-    a piece; then a Bezier sweep at a plane that does not fit its band
-    steps through X1, a launch a plane (_bezier_wide_sweep).  Returns
-    X1's launches there."""
+    a segment, and none through X1."""
     import numpy as np
     import torch
     from voronoirt_tpu_torch import get_quadrature
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
-    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
 
     quad = get_quadrature("ul7n12")
     gen = np.random.default_rng(8)
@@ -3221,15 +3177,13 @@ def check_bezier_sweeps():
     worst = {"linear": 0.0, "bezier": 0.0}
     launches = {interp: dict.fromkeys(_launch_counts(), 0)
                 for interp in worst}
-    cases, differs, n_xy, n_pieces = set(), 0.0, 0, 0
-    n_piece = piece_steps(B, nx, ny, torch.float64)
+    cases, differs, n_xy, n_segs = set(), 0.0, 0, 0
     for i in range(quad.n_angles):
         plan = sr.build_plan(quad.k[i], z, 1.0 / nx, 1.0 / ny,
                              bool(quad.is_up[i]))
         cases |= {s.case for s in plan.segments}
         n_xy += sum(len(s.steps) for s in plan.segments if s.case == "xy")
-        n_pieces += sum(-(-len(s.steps) // n_piece) for s in plan.segments
-                        if s.case == "xy")
+        n_segs += sum(s.case == "xy" for s in plan.segments)
         out = {}
         for interp in worst:
             for dev in ("cuda", "cpu"):
@@ -3252,25 +3206,20 @@ def check_bezier_sweeps():
           f"(<= 1e-10); bezier vs linear on the card {differs:.3e}; "
           f"launches of the linear sweeps {launches['linear']}, of the "
           f"Bezier sweeps {launches['bezier']} ({n_xy} Bezier xy plane "
-          f"steps in {n_pieces} pieces)", flush=True)
+          f"steps in {n_segs} segments)", flush=True)
     require(cases == {"xy", "yz", "xz"}, f"plane-cut cases {cases}")
     require(worst["linear"] <= 1e-12 and worst["bezier"] <= 1e-10,
             f"sweeps card vs CPU: {worst}")
     require(differs > 1e-3, "the Bezier sweep equals the linear one")
     # the linear sweeps run their xy segments through K1 (xy_segment),
-    # the Bezier sweeps through the segment kernel, one launch a piece,
+    # the Bezier sweeps through the segment kernel, one launch a segment,
     # and no X1; the marching segments of both go through K2
     _require_path(launches["linear"], UNSPLIT, "the linear sweeps")
     _require_path(launches["bezier"], (XBS,) + UNSPLIT[1:],
                   "the Bezier sweeps")
-    require(launches["bezier"][XBS] == n_pieces,
-            f"{XBS}: {launches['bezier'][XBS]} launches, not one a piece of "
-            f"a Bezier xy segment ({n_pieces})")
-    n_x1, n_wide = _bezier_wide_sweep(torch.float64)
-    print(f"  a Bezier sweep at {XBS_WIDE} (a plane that does not fit "
-          f"{XBS}'s band): {n_x1} {X1} launches, one an xy step of "
-          f"{n_wide}, bit-equal to the plain step's", flush=True)
-    return n_x1
+    require(launches["bezier"][XBS] == n_segs,
+            f"{XBS}: {launches['bezier'][XBS]} launches, not one a Bezier "
+            f"xy segment ({n_segs})")
 
 
 def _time_bezier_step(B):
@@ -3300,10 +3249,9 @@ def _time_bezier_step(B):
 BEZIER_RATES_PLANES = 8
 # which march_plane call and which segment kernel call of that iteration
 # are held against the plain versions: mid-sweep, the carried intensity
-# no longer the boundary's; the segment's second call is the second
-# piece of the first xy segment, which starts inside the segment, held
-# on its first XBS_HOLD planes (in the sweep, so inside the timed
-# iteration: a plain step is ~3 ms; phase 2 holds whole segments)
+# no longer the boundary's; the segment's second call, held on its first
+# XBS_HOLD planes (in the sweep, so inside the timed iteration: a plain
+# step is ~3 ms; phase 2 holds whole segments)
 K2_CALL = 1000
 XBS_CALL = 2
 XBS_HOLD = 3
@@ -3319,7 +3267,7 @@ def _keep_call(name, n, batch=None, shape=None):
     shape.  An xy_segment or xy_bezier_segment call is held at once,
     inside the sweep, before the next piece reuses its planes or the
     sweep goes on: its inputs are the whole fields, too large to
-    copy."""
+    copy (an xy_bezier_segment call on its first XBS_HOLD steps)."""
     import torch
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
     fn, kept = getattr(sr, name), {"seen": 0}
@@ -3337,18 +3285,17 @@ def _keep_call(name, n, batch=None, shape=None):
             return fn(*args, **kwargs)
         if name == XBS:
             out = fn(*args, **kwargs)
-            j0, j1 = args[4], min(args[5], args[4] + XBS_HOLD)
-            kept["planes"] = _hold_bezier_piece(
-                args[:5] + (j1,) + args[6:12], args[12])
+            # alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, out
+            steps, h = args[3], min(len(args[3]), XBS_HOLD)
+            kept["planes"] = _hold_bezier_segment(
+                args[:3] + (steps[:h], args[4]) +
+                tuple(v[:h] for v in args[5:8]) + args[8:10], args[10])
             kept["err"] = (0.0, 0.0)
             kept["shape"], kept["dtype"] = tuple(out.shape), out.dtype
-            steps = args[3]
-            kept["statics"] = {"steps": f"{steps[j0]}..{steps[args[5] - 1]}",
-                               "held": f"{steps[j0]}..{steps[j1 - 1]}",
-                               "piece": f"{j0}..{args[5] - 1} of "
-                                        f"{len(steps)}",
-                               "dirn": args[6], "sxs": args[10],
-                               "sys": args[11]}
+            kept["statics"] = {"steps": f"{steps[0]}..{steps[-1]}",
+                               "held": f"{steps[0]}..{steps[h - 1]}",
+                               "dirn": args[4], "sxs": args[8],
+                               "sys": args[9]}
             return out
         if name == "xy_segment":
             out = fn(*args, **kwargs)
@@ -3411,7 +3358,6 @@ def run_bezier_production(atmos):
     from voronoirt_tpu_torch.engine import RegularEngine
     from voronoirt_tpu_torch.observability import nan_guard, throughput
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
-    from voronoirt_tpu_torch.solvers.xy_segment import piece_steps
 
     p = PROD
     cfg = Config(nlam_bb=p["nlam_bb"], nlam_bf=p["nlam_bf"],
@@ -3429,8 +3375,7 @@ def run_bezier_production(atmos):
     cases = [sorted({s.case for s in pl.segments}) for pl in eng.plans]
     n_xy = sum(len(s.steps) for pl in eng.plans for s in pl.segments
                if s.case == "xy")
-    n_piece = piece_steps(cfg.lambda_chunk, p["nx"], p["ny"], torch.float64)
-    n_pieces = _bezier_pieces(eng)
+    n_segs = _bezier_xy(eng)[0]
     compute_J = eng.compute_J
 
     def timed_J(*args, **kwargs):
@@ -3473,9 +3418,9 @@ def run_bezier_production(atmos):
           f"J pass {j:.4f} s ({100 * j / it:.1f}%), {rate:.4e} "
           f"grid-points*rays/s", flush=True)
     print(f"  Bezier xy plane steps in the iteration: {n_xy * n_chunks} "
-          f"({n_xy} a chunk x {n_chunks} chunks) in {n_pieces} pieces of "
-          f"at most {n_piece}, one {XBS} launch each, no {X1} or "
-          f"K1 launch); launches {launches}; criterion {res.convergence}; "
+          f"({n_xy} a chunk x {n_chunks} chunks) in {n_segs} segments, "
+          f"one {XBS} launch each, no {X1} or K1 launch); launches "
+          f"{launches}; criterion {res.convergence}; "
           f"peak device memory {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated); sum(populations)/n_H - 1 max "
           f"{mass:.3e}", flush=True)
@@ -3487,9 +3432,9 @@ def run_bezier_production(atmos):
     require(launches["rates_chunk"] == n_slabs,
             f"rates_chunk: {launches['rates_chunk']} launches, not one a "
             f"slab ({n_slabs})")
-    require(launches[XBS] == n_pieces,
-            f"{XBS}: {launches[XBS]} launches, not one a piece of a Bezier "
-            f"xy segment ({n_pieces})")
+    require(launches[XBS] == n_segs,
+            f"{XBS}: {launches[XBS]} launches, not one a Bezier xy segment "
+            f"({n_segs})")
     d_S, d_P = state_digest(res.S, res.populations)
     print(f"  sha256 of S {d_S}, of the populations {d_P} (equal digests "
           f"from tools/profile_iteration.py --interpolation bezier on "
@@ -3517,6 +3462,86 @@ def run_bezier_production(atmos):
     return launches
 
 
+# phase 8c: a Bezier J pass on a regular grid whose plane does not fit
+# the segment kernel's band: 512 x 512 columns at the production grid's
+# cell size (twice its width), depth cut to WIDE_GRID[0] planes at its z
+# spacing, one lambda chunk of the production's 13 wavelengths, ul7n12,
+# float64; which X1 call is held against its plain version (mid-sweep:
+# the carried intensity no longer the boundary's)
+WIDE_GRID = (48, 512, 512)
+WIDE_NLAM = (6, 3)
+X1_CALL = 30
+WIDE_K2_CALL = 100
+
+
+def _wide_atmosphere():
+    """The synthetic atmosphere of WIDE_GRID: synthetic_atmosphere's
+    default z range (-0.1e6 .. 2.0e6 m) and horizontal extent (2.0e6 m)
+    at the production grid's spacing, from the bottom up to WIDE_GRID[0]
+    planes and out to WIDE_GRID[1:] columns."""
+    from voronoirt_tpu_torch import synthetic_atmosphere
+    nz, nx, ny = WIDE_GRID
+    require(nx == ny, "a square wide grid")
+    dz = 2.1e6 / (PROD["nz"] - 1)
+    dx = 2.0e6 / (PROD["nx"] - 1)
+    return synthetic_atmosphere(nz=nz, nx=nx, ny=ny,
+                                z_top=-0.1e6 + (nz - 1) * dz,
+                                horiz_extent=(nx - 1) * dx)
+
+
+def run_bezier_wide(atmos):
+    """Phase 8c: one Bezier J pass (compute_J, as RegularEngine.run()
+    makes it) on the card on `atmos`, a WIDE_GRID atmosphere, whose
+    plane does not fit the segment kernel's band: the sweep steps its
+    Bezier xy segments through X1, one launch a step, and none through
+    the segment kernel.  The counts are set to 0 just before the pass and
+    read just after; the X1_CALL-th X1 call and a march_plane call are
+    held against their plain versions on their inputs; J finite,
+    positive and of its shape.  Returns the launches."""
+    import torch
+    from voronoirt_tpu_torch.observability import nan_guard
+    nz, nx, ny = WIDE_GRID
+    eng = _small_line_engine(atmos, "cuda", nlam=WIDE_NLAM,
+                             quadrature=PROD["quadrature"],
+                             lambda_chunk=PROD["lambda_chunk"],
+                             formal_interpolation="bezier")
+    B = eng.cfg.lambda_chunk
+    n_segs, n_steps = _bezier_xy(eng)
+    require(eng.line.n_lambda == B and n_steps > 0,
+            f"{eng.line.n_lambda} wavelengths, {n_steps} Bezier xy steps")
+    torch.cuda.synchronize()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with _keep_call(X1, X1_CALL) as kept, \
+            _keep_call("march_plane", WIDE_K2_CALL) as kept_k2:
+        J = eng.compute_J(eng.B0, eng.lte)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    require(tuple(J.shape) == (B, nz, nx, ny), f"J shape {tuple(J.shape)}")
+    nan_guard("the Bezier J pass at 512 x 512: J", J)
+    require(bool((J > 0).all()), "the Bezier J pass at 512 x 512: J <= 0")
+    print(f"  Bezier J pass at {nz}x{nx}x{ny} (a plane that does not fit "
+          f"{XBS}'s band), {B} wavelengths, {eng.quad.n_angles} directions, "
+          f"float64: {wall:.4f} s with the holds; {n_steps} Bezier xy steps "
+          f"in {n_segs} segments, one {X1} launch a step; launches "
+          f"{launches}", flush=True)
+    _require_path(launches, (X1, "march_plane", "march_coeffs",
+                             "march_chain") + PER_ANGLE_EXT,
+                  "the Bezier J pass at 512 x 512")
+    require(launches[X1] == n_steps,
+            f"{X1}: {launches[X1]} launches, not one a Bezier xy step "
+            f"({n_steps})")
+    _hold_kept(X1, kept, X1_CALL, "the Bezier J pass at 512 x 512")
+    _hold_kept("march_plane", kept_k2, WIDE_K2_CALL,
+               "the Bezier J pass at 512 x 512")
+    require(kept["shape"] == (B, nx, ny),
+            f"{X1} call {X1_CALL}: plane {kept['shape']}")
+    del J, eng, kept, kept_k2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_angle_distribution():
     """Phase 9: compute_J serial against the same engine with its angles
     dealt over two slots of the card, [cuda:0, cuda:0].  Bezier and
@@ -3537,7 +3562,7 @@ def check_angle_distribution():
         kw = dict(quadrature="ul7n12", lambda_chunk=4,
                   formal_interpolation=interp)
         serial = _small_line_engine(atmos, "cuda", **kw)
-        want[interp] = _bezier_pieces(serial) if interp == "bezier" else 0
+        want[interp] = _bezier_xy(serial)[0] if interp == "bezier" else 0
         _launch_counts(reset=True)
         J0 = serial.compute_J(serial.B0, serial.lte)
         n_serial = _launch_counts()
@@ -3554,7 +3579,7 @@ def check_angle_distribution():
         require(J1.is_cuda and err <= bar,
                 f"regular {interp} distributed J: {err:.3e}")
     # every Bezier J pass runs its xy segments through the segment
-    # kernel, one launch a piece whichever slot sweeps an angle, and no
+    # kernel, one launch a segment whichever slot sweeps an angle, and no
     # X1 (an unsplit grid); no linear one launches either
     require(all(xbs[i] == (want[i], want[i]) for i in xbs)
             and want["bezier"] > 0 and x1 == {i: (0, 0) for i in x1},
@@ -3786,7 +3811,7 @@ def check_device_trace():
 def run_drivers():
     """Phase 11c: the drivers as a user calls them, on the card.  Returns
     the segment kernel's launches in the Bezier line_nlte run (one a
-    piece the sweep asks for, none through X1)."""
+    segment the sweep asks for, none through X1)."""
     import math
     from voronoirt_tpu_torch.drivers import line_nlte, searchlight
     from voronoirt_tpu_torch.solvers import sweep_regular as sr
@@ -3807,11 +3832,11 @@ def run_drivers():
             "searchlight --irregular: not 12 finite directions")
     _require_path(launches, (V1,), "searchlight --irregular")
     _launch_counts(reset=True)
-    # the pieces the sweeps ask for: the wrapper's calls
-    fn, pieces = sr.xy_bezier_segment, [0]
+    # the segments the sweeps ask for: the wrapper's calls
+    fn, segments = sr.xy_bezier_segment, [0]
 
     def counting(*args, **kwargs):
-        pieces[0] += 1
+        segments[0] += 1
         return fn(*args, **kwargs)
 
     sr.xy_bezier_segment = counting
@@ -3822,14 +3847,15 @@ def run_drivers():
         sr.xy_bezier_segment = fn
     n = _launch_counts()
     print(f"  line_nlte --interpolation bezier --maxiter 3: {summary}; "
-          f"{XBS} launches {n[XBS]} for {pieces[0]} pieces, {X1} {n[X1]}",
+          f"{XBS} launches {n[XBS]} for {segments[0]} segments, {X1} "
+          f"{n[X1]}",
           flush=True)
     require(summary["grid"] == "regular" and 1 <= summary["iterations"] <= 3
             and math.isfinite(summary["final_diff"]),
             f"line_nlte summary {summary}")
-    require(n[XBS] == pieces[0] > 0 and n[X1] == 0,
+    require(n[XBS] == segments[0] > 0 and n[X1] == 0,
             f"line_nlte --interpolation bezier: {n[XBS]} {XBS} launches for "
-            f"{pieces[0]} pieces, {n[X1]} {X1}")
+            f"{segments[0]} segments, {n[X1]} {X1}")
     return n[XBS]
 
 
@@ -4570,7 +4596,9 @@ def main(argv=None):
         rate_info = check_rates(atmos)
         v1_info = check_voronoi_level(atmos)
         x1_errs = check_xy_bezier()
-        x1_times = {d: time_xy_bezier(B13, d) for d in TOL}
+        # X1 at the plane it steps on an unsplit grid: one that does not
+        # fit the segment kernel's band (phase 8c's)
+        x1_times = {d: time_xy_bezier(B13, d, WIDE_GRID[1:]) for d in TOL}
         xbs_errs = check_xy_bezier_segment()
         xbs_times = {d: time_xy_bezier_segment(B13, d) for d in TOL}
     if want(3):
@@ -4594,9 +4622,14 @@ def main(argv=None):
     if want(8):
         phase("phase 8: Bezier sweeps card vs CPU, one Bezier production "
               "iteration")
-        launches_x1_wide = check_bezier_sweeps()
+        check_bezier_sweeps()
         launches_bezier = held(lambda: run_bezier_production(atmos),
                                "phase 8")
+        atmos_wide = _wide_atmosphere()
+        with _record_ext() as seen:
+            launches_wide = run_bezier_wide(atmos_wide)
+        _hold_recorded(atmos_wide, seen, "phase 8c", ext_errs)
+        del atmos_wide
     if want(9):
         phase("phase 9: angle distribution, serial vs two slots on the card")
         launches_xbs_slots = check_angle_distribution()
@@ -4855,10 +4888,10 @@ def main(argv=None):
         "bound_ms_b1": t1["bound_ms"], **layer})
     # X1: what it replaces is the JAX package's lax.scan body of a Bezier
     # xy segment, plain XLA, not a Pallas kernel; as the segment kernel
-    # (one launch a piece: every unsplit Bezier path) its time is a step
-    # of a 214-step segment at the Bezier iteration's plane (phase 2), and
-    # as the per-plane kernel (split grids, planes that do not fit) a
-    # plane step there
+    # (one launch a segment: every unsplit Bezier path whose plane fits)
+    # its time is a step of a 214-step segment at the Bezier iteration's
+    # plane (phase 2), and as the per-plane kernel (split grids, planes
+    # that do not fit) a plane step at phase 8c's 512 x 512 plane
     t64, t32 = xbs_times["float64"], xbs_times["float32"]
     kernels.append({
         "name": XBS, "route": "cuda",
@@ -4866,17 +4899,17 @@ def main(argv=None):
         "replaces": "voronoirt_tpu/solvers/sweep_regular.py:245",
         "replaces_a_tpu_kernel": False,
         "launches": launches_bezier[XBS],
-        "launches_path": "phase 8: the Bezier iteration, one a piece of a "
-                         "Bezier xy segment",
+        "launches_path": "phase 8: the Bezier iteration, one a Bezier xy "
+                         "segment",
         "max_abs_err": xbs_errs["float64"], "bit_equal": True,
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
         "pct_of_bound": 100 * t64["bound_ms"] / t64["ms"],
         "library_ms": None,
         "ms_is": f"a step of a {PROD['nz'] - 1}-step segment at "
-                 f"({B13}, {PROD['nx']}, {PROD['ny']}) in pieces of "
-                 f"{t64['piece']}: CUDA events around the pieces",
-        "ms_device": t64["ms_device"], "x1_ms_same_inputs": t64["x1_ms"],
+                 f"({B13}, {PROD['nx']}, {PROD['ny']}) in one launch: CUDA "
+                 f"events around the launch",
+        "x1_ms_same_inputs": t64["x1_ms"],
         "registers": t64["registers"], "local_bytes": t64["local_bytes"],
         "max_active_clusters": t64["max_active_clusters"],
         "launches_angle_slots": launches_xbs_slots,
@@ -4886,7 +4919,6 @@ def main(argv=None):
         "plain_ms_f32": t32["plain_ms"], "bound_ms_f32": t32["bound_ms"],
         "bound_by_f32": t32["bound_by"],
         "pct_of_bound_f32": 100 * t32["bound_ms"] / t32["ms"],
-        "ms_device_f32": t32["ms_device"],
         "x1_ms_same_inputs_f32": t32["x1_ms"],
         "registers_f32": t32["registers"],
         "local_bytes_f32": t32["local_bytes"],
@@ -4897,14 +4929,14 @@ def main(argv=None):
         "source": "voronoirt_tpu_torch/csrc/xy_bezier.cu",
         "replaces": "voronoirt_tpu/solvers/sweep_regular.py:245",
         "replaces_a_tpu_kernel": False,
-        "launches": launches_x1_wide,
-        "launches_path": f"phase 8: a Bezier sweep at {XBS_WIDE}, a plane "
-                         f"that does not fit {XBS}'s band, one a plane step",
+        "launches": launches_wide[X1],
+        "launches_path": f"phase 8c: a Bezier J pass at {WIDE_GRID}, whose "
+                         f"plane does not fit {XBS}'s band, one a plane step",
         "max_abs_err": x1_errs["float64"], "bit_equal": True,
         "ms": t64[0], "plain_ms": t64[1], "bound_ms": t64[2],
         "bound_by": t64[3], "pct_of_bound": 100 * t64[2] / t64[0],
         "library_ms": None,
-        "ms_is": f"a plane step at ({B13}, {PROD['nx']}, {PROD['ny']}): "
+        "ms_is": f"a plane step at ({B13}, {WIDE_GRID[1]}, {WIDE_GRID[2]}): "
                  f"the kernel's device time (torch.profiler)",
         "ms_events": t64[4], "ms_events_f32": t32[4],
         "launches_bezier_iteration": launches_bezier[X1],

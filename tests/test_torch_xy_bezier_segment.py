@@ -1,9 +1,9 @@
-"""A piece of a Bezier xy segment (solvers/xy_bezier_segment.py) against
-a loop of the Bezier xy step and against the JAX package.
+"""A Bezier xy segment (solvers/xy_bezier_segment.py) against a loop of
+the Bezier xy step and against the JAX package.
 
-xy_bezier_segment runs steps j0 .. j1 - 1 of a Bezier xy segment in one
-launch of csrc/xy_bezier_segment.cu on the card, each plane written into
-the sweep's output cube at its index; on the CPU it takes its plain
+xy_bezier_segment runs a Bezier xy segment in one launch of
+csrc/xy_bezier_segment.cu on the card, each plane written into the
+sweep's output cube at its index; on the CPU it takes its plain
 version.  Here, from seeded numpy inputs at small shapes:
 
   (a) xy_bezier_segment (the plain version, on CPU tensors) against a
@@ -11,24 +11,25 @@ version.  Here, from seeded numpy inputs at small shapes:
       clamped at the boundary, the step before's geometry, first at the
       segment's first step), bit for bit, float64 and float32, every
       shift pair, up and down, a segment that starts at the boundary
-      plane and one that starts after a march segment, and the segment
-      cut once at every offset and into pieces of every length;
-  (b) whole Bezier sweeps through that route, their xy segments in
-      pieces, against the JAX package's sweep(..., interpolation=
+      plane and one that starts after a march segment, at every length
+      from one step to the whole segment;
+  (b) whole Bezier sweeps through that route against the JAX package's
+      sweep(..., interpolation=
       "bezier"): float64 at rtol 2e-12, float32 at rtol 2e-5 / atol 1e-6
       (tests/test_torch_xy_bezier.py's bars);
-  (c) routing: the unsplit sweep calls xy_bezier_segment once a piece
+  (c) routing: the unsplit sweep calls xy_bezier_segment once a segment
       and X1 (xy_bezier) never; a split grid (a one-rank halo) calls X1
       once a plane and the segment wrapper never; so does an unsplit
       plane that does not fit the kernel's band;
-  (d) the wrapper refuses a bad piece, shape, dtype, shift or geometry;
+  (d) the wrapper refuses a bad segment, shape, dtype, shift or
+      geometry;
   (e) the kernel's C entry points and their ctypes signatures, from the
       source text (no build);
   (f) marked cuda (skipped without a card): the kernel against its
       plain version on the same CUDA tensors, bit for bit, float64 and
       float32, at (13, 256, 256), (1, 256, 256), (5, 37, 29) and two
-      edge planes, every shift pair, both directions, both starts, in
-      pieces.
+      edge planes, every shift pair, both directions, both starts, a
+      segment of one step and a longer one.
 
 The JAX package is imported inside the tests that use it, so the cuda
 test runs where only the port is installed.
@@ -96,16 +97,13 @@ def _loop(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys):
     return planes
 
 
-def _run(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, cuts):
-    """xy_bezier_segment over the pieces between `cuts`, each from the
-    plane the one before returned, into a NaN-filled cube."""
+def _run(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys):
+    """xy_bezier_segment into a NaN-filled cube."""
     out = torch.full(alpha.shape, float("nan"), dtype=alpha.dtype,
                      device=alpha.device)
-    carry, bounds = I0, [0, *cuts, len(steps)]
-    for j0, j1 in zip(bounds[:-1], bounds[1:]):
-        carry = xbs.xy_bezier_segment(alpha, S, carry, steps, j0, j1, dirn,
-                                      r, fx, fy, sxs, sys, out)
-        assert carry.data_ptr() == out[steps[j1 - 1]].data_ptr()
+    last = xbs.xy_bezier_segment(alpha, S, I0, steps, dirn, r, fx, fy, sxs,
+                                 sys, out)
+    assert last.data_ptr() == out[steps[-1]].data_ptr()
     return out
 
 
@@ -127,14 +125,12 @@ def test_plain_equals_a_loop_of_the_step(dtype, start, dirn, sxs, sys):
     rng, *arrays = _fields(3 + sxs + 2 * sys, nz, 2, 7, 6, dtype)
     alpha, S, I0 = (torch.from_numpy(a) for a in arrays)
     steps, r, fx, fy = _segment(rng, nz, L, dirn, start)
-    planes = _loop(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys)
-    _same(_run(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, []), planes)
-    # cut once at every offset, and into pieces of every length
-    cuts = [[c] for c in range(1, L)]
-    cuts += [list(range(k, L, k)) for k in range(1, L)]
-    for c in cuts:
-        _same(_run(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, c),
-              planes)
+    # every length: a shorter segment is the loop's first steps
+    for n in range(1, L + 1):
+        planes = _loop(alpha, S, I0, steps[:n], dirn, r[:n], fx[:n], fy[:n],
+                       sxs, sys)
+        _same(_run(alpha, S, I0, steps[:n], dirn, r[:n], fx[:n], fy[:n],
+                   sxs, sys), planes)
     assert xbs.LAUNCHES == 0
 
 
@@ -175,18 +171,19 @@ def _sweep_inputs(dtype, B=3, nx=8, ny=9):
 @pytest.mark.parametrize("theta,phi,up,cases", DIRECTIONS)
 def test_bezier_sweep_matches_jax(monkeypatch, dtype, theta, phi, up,
                                   cases):
-    """The whole Bezier sweep, its xy segments in pieces of 3 planes
-    through xy_bezier_segment, against the JAX package's (whose Bezier
-    scan runs in float64: the float32 inputs go to it as float64)."""
+    """The whole Bezier sweep, its xy segments through xy_bezier_segment,
+    against the JAX package's (whose Bezier scan runs in float64: the
+    float32 inputs go to it as float64)."""
     import jax.numpy as jnp
 
     from voronoirt_tpu.solvers import sweep_regular as jsr
 
-    monkeypatch.setattr(sr, "piece_steps", lambda *a: 3)
+    calls = _count(monkeypatch)
     z, dx, dy, S, alpha, I0 = _sweep_inputs(dtype)
     k = _kvec(theta, phi)
     plan = sr.build_plan(k, z, dx, dy, up)
     assert {s.case for s in plan.segments} == cases
+    n_xy = sum(s.case == "xy" for s in plan.segments)
     assert max(len(s.steps) for s in plan.segments if s.case == "xy") > 3
     j64 = lambda a: jnp.asarray(a.astype(np.float64))  # noqa: E731
     want = np.asarray(jsr.sweep(
@@ -199,13 +196,14 @@ def test_bezier_sweep_matches_jax(monkeypatch, dtype, theta, phi, up,
     assert got.dtype == t(S).dtype
     np.testing.assert_allclose(got.numpy(), want, **TOL[dtype])
     assert xbs.LAUNCHES == n0
+    assert len(calls["segment"]) == n_xy and calls["plane"] == 0
 
 
 def _count(monkeypatch):
     calls = {"segment": [], "plane": 0}
 
     def segment(*args):
-        calls["segment"].append(args[4:6])
+        calls["segment"].append(tuple(args[3]))
         return xbs.xy_bezier_segment(*args)
 
     def plane(*args):
@@ -217,16 +215,15 @@ def _count(monkeypatch):
     return calls
 
 
-def test_unsplit_sweep_calls_the_segment_once_a_piece(monkeypatch):
-    monkeypatch.setattr(sr, "piece_steps", lambda *a: 4)
+def test_unsplit_sweep_calls_the_segment_once_a_segment(monkeypatch):
     calls = _count(monkeypatch)
     z, dx, dy, S, alpha, I0 = _sweep_inputs(np.float64)
     plan = sr.build_plan(_kvec(110.0, 200.0), z, dx, dy, True)
-    lengths = [len(s.steps) for s in plan.segments if s.case == "xy"]
-    assert max(lengths) > 4
+    want = [tuple(s.steps) for s in plan.segments if s.case == "xy"]
+    lengths = [len(w) for w in want]
+    assert want and max(lengths) > 1
     t = torch.from_numpy
     out = sr.sweep(plan, t(S), t(alpha), t(I0), interpolation="bezier")
-    want = [(j0, min(j0 + 4, L)) for L in lengths for j0 in range(0, L, 4)]
     assert calls["segment"] == want
     assert calls["plane"] == 0
     # the same cube as a sweep whose xy steps go plane by plane
@@ -247,15 +244,15 @@ def test_split_and_unfitting_sweeps_call_x1_a_plane(monkeypatch):
     n_xy = sum(len(s.steps) for s in plan.segments if s.case == "xy")
     t = torch.from_numpy
     whole = sr.sweep(plan, t(S), t(alpha), t(I0), interpolation="bezier")
-    n_pieces = len(calls["segment"])
-    assert n_pieces > 0 and calls["plane"] == 0
+    n_segments = len(calls["segment"])
+    assert n_segments > 0 and calls["plane"] == 0
     ident = lambda P: P  # noqa: E731
     halo = types.SimpleNamespace(width=2, refill=ident, gather=ident,
                                  slab=ident)
     split = sr.sweep(plan, t(S), t(alpha), t(I0), interpolation="bezier",
                      halo=halo)
     assert torch.equal(split, whole)
-    assert calls["plane"] == n_xy and len(calls["segment"]) == n_pieces
+    assert calls["plane"] == n_xy and len(calls["segment"]) == n_segments
 
     # 520 columns: more runs of a band than the kernel has threads
     nz, B, nx, ny = 6, 1, 3, 520
@@ -267,7 +264,7 @@ def test_split_and_unfitting_sweeps_call_x1_a_plane(monkeypatch):
     assert n_wide > 0
     sr.sweep(plan, t(S), t(alpha), t(I0), interpolation="bezier")
     assert calls["plane"] == n_xy + n_wide
-    assert len(calls["segment"]) == n_pieces
+    assert len(calls["segment"]) == n_segments
 
 
 def test_fits_rule():
@@ -286,11 +283,11 @@ def _refused(case):
     alpha, S, I0 = (torch.from_numpy(a) for a in arrays)
     steps, r, fx, fy = _segment(rng, 8, 4, 1, "boundary")
     out = torch.empty_like(alpha)
-    j0, j1, dirn, shifts = 0, 4, 1, [0, -1]
-    if case == "empty piece":
-        j0 = j1 = 2
-    elif case == "piece past the segment":
-        j1 = 5
+    dirn, shifts = 1, [0, -1]
+    if case == "empty segment":
+        steps, r, fx, fy = (), (), (), ()
+    elif case == "steps past the grid":
+        steps = (5, 6, 7, 8)
     elif case == "steps":
         steps = (1, 2, 4, 5)
     elif case == "plane before the grid":
@@ -313,11 +310,11 @@ def _refused(case):
         r = (torch.tensor(1.0),) + r[1:]
     elif case == "geometry length":
         fx = fx[:-1]
-    return lambda: xbs.xy_bezier_segment(alpha, S, I0, steps, j0, j1, dirn,
-                                         r, fx, fy, *shifts, out)
+    return lambda: xbs.xy_bezier_segment(alpha, S, I0, steps, dirn, r, fx, fy,
+                                         *shifts, out)
 
 
-REFUSALS = {"empty piece": ValueError, "piece past the segment": ValueError,
+REFUSALS = {"empty segment": ValueError, "steps past the grid": ValueError,
             "steps": ValueError, "plane before the grid": ValueError,
             "shape": ValueError, "I0 shape": ValueError, "dtype": TypeError,
             "mixed dtype": ValueError, "device": ValueError,
@@ -335,10 +332,10 @@ def test_kernel_entry_points_from_source():
     """vrt_xy_bezier_segment_f64 / _f32 and their _info are extern "C"
     in csrc/xy_bezier_segment.cu with the arguments _SIGNATURES gives
     them: five pointers (alpha, S, I0, the geometry rows in double, the
-    output cube), ten ints, the stream; the info two ints and a
+    output cube), nine ints, the stream; the info two ints and a
     pointer."""
     from voronoirt_tpu_torch.kernels.build import _I, _P, _SIGNATURES
-    assert _SIGNATURES["vrt_xy_bezier_segment"] == [_P] * 5 + [_I] * 10 \
+    assert _SIGNATURES["vrt_xy_bezier_segment"] == [_P] * 5 + [_I] * 9 \
         + [_P]
     assert _SIGNATURES["vrt_xy_bezier_segment_info"] == [_I] * 2 + [_P]
     src = (Path(build.SRC_DIR) / "xy_bezier_segment.cu").read_text()
@@ -384,7 +381,8 @@ CARD_SHAPES = [(12, 13, 256, 256), (12, 1, 256, 256), (12, 5, 37, 29),
 def test_kernel_matches_plain_on_card(cuda, dtype, shape):
     """The kernel against xy_bezier_segment_plain on the same CUDA
     tensors, bit for bit: every shift pair, both directions, both
-    starts, the segment whole and in pieces of 3; one launch a piece."""
+    starts, a segment of one step and one of L; one launch a
+    segment."""
     nz = shape[0]
     L = 7
     rng, *arrays = _fields(sum(shape), *shape, dtype)
@@ -393,17 +391,17 @@ def test_kernel_matches_plain_on_card(cuda, dtype, shape):
     for sxs, sys in SHIFTS:
         for dirn in (1, -1):
             for start in ("boundary", "after-march"):
-                steps, r, fx, fy = _segment(rng, nz, L, dirn, start)
-                for cuts in ([], [3, 6]):
+                seg = _segment(rng, nz, L, dirn, start)
+                for n_steps in (1, L):
+                    steps, r, fx, fy = (v[:n_steps] for v in seg)
                     got = _run(alpha, S, I0, steps, dirn, r, fx, fy, sxs,
-                               sys, cuts)
+                               sys)
                     want = torch.full_like(got, float("nan"))
-                    xbs.xy_bezier_segment_plain(alpha, S, I0, steps, 0, L,
-                                                dirn, r, fx, fy, sxs, sys,
-                                                want)
+                    xbs.xy_bezier_segment_plain(alpha, S, I0, steps, dirn, r,
+                                                fx, fy, sxs, sys, want)
                     torch.cuda.synchronize()
-                    n += len(cuts) + 1
+                    n += 1
                     assert torch.equal(got.nan_to_num(-1.0),
                                        want.nan_to_num(-1.0)), \
-                        (sxs, sys, dirn, start, cuts)
+                        (sxs, sys, dirn, start, n_steps)
     assert xbs.LAUNCHES - n0 == n

@@ -48,7 +48,7 @@ angle at B = lambda_chunk, the rates in slabs of
 chip_smoke.BEZIER_RATES_PLANES z-planes.  Three runs of one iteration
 each: parts timed (host timers around synchronised calls: the
 extinction a direction, the sweeps with their Bezier xy segments --
-X1 a piece of a segment, X1 a plane in revisions before it, or the
+X1 a segment, X1 a plane in revisions before it, or the
 eager step before that -- apart from the
 rest of each sweep (K2's marching segments, the emit), the per-angle J
 accumulation, the rates and statistical equilibrium in slabs (R1 a
@@ -244,7 +244,7 @@ def rates_bound(eng, pops):
 # their name, and what is left of the eager tensor operations (the
 # plain Bezier xy step in revisions before X1; the J accumulation, the S
 # update and the criterion in every revision)
-NAMED_BEZIER = {"xy_bezier_segment (X1 a piece)":
+NAMED_BEZIER = {"xy_bezier_segment (X1 a segment)":
                 r"xy_bezier_segment_kernel",
                 "xy_bezier (X1 a plane)": r"xy_bezier_kernel",
                 "march_coeffs (K2a)": r"march_coeffs_kernel",

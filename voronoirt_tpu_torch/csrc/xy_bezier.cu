@@ -39,7 +39,7 @@
 // Design: one thread per output point, consecutive threads on consecutive
 // y, so a warp's tap loads are one or two contiguous segments; one launch
 // a plane, the carried plane in device memory between launches.  The
-// unsplit sweep runs a segment piece a launch instead, the carried plane
+// unsplit sweep runs a segment a launch instead, the carried plane
 // on chip (xy_bezier_segment.cu); this kernel steps split grids' padded
 // tiles and planes whose band does not fit that kernel.
 #include "formal.cuh"

@@ -1,22 +1,23 @@
-// A piece of a Bezier xy segment of the regular sweep in one launch (X1
-// as a segment piece).
+// A Bezier xy segment of the regular sweep in one launch (X1 as a
+// segment).
 //
 // Replaces no Pallas kernel: the JAX package runs a Bezier xy segment as
 // plain XLA, a lax.scan of _xy_step_bezier in its jitted sweep
 // (voronoirt_tpu/solvers/sweep_regular.py:245, the scan at :492-511).
-// For steps j = 0 .. n_steps - 1 of the piece, t = t0 + j dirn, it
+// For steps j = 0 .. n_steps - 1 of the segment, t = t0 + j dirn, it
 // computes what a loop of xy_bezier.cu's kernel computes (the loop of
 // solvers/sweep_regular.py _xy_segment_bezier):
 //
 //   I = xy_bezier(I, alpha[t], alpha[t-dirn], S[t], S[t-dirn],
-//                 alpha[t2], S[t2], geometry of step j and of the step
-//                 before, first);   out[t] = I
+//                 alpha[t2], S[t2], geometry of step j and of step
+//                 max(j - 1, 0), first = (j == 0));   out[t] = I
 //
-// with t2 = t - 2 dirn (the piece's first step: t2 as given, the
-// boundary clamp of the segment's first step), first = 1 only on the
-// first step of a piece that starts its segment, and each point's
-// arithmetic in xy_bezier.cu's order (-fmad=false), so the planes are
-// bit-equal to that loop's and to its plain version.
+// with t2 = t - 2 dirn (the first step: t2 as given, clamped to the
+// grid), and each point's arithmetic in xy_bezier.cu's order
+// (-fmad=false), so the planes are bit-equal to that loop's and to its
+// plain version.  The launch runs the whole segment: nothing but the
+// step count bounds it, and each plane goes straight into the sweep's
+// output cube.
 //
 // Bound on the card: a step reads alpha[t] and S[t] and writes I[t],
 // 24 B a point in float64 (6.1 us at (13, 256, 256) and 3.35 TB/s;
@@ -90,7 +91,7 @@ xy_bezier_segment_kernel(const T* __restrict__ alpha,
                          const T* __restrict__ S, const T* I0,
                          const double* __restrict__ geom, T* out, int B,
                          int nx, int ny, int t0, int dirn, int n_steps,
-                         int t2, int first, int R) {
+                         int t2, int R) {
   // the walk goes up for sxs = -1 (the stencils read rows below) and
   // down for sxs = 0 (rows above)
   constexpr bool UP = SXS == -1;
@@ -192,15 +193,16 @@ xy_bezier_segment_kernel(const T* __restrict__ alpha,
     const unsigned oi = (4 + s) * RBB;
     T* Inew = sm + (4 + (s ^ 1)) * RB;
     T* o = out + (long long)(t0 + j * dirn) * plane + boff;
-    // the step's geometry (r, fx, fy) and the step before's, as doubles:
-    // 1 - f is formed in double and rounded to T, as the plain version
-    // rounds a Python float factor
-    const double* gp = geom + 3 * j;
-    const T rc = T(gp[3]), wx0 = T(1.0 - gp[4]), wx1 = T(gp[4]);
-    const T wy0 = T(1.0 - gp[5]), wy1 = T(gp[5]);
+    // the step's geometry (r, fx, fy) and the step before's (the first
+    // step's own at j = 0), as doubles: 1 - f is formed in double and
+    // rounded to T, as the plain version rounds a Python float factor
+    const double* gc = geom + 3 * j;
+    const double* gp = geom + 3 * max(j - 1, 0);
+    const T rc = T(gc[0]), wx0 = T(1.0 - gc[1]), wx1 = T(gc[1]);
+    const T wy0 = T(1.0 - gc[2]), wy1 = T(gc[2]);
     const T rp = T(gp[0]), px0 = T(1.0 - gp[1]), px1 = T(gp[1]);
     const T py0 = T(1.0 - gp[2]), py1 = T(gp[2]);
-    const double fst = (j == 0 && first) ? 1.0 : 0.0;
+    const double fst = j == 0 ? 1.0 : 0.0;
     const T omf = T(1.0 - fst), ff = T(fst);
 
     // y-interpolations at row address a: the outer stencil's (this
@@ -357,8 +359,7 @@ static cudaLaunchConfig_t bz_config(int B, int C, size_t smem, void* stream,
 template <typename T, int SXS, int SYS>
 static int launch_bz(const T* alpha, const T* S, const T* I0,
                      const double* geom, T* out, int B, int nx, int ny,
-                     int t0, int dirn, int n_steps, int t2, int first,
-                     void* stream) {
+                     int t0, int dirn, int n_steps, int t2, void* stream) {
   int C, R;
   bool fits;
   bz_layout(nx, ny, C, R, fits);
@@ -370,7 +371,7 @@ static int launch_bz(const T* alpha, const T* S, const T* I0,
       bz_config(B, C, 6 * (size_t)R * ny * sizeof(T), stream, attr);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, xy_bezier_segment_kernel<T, SXS, SYS>, alpha, S, I0, geom, out,
-      B, nx, ny, t0, dirn, n_steps, t2, first, R);
+      B, nx, ny, t0, dirn, n_steps, t2, R);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }
@@ -379,20 +380,20 @@ template <typename T>
 static int launch_bz_shifts(const T* alpha, const T* S, const T* I0,
                             const double* geom, T* out, int B, int nx,
                             int ny, int sxs, int sys, int t0, int dirn,
-                            int n_steps, int t2, int first, void* stream) {
+                            int n_steps, int t2, void* stream) {
   if (n_steps <= 0 || B <= 0) return 0;
   if (sxs == 0 && sys == 0)
     return launch_bz<T, 0, 0>(alpha, S, I0, geom, out, B, nx, ny, t0, dirn,
-                              n_steps, t2, first, stream);
+                              n_steps, t2, stream);
   if (sxs == 0 && sys == -1)
     return launch_bz<T, 0, -1>(alpha, S, I0, geom, out, B, nx, ny, t0,
-                               dirn, n_steps, t2, first, stream);
+                               dirn, n_steps, t2, stream);
   if (sxs == -1 && sys == 0)
     return launch_bz<T, -1, 0>(alpha, S, I0, geom, out, B, nx, ny, t0,
-                               dirn, n_steps, t2, first, stream);
+                               dirn, n_steps, t2, stream);
   if (sxs == -1 && sys == -1)
     return launch_bz<T, -1, -1>(alpha, S, I0, geom, out, B, nx, ny, t0,
-                                dirn, n_steps, t2, first, stream);
+                                dirn, n_steps, t2, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -449,20 +450,18 @@ extern "C" int vrt_xy_bezier_segment_f64(const double* alpha,
                                          const double* geom, double* out,
                                          int B, int nx, int ny, int sxs,
                                          int sys, int t0, int dirn,
-                                         int n_steps, int t2, int first,
-                                         void* stream) {
+                                         int n_steps, int t2, void* stream) {
   return launch_bz_shifts<double>(alpha, S, I0, geom, out, B, nx, ny, sxs,
-                                  sys, t0, dirn, n_steps, t2, first, stream);
+                                  sys, t0, dirn, n_steps, t2, stream);
 }
 
 extern "C" int vrt_xy_bezier_segment_f32(const float* alpha, const float* S,
                                          const float* I0, const double* geom,
                                          float* out, int B, int nx, int ny,
                                          int sxs, int sys, int t0, int dirn,
-                                         int n_steps, int t2, int first,
-                                         void* stream) {
+                                         int n_steps, int t2, void* stream) {
   return launch_bz_shifts<float>(alpha, S, I0, geom, out, B, nx, ny, sxs,
-                                 sys, t0, dirn, n_steps, t2, first, stream);
+                                 sys, t0, dirn, n_steps, t2, stream);
 }
 
 extern "C" int vrt_xy_bezier_segment_info_f64(int nx, int ny, int* info) {

@@ -39,7 +39,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "vrt_xy_plane": [_P] * 9 + [_I] * 5 + [_P],
     "vrt_xy_bezier": [_P] * 8 + [_I] * 5 + [_D] * 7 + [_P],
-    "vrt_xy_bezier_segment": [_P] * 5 + [_I] * 10 + [_P],
+    "vrt_xy_bezier_segment": [_P] * 5 + [_I] * 9 + [_P],
     "vrt_xy_bezier_segment_info": [_I] * 2 + [_P],
     "vrt_march_coeffs": [_P] * 10 + [_I] * 7 + [_P],
     "vrt_march_chain": [_P] * 3 + [_I] * 8 + [_P],

@@ -32,9 +32,8 @@ reads its centre alpha/S from the upper plane.
 interpolation='bezier' (the single-direction `sweep` only, as in the JAX
 package) runs each xy segment with the quadratic-Bezier update (the JAX
 package runs it as plain XLA outside any Pallas kernel): on an unsplit
-grid through xy_bezier_segment.xy_bezier_segment, one launch a piece of
-at most xy_segment.piece_steps() planes, written straight into the
-sweep's output; on a split grid, or a plane whose band does not fit
+grid through xy_bezier_segment.xy_bezier_segment, one launch a segment,
+written straight into the sweep's output; on a split grid, or a plane whose band does not fit
 that kernel (xy_bezier_segment.fits, a rule of the shape taken before
 any launch), through xy_bezier.xy_bezier, one launch a plane (X1).  The
 marching segments stay linear and go through march_plane as ever.
@@ -244,22 +243,16 @@ def _xy_segment_bezier(plan, seg, S, alpha, carry, emit, refill,
     secant slope.
 
     out: the sweep's output cube, on an unsplit grid whose plane fits
-    xy_bezier_segment: one launch a piece of at most piece_steps()
-    planes, each plane written into out at its index (emit is not called
-    for them).  None (a split grid, or a plane that does not fit): one
+    xy_bezier_segment: one launch for the segment, each plane written
+    into out at its index (emit is not called for them).  None (a split grid, or a plane that does not fit): one
     X1 launch a plane, each emitted; refill is then the carried plane's
     halo refill on a split grid (two cells: the second-upwind sample
     composes two one-sided stencils), else the identity."""
     nz = S.shape[0]
     dirn = 1 if plan.up else -1
     if out is not None:
-        L = len(seg.steps)
-        n = min(L, piece_steps(*carry.shape, carry.dtype))
-        for j0 in range(0, L, n):
-            carry = xy_bezier_segment(alpha, S, carry, seg.steps, j0,
-                                      min(j0 + n, L), dirn, seg.r, seg.fx,
-                                      seg.fy, plan.sxs, plan.sys, out)
-        return carry
+        return xy_bezier_segment(alpha, S, carry, seg.steps, dirn, seg.r,
+                                 seg.fx, seg.fy, plan.sxs, plan.sys, out)
     for j, t in enumerate(seg.steps):
         jp = max(j - 1, 0)
         t2 = min(max(t - 2 * dirn, 0), nz - 1)
@@ -302,7 +295,7 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
     march or split-grid step and the boundary plane one at a time), so
     that every plane is emitted once.
     interpolation='bezier' is for one plan only (`sweep`), whose output
-    cube `out` the Bezier xy pieces write into directly on an unsplit
+    cube `out` the Bezier xy segments write into directly on an unsplit
     grid (their planes are not emitted).  halo: the split grid's
     parallel/mesh.Halo (S, alpha, I0 and the planes padded tiles), or
     None.

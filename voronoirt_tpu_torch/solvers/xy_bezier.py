@@ -23,7 +23,7 @@ Kernel: csrc/xy_bezier.cu, one thread per output point, one launch per
 z-plane, bit-equal to the plain version on the card.  Its bound is HBM
 bytes: seven planes read and one written, 64 B a point in float64.  The
 sweep takes it on split grids and on planes that do not fit
-xy_bezier_segment's band; elsewhere a piece of a segment is one launch
+xy_bezier_segment's band; elsewhere a segment is one launch
 of xy_bezier_segment.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches

@@ -1,9 +1,9 @@
-"""A piece of a Bezier xy segment: CUDA kernel wrapper + plain version.
+"""A Bezier xy segment: CUDA kernel wrapper + plain version.
 
 The JAX package runs a Bezier xy segment of the single-direction sweep
 as one lax.scan of sweep_regular._xy_step_bezier (plain XLA in its
-jitted sweep; no Pallas kernel).  xy_bezier_segment runs steps j0 ..
-j1 - 1 of one segment in one launch: for j, t = steps[j],
+jitted sweep; no Pallas kernel).  xy_bezier_segment runs the whole
+segment in one launch: for j, t = steps[j],
 
   I = xy_bezier(I, alpha[t], alpha[t-dirn], S[t], S[t-dirn],
                 alpha[t2], S[t2], r[j], fx[j], fy[j],
@@ -11,10 +11,9 @@ j1 - 1 of one segment in one launch: for j, t = steps[j],
 
 with t2 = t - 2 dirn clamped to the grid, jp = max(j - 1, 0) and first
 1.0 only at j = 0: what sweep_regular's per-plane loop of X1 makes,
-bit for bit.  A piece that does not start the segment (j0 > 0) takes
-the real t - 2 dirn plane and the step before's geometry, first 0.
+bit for bit.
 
-Kernel: csrc/xy_bezier_segment.cu, one launch a piece.  One
+Kernel: csrc/xy_bezier_segment.cu, one launch a segment.  One
 thread-block cluster a batch element keeps the carried plane and the
 previous and second-upwind alpha and S planes on chip across the steps,
 so HBM sees alpha[t] and S[t] read once and I[t] written once a step
@@ -55,25 +54,24 @@ def fits(nx, ny):
     return ny * -(-R // RUN) <= THREADS
 
 
-def xy_bezier_segment_plain(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy,
-                            sxs, sys, out):
-    """The plain PyTorch version: a loop of xy_bezier_plain over steps j0
-    .. j1 - 1, each plane written into out[t]; returns the last (a view
-    of out)."""
+def xy_bezier_segment_plain(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys,
+                            out):
+    """The plain PyTorch version: a loop of xy_bezier_plain over the
+    segment's steps, each plane written into out[t]; returns the last (a
+    view of out)."""
     nz = alpha.shape[0]
     I = I0
-    for j in range(j0, j1):
-        t = steps[j]
+    for j, t in enumerate(steps):
         jp = max(j - 1, 0)
         t2 = min(max(t - 2 * dirn, 0), nz - 1)
         I = xy_bezier_plain(I, alpha[t], alpha[t - dirn], S[t], S[t - dirn],
                             alpha[t2], S[t2], r[j], fx[j], fy[j], r[jp],
                             fx[jp], fy[jp], 1.0 if j == 0 else 0.0, sxs, sys)
         out[t] = I
-    return out[steps[j1 - 1]]
+    return out[steps[-1]]
 
 
-def _check(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy, sxs, sys, out):
+def _check(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, out):
     if alpha.dim() != 4:
         raise ValueError(f"fields must be (nz, B, Nx, Ny), got "
                          f"{tuple(alpha.shape)}")
@@ -95,43 +93,41 @@ def _check(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy, sxs, sys, out):
             raise ValueError(f"a stencil base shift is 0 or -1, got {s!r}")
     steps = [int(t) for t in steps]
     n = len(steps)
-    if not 0 <= j0 < j1 <= n:
-        raise ValueError(f"piece {j0}..{j1} outside a segment of {n} steps")
+    if n == 0:
+        raise ValueError("a segment has at least one step")
     if steps != [steps[0] + j * dirn for j in range(n)]:
         raise ValueError("steps must advance by dirn")
     nz = alpha.shape[0]
-    ends = (steps[j0] - dirn, steps[j1 - 1])
+    ends = (steps[0] - dirn, steps[-1])
     if not (0 <= min(ends) and max(ends) < nz):
-        raise ValueError(f"steps {steps[j0]}..{steps[j1 - 1]} (and the "
-                         f"plane before the first) outside the {nz} planes")
+        raise ValueError(f"steps {steps[0]}..{steps[-1]} (and the plane "
+                         f"before the first) outside the {nz} planes")
     for v in (r, fx, fy):
         if len(v) != n:
             raise ValueError(f"per-step geometry of {len(v)} steps for a "
                              f"segment of {n}")
-        for x in v[max(j0 - 1, 0):j1]:
+        for x in v:
             if not isinstance(x, numbers.Real) or isinstance(x, bool):
                 raise TypeError(f"the geometry is Python floats, got "
                                 f"{type(x).__name__}")
     return steps
 
 
-def xy_bezier_segment(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy, sxs,
-                      sys, out):
-    """Run steps j0 .. j1 - 1 of a Bezier xy segment from the carried
-    plane I0, writing the plane of step j into out[steps[j]]; returns
-    the last plane made (a view of out).
+def xy_bezier_segment(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, out):
+    """Run a Bezier xy segment from the carried plane I0, writing the
+    plane of step j into out[steps[j]]; returns the last plane made (a
+    view of out).
 
     alpha, S: the whole (nz, B, Nx, Ny) fields; I0: (B, Nx, Ny), the
-    plane before steps[j0] (it may be a plane of out, not one the piece
-    writes); steps, r, fx, fy: the whole segment's z indices (advancing
-    by dirn) and per-step geometry (Python floats, shared by the batch);
+    plane before steps[0] (it may be a plane of out, not one the segment
+    writes); steps, r, fx, fy: the segment's z indices (advancing by
+    dirn) and per-step geometry (Python floats, shared by the batch);
     sxs, sys: the stencil base shifts (0 or -1); out: (nz, B, Nx, Ny).
     """
-    steps = _check(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy, sxs, sys,
-                   out)
+    steps = _check(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, out)
     if alpha.device.type == "cpu":
-        return xy_bezier_segment_plain(alpha, S, I0, steps, j0, j1, dirn, r,
-                                       fx, fy, sxs, sys, out)
+        return xy_bezier_segment_plain(alpha, S, I0, steps, dirn, r, fx, fy,
+                                       sxs, sys, out)
     if alpha.device.type != "cuda":
         raise ValueError(f"no xy_bezier_segment kernel for device "
                          f"{alpha.device}")
@@ -144,19 +140,16 @@ def xy_bezier_segment(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy, sxs,
                          "contiguous")
     if _overlap(out, alpha) or _overlap(out, S):
         raise ValueError("xy_bezier_segment: out overlaps alpha or S")
-    written = out[min(steps[j0], steps[j1 - 1]):
-                  max(steps[j0], steps[j1 - 1]) + 1]
+    written = out[min(steps[0], steps[-1]):max(steps[0], steps[-1]) + 1]
     if _overlap(I0, written):
-        raise ValueError("xy_bezier_segment: I0 lies on a plane the piece "
+        raise ValueError("xy_bezier_segment: I0 lies on a plane the segment "
                          "writes")
     from ..kernels import build
     nz = alpha.shape[0]
-    # (r, fx, fy) of the step before steps[j0] (steps[0]'s own for the
-    # segment's first step), then of each step of the piece
-    rows = [(r[j], fx[j], fy[j]) for j in [max(j0 - 1, 0)] +
-            list(range(j0, j1))]
-    geom = torch.tensor(rows, dtype=torch.float64, device=alpha.device)
-    t0 = steps[j0]
+    # (r, fx, fy) of each step
+    geom = torch.tensor(list(zip(r, fx, fy)), dtype=torch.float64,
+                        device=alpha.device)
+    t0 = steps[0]
     t2 = min(max(t0 - 2 * dirn, 0), nz - 1)
     fn = build.launch_fn("vrt_xy_bezier_segment", alpha.dtype)
     global LAUNCHES
@@ -164,10 +157,10 @@ def xy_bezier_segment(alpha, S, I0, steps, j0, j1, dirn, r, fx, fy, sxs,
         LAUNCHES += 1
         err = fn(alpha.data_ptr(), S.data_ptr(), I0.data_ptr(),
                  geom.data_ptr(), out.data_ptr(), B, nx, ny, int(sxs),
-                 int(sys), t0, int(dirn), j1 - j0, t2, int(j0 == 0),
+                 int(sys), t0, int(dirn), len(steps), t2,
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "xy_bezier_segment")
-    return out[steps[j1 - 1]]
+    return out[steps[-1]]
 
 
 def layout(nx, ny, dtype):
