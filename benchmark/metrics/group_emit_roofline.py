@@ -1,0 +1,10 @@
+"""group_emit_roofline: the least time of the traced window's calls of
+solvers.group_emit: G1-G3, the J emit (angle reduction, flipped
+stacks, fold),
+over the device time attributed to them, in per cent.  The least time
+of a call is the larger of its bytes over 3.35 TB/s and its operations
+over the dtype's peak (benchmark/work.py).  Moves iter_s."""
+
+
+def read(run):
+    return run.roofline_pct("group_emit")

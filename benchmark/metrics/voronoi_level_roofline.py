@@ -1,0 +1,9 @@
+"""voronoi_level_roofline: the least time of the traced window's calls of
+solvers.voronoi_level: V1, a stage of level steps a call,
+over the device time attributed to them, in per cent.  The least time
+of a call is the larger of its bytes over 3.35 TB/s and its operations
+over the dtype's peak (benchmark/work.py).  Moves iter_s."""
+
+
+def read(run):
+    return run.roofline_pct("voronoi_level")
