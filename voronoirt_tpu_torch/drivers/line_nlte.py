@@ -4,7 +4,9 @@ Port of drivers/line_nlte.py (reference src/compare_line.jl, `regular()`
 :9-47 and `voronoi()` :49-132): production configuration eps=1e-3,
 maxiter=150, 51 bb + 2x20 bf wavelengths, ul7n12 quadrature; Voronoi
 sites sampled from the invNH_invT density.  Works on the Bifrost
-snapshot (--data) or the synthetic atmosphere.
+snapshot (--data) or the synthetic atmosphere.  The printed summary
+carries the run's spans (observability.report(): the set-up's parts, and
+the first iteration's and the other iterations' mean seconds by phase).
 
 Usage:
   python -m voronoirt_tpu_torch.drivers.line_nlte [--data F]
@@ -19,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observability
 from ..atmosphere import get_atmos, synthetic_atmosphere
 from ..config import Config
 from ..device import torch_dtype
@@ -86,6 +89,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = pick_device(args.device)
+    observability.reset()
     cfg = Config(eps=args.eps, maxiter=args.maxiter, nlam_bb=args.nlam_bb,
                  nlam_bf=args.nlam_bf, quadrature=args.quadrature,
                  seed=args.seed, boost=args.boost,
@@ -144,6 +148,7 @@ def main(argv=None):
         "final_diff": res.convergence[-1],
         "mean_iteration_seconds": (float(np.mean(res.timings))
                                    if res.timings else None),
+        "observability": observability.report(),
     }
     print(json.dumps(summary))
     return summary

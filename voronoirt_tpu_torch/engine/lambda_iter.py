@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..config import Config
 from ..device import torch_dtype
 from ..grid.voronoi import build_voronoi_plan
@@ -124,10 +125,11 @@ def _lambda_chunks(n_lambda, chunk):
 
 
 def _update_S(line, eps, J, B0):
-    S = (1.0 - eps)[None] * J
-    # the second product is added in place: one cube-sized temporary
-    # less than the plain expression, the same arithmetic
-    return S.add_(eps[None] * B0)
+    with obs.span("engine.s_update", J.device):
+        S = (1.0 - eps)[None] * J
+        # the second product is added in place: one cube-sized temporary
+        # less than the plain expression, the same arithmetic
+        return S.add_(eps[None] * B0)
 
 
 def _s_update_stream(line, S, Jc, eps, T, lam_c, start):
@@ -201,10 +203,12 @@ def _rates_and_populations_slabbed(line, J, g_cell, lte, C, temperature,
         if step >= n:
             R = acc     # one slab: its rates are the rates
             break
-        for k, v in acc.items():
-            R.setdefault(k, torch.zeros_like(temperature))[sl] = v
+        with obs.span("engine.populations", temperature.device):
+            for k, v in acc.items():
+                R.setdefault(k, torch.zeros_like(temperature))[sl] = v
     R = _lam.all_reduce_rates(group, R, temperature)
-    return get_revised_populations(R, C, hydrogen_density)
+    with obs.span("engine.populations", temperature.device):
+        return get_revised_populations(R, C, hydrogen_density)
 
 
 # elements per block of the criterion: its temporaries stay this size
@@ -222,16 +226,13 @@ def _criterion(S_new, S_old, group=None):
     the rank's block and the maximum is taken over the ranks."""
     rows = max(1, _CRIT_POINTS // max(S_new[0].numel(), 1))
     diff = None
-    for new, old in zip(S_new.split(rows), S_old.split(rows)):
-        denom = torch.where(new != 0.0, new, 1.0)
-        m = torch.max(torch.abs(new - old) / torch.abs(denom))
-        diff = m if diff is None else torch.maximum(diff, m)
-    return _lam.global_max(group, diff)
-
-
-def _sync(t):
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+    with obs.span("engine.criterion", S_new.device):
+        for new, old in zip(S_new.split(rows), S_old.split(rows)):
+            denom = torch.where(new != 0.0, new, 1.0)
+            m = torch.max(torch.abs(new - old) / torch.abs(denom))
+            diff = m if diff is None else torch.maximum(diff, m)
+    with obs.wait():
+        return _lam.global_max(group, diff)
 
 
 # -------------------------------------------------------------- engines
@@ -332,9 +333,11 @@ class _Engine:
         return (_ang.broadcast_state(self.angle_devices, **state),
                 self._angle_static)
 
+    @obs.span("engine.frozen_setup")
     def _frozen_setup(self, fields):
         """The per-cell fields of `fields` (an Atmosphere or
-        VoronoiSites) on the device, and the frozen set-up on them."""
+        VoronoiSites) on the device, and the frozen set-up on them (its
+        charge check included)."""
         self._cut_line()
         self.T = self._field(self._cut(fields.temperature))
         self.ne = self._field(self._cut(fields.electron_density))
@@ -405,14 +408,17 @@ class _Engine:
 
     def block_lam(self):
         """The wavelengths of the engine's lambda block (all of the
-        line's without a lambda group), on the device."""
-        return self.line.lam_tensor()[self.lam_block]
+        line's without a lambda group), on the device: a copy from
+        pageable host memory, which waits for the card's queue."""
+        with obs.wait():
+            return self.line.lam_tensor()[self.lam_block]
 
     def _gamma_cell(self, populations):
         """Per-cell damping rate gamma (lambda-independent)."""
-        return gamma_constant(self.line, self.T,
-                              populations[..., 0] + populations[..., 1],
-                              self.ne, self.cfg.gamma_natural)
+        with obs.span("engine.damping", self.device):
+            return gamma_constant(self.line, self.T,
+                                  populations[..., 0] + populations[..., 1],
+                                  self.ne, self.cfg.gamma_natural)
 
     def _alpha_tot(self, k, lam_c, populations, damp_c=None, g_cell=None,
                    static=None):
@@ -428,7 +434,8 @@ class _Engine:
         v, a_cont, line = (
             (static["v"], static["a_cont"], static["line"]) if static
             else (self.v, self.a_cont, self.line))
-        v_los = line_of_sight_velocity(v, -np.asarray(k))
+        with obs.span("engine.los_velocity", self.device):
+            v_los = line_of_sight_velocity(v, -np.asarray(k))
         return alpha_tot(line, lam_c, v_los, populations.contiguous(),
                          a_cont, g_cell=g_cell if damp_c is None else None,
                          damp=damp_c)
@@ -450,8 +457,9 @@ class _Engine:
     def damping_lam(self, populations):
         """The (nlam, ...) damping cube of the lambda block."""
         lam = self.block_lam().reshape((-1,) + (1,) * self.T.dim())
-        return damping(self._gamma_cell(populations)[None], lam,
-                       self.line.dlamD[None])
+        g = self._gamma_cell(populations)
+        with obs.span("engine.damping", self.device):
+            return damping(g[None], lam, self.line.dlamD[None])
 
 
 # --------------------------------------------------------- regular grid
@@ -467,6 +475,7 @@ class RegularEngine(_Engine):
     lambda-streamed iteration is linear and undistributed only.
     """
 
+    @obs.span("engine.setup")
     def __init__(self, atmos, line, cfg: Config, quadrature=None,
                  device=None, lam_group=None, mesh=None):
         super().__init__(line, cfg, quadrature, device, lam_group, mesh)
@@ -516,12 +525,13 @@ class RegularEngine(_Engine):
     def _I0(self, lam_c, up, static=None):
         """Boundary plane: hot bottom B(T_bottom) for up sweeps, dark top
         for down sweeps (lambda_iteration.jl:38-52)."""
-        if up:
-            T_bottom = static["T_bottom"] if static else self.T[0]
-            return B_lambda(lam_c[:, None, None], T_bottom[None])
-        nx, ny = self.T.shape[1:]
-        return torch.zeros((lam_c.shape[0], nx, ny), dtype=self.dtype,
-                           device=lam_c.device)
+        with obs.span("engine.boundary", lam_c.device):
+            if up:
+                T_bottom = static["T_bottom"] if static else self.T[0]
+                return B_lambda(lam_c[:, None, None], T_bottom[None])
+            nx, ny = self.T.shape[1:]
+            return torch.zeros((lam_c.shape[0], nx, ny), dtype=self.dtype,
+                               device=lam_c.device)
 
     # ---- J
 
@@ -580,10 +590,12 @@ class RegularEngine(_Engine):
                       interpolation=cfg.formal_interpolation, halo=self.halo)
             del a_t
             # the partial sums stay in the sweep's z-major layout
-            _ang.partial_accumulate(partials, slot, self._strip(I).mul_(
-                float(quad.weights[i])))
+            with obs.span("engine.j_accumulate", I.device):
+                _ang.partial_accumulate(partials, slot, self._strip(I).mul_(
+                    float(quad.weights[i])))
         J_t = _ang.reduce_partials(partials, _ang.target_device(S_c))
-        return J_t.transpose(0, 1).contiguous()
+        with obs.span("engine.transpose", J_t.device):
+            return J_t.transpose(0, 1).contiguous()
 
     def _J_chunk_grouped(self, S_c, populations, damp_c, lam_c,
                          g_cell=None):
@@ -594,7 +606,8 @@ class RegularEngine(_Engine):
         made (group_emit, G1); group_fold (G3) adds each group's halves
         into Jc."""
         quad, pad = self.quad, self._pad
-        Jc = torch.zeros_like(S_c)
+        with obs.span("engine.j_accumulate", S_c.device):
+            Jc = torch.zeros_like(S_c)
         # (nz, chunk, nx, ny); on a split grid a padded tile, its halos
         # filled once for the chunk
         S_t = pad(S_c.transpose(0, 1))
@@ -608,8 +621,9 @@ class RegularEngine(_Engine):
                           n_sweeps=self.cfg.n_sweeps, halo=self.halo)
                 # in-place J accumulation (one direction: no J halves,
                 # so no group_fold)
-                Jc.add_(float(quad.weights[i])
-                        * self._strip(I).transpose(0, 1))
+                with obs.span("engine.j_accumulate", I.device):
+                    Jc.add_(float(quad.weights[i])
+                            * self._strip(I).transpose(0, 1))
                 continue
             # the boundary follows the ORIGINAL direction (fz = originally
             # down, z-flip-canonicalized)
@@ -658,26 +672,33 @@ class RegularEngine(_Engine):
         lo = self.lam_block.start
         g_cell = self._gamma_cell(populations)
         acc = carry = first = None
-        diff = torch.zeros((), dtype=self.dtype, device=self.device)
+        with obs.span("engine.criterion", self.device):
+            diff = torch.zeros((), dtype=self.dtype, device=self.device)
         for ci, sl in enumerate(_lambda_chunks(lam.shape[0],
                                                cfg.lambda_chunk)):
-            Jc = self._J_chunk_grouped(S[sl], populations, None, lam[sl],
-                                       g_cell=g_cell)
-            r0 = lo + (sl.start if ci == 0 else sl.start - 1)
-            acc = _rates_accum(line, acc, carry, Jc, r0, g_cell, self.lte,
-                               self.T, cfg.compat)
-            if ci == 0 and group is not None:
-                first = Jc[:1].clone()
-            carry = Jc[-1:].clone()     # a view would keep all of Jc alive
-            S, m = _s_update_stream(line, S, Jc, self.eps, self.T, lam[sl],
-                                    sl.start)
-            diff = torch.maximum(diff, m)
-            del Jc
+            with obs.span("engine.chunk"):
+                Jc = self._J_chunk_grouped(S[sl], populations, None,
+                                           lam[sl], g_cell=g_cell)
+                r0 = lo + (sl.start if ci == 0 else sl.start - 1)
+                acc = _rates_accum(line, acc, carry, Jc, r0, g_cell,
+                                   self.lte, self.T, cfg.compat)
+                with obs.span("engine.carry", self.device):
+                    if ci == 0 and group is not None:
+                        first = Jc[:1].clone()
+                    # a view would keep all of Jc alive
+                    carry = Jc[-1:].clone()
+                S, m = _s_update_stream(line, S, Jc, self.eps, self.T,
+                                        lam[sl], sl.start)
+                with obs.span("engine.criterion", self.device):
+                    diff = torch.maximum(diff, m)
+                del Jc
         acc = _edge_pair(self, acc, _lam.previous_row(group, carry), first,
                          g_cell)
         acc = _lam.all_reduce_rates(group, acc, self.T)
-        pops = get_revised_populations(acc, self.C, self.nH)
-        return S, pops, _lam.global_max(self._world(), diff)
+        with obs.span("engine.populations", self.device):
+            pops = get_revised_populations(acc, self.C, self.nH)
+        with obs.wait():
+            return S, pops, _lam.global_max(self._world(), diff)
 
     def run(self, checkpoint=None):
         if self.cfg.stream_rates:
@@ -699,6 +720,7 @@ class VoronoiEngine(_Engine):
     in the JAX package.  cfg.stream_rates does not apply.
     """
 
+    @obs.span("engine.setup")
     def __init__(self, sites, line, cfg: Config, quadrature=None,
                  plans=None, device=None, lam_group=None, mesh=None):
         super().__init__(line, cfg, quadrature, device, lam_group, mesh)
@@ -716,8 +738,9 @@ class VoronoiEngine(_Engine):
                           for p in self.plans]
         # the slot plans and their device arrays, built here rather
         # than in the first J pass
-        for p in self.plans:
-            device_plan(p, cfg.n_sweeps, self.device, self.dtype)
+        with obs.span("engine.slot_plans"):
+            for p in self.plans:
+                device_plan(p, cfg.n_sweeps, self.device, self.dtype)
 
     def _split_space(self, mesh):
         """The block of sites of the mesh's site axis; the boundary
@@ -738,6 +761,7 @@ class VoronoiEngine(_Engine):
         return self._T_sites is not None
 
     @staticmethod
+    @obs.span("grid.build_plans")
     def build_plans(sites, quad, cfg: Config):
         """Host-side plan construction for every quadrature direction
         (disk-cached when cfg.cache_dir is set)."""
@@ -757,13 +781,14 @@ class VoronoiEngine(_Engine):
         """Boundary intensity on plan i's bc sites: B(T) at the bottom
         layer for up sweeps, dark for down sweeps
         (lambda_iteration.jl:99-102)."""
-        bc = self._bc_sites[i].to(lam_c.device)
-        if self.plans[i].up:
-            T = static["T"] if static else (
-                self._T_sites if self._site_split() else self.T)
-            return B_lambda(lam_c[:, None], T[bc][None])
-        return torch.zeros((lam_c.shape[0], bc.shape[0]), dtype=self.dtype,
-                           device=lam_c.device)
+        with obs.span("engine.boundary", lam_c.device):
+            bc = self._bc_sites[i].to(lam_c.device)
+            if self.plans[i].up:
+                T = static["T"] if static else (
+                    self._T_sites if self._site_split() else self.T)
+                return B_lambda(lam_c[:, None], T[bc][None])
+            return torch.zeros((lam_c.shape[0], bc.shape[0]),
+                               dtype=self.dtype, device=lam_c.device)
 
     def compute_J(self, S, populations, damping_lam=None):
         """J accumulation over the quadrature (J_lambda_voronoi).
@@ -789,9 +814,10 @@ class VoronoiEngine(_Engine):
             damp_c = damping_lam[sl] if damping_lam is not None else None
             Jc_T = self._J_chunk_T(S[sl], populations, damp_c, lam[sl],
                                    g_cell)
-            if J is None:
-                return Jc_T.T.contiguous()
-            J[sl] = Jc_T.T
+            with obs.span("engine.transpose", Jc_T.device):
+                if J is None:
+                    return Jc_T.T.contiguous()
+                J[sl] = Jc_T.T
         return J
 
     def _J_chunk_T(self, S_c, populations, damp_c, lam_c, g_cell):
@@ -805,26 +831,30 @@ class VoronoiEngine(_Engine):
             return (gather_space(A, self.mesh, dims=(0,))
                     if self._site_split() else A)
 
-        state, static = self._slots(S_T=whole(S_c.T.contiguous()),
-                                    damping=damp_c, populations=populations,
-                                    lam=lam_c)
+        with obs.span("engine.transpose", S_c.device):
+            S_T = S_c.T.contiguous()
+        state, static = self._slots(S_T=whole(S_T), damping=damp_c,
+                                    populations=populations, lam=lam_c)
         partials = {}
         for i, plan in enumerate(self.plans):
-            slot = _ang.angle_device(self, i) if self.angle_devices else 0
-            st, dst = state[slot], static[slot]
-            a_T = whole(self._alpha_tot_T(
-                quad.k[i], st["lam"], st["populations"], st["damping"],
-                g_cell, static=dst))
-            I_T = sweep_voronoi_t(plan, st["S_T"], a_T,
-                                  self._I0(i, st["lam"], dst),
-                                  n_sweeps=cfg.n_sweeps,
-                                  relax_tol=cfg.voronoi_relax_tol)[
-                                      self.site_block]
-            del a_T
-            # in-place J accumulation (the JAX package donates J to a
-            # fused J + w * I)
-            _ang.partial_accumulate(partials, slot,
-                                    I_T.mul_(float(quad.weights[i])))
+            with obs.span("engine.direction"):
+                slot = (_ang.angle_device(self, i) if self.angle_devices
+                        else 0)
+                st, dst = state[slot], static[slot]
+                a_T = whole(self._alpha_tot_T(
+                    quad.k[i], st["lam"], st["populations"], st["damping"],
+                    g_cell, static=dst))
+                I_T = sweep_voronoi_t(plan, st["S_T"], a_T,
+                                      self._I0(i, st["lam"], dst),
+                                      n_sweeps=cfg.n_sweeps,
+                                      relax_tol=cfg.voronoi_relax_tol)[
+                                          self.site_block]
+                del a_T
+                # in-place J accumulation (the JAX package donates J to a
+                # fused J + w * I)
+                with obs.span("engine.j_accumulate", I_T.device):
+                    _ang.partial_accumulate(
+                        partials, slot, I_T.mul_(float(quad.weights[i])))
         return _ang.reduce_partials(partials, _ang.target_device(S_c))
 
     def run(self, checkpoint=None):
@@ -899,10 +929,11 @@ def _write_state(engine, checkpoint, populations, S):
     in a split run gathered to rank 0 (_host_state), which alone
     writes."""
     world = engine._world()
-    if world is None:
-        checkpoint.write_state(populations, S)
-        return
-    P_host, S_host = _host_state(engine, populations, S)
+    with obs.wait():
+        if world is None:
+            checkpoint.write_state(populations, S)
+            return
+        P_host, S_host = _host_state(engine, populations, S)
     if world.rank == 0:
         checkpoint.write_state(P_host, S_host)
 
@@ -920,7 +951,8 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
     """Host-side while loop: iterate until converged (Lambda_regular and
     Lambda_voronoi, lambda_iteration.jl:116-297), checkpointing like the
     reference (lambda_iteration.jl:188-189,280-281): the criterion of
-    every loop head goes to checkpoint.write_convergence, the state to
+    every loop head (an iteration's, computed at its end, whose readback
+    ends its timing) goes to checkpoint.write_convergence, the state to
     checkpoint.write_state every cfg.checkpoint_every iterations (the
     only iterations that copy S to the host).  Starts from S_init /
     populations_init (numpy arrays or tensors over the whole grid and
@@ -945,14 +977,15 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
         S_new = engine.S_start
     else:
         S_new = engine.B0
-    S_old = torch.zeros_like(S_new)
+    with obs.span("engine.start", S_new.device):
+        S_old = torch.zeros_like(S_new)
 
     convergence = []
     timings = []
     J = None
     i = start_iteration
+    diff = _criterion(S_new, S_old, engine._world())
     while True:
-        diff = _criterion(S_new, S_old, engine._world())
         convergence.append(diff)
         if checkpoint is not None:
             _write_convergence(engine, checkpoint, i + 1, diff)
@@ -964,36 +997,39 @@ def _run_iteration(engine, checkpoint=None, start_iteration=0, S_init=None,
         if not (diff > cfg.eps and i < cfg.maxiter):
             break
 
-        t0 = time.perf_counter()
-        S_old = S_new
-        J = None    # drop the previous J before the new J pass
-        if cfg.rates_site_chunk or engine.lam_group is not None:
-            # production-memory path: damping per lambda chunk inside
-            # compute_J, rates streamed over slabs -- the full damping
-            # cube never sits next to J; with a lambda group, the rates
-            # over the block, then summed over the ranks
-            g_cell = engine._gamma_cell(populations)
-            J = engine.compute_J(S_old, populations, None)
-            S_new = _update_S(line, engine.eps, J, engine.B0)
-            populations = _rates_and_populations_slabbed(
-                line, J, g_cell, engine.lte, engine.C, engine.T,
-                engine.nH, cfg.compat, cfg.rates_site_chunk,
-                engine.lam_group, engine.lam_block.start)
-            del g_cell
-        else:
-            # the damping cube for the J pass; the rates take the
-            # per-cell gamma (one R1 launch over all of J's rows)
-            damping_lam = engine.damping_lam(populations)
-            J = engine.compute_J(S_old, populations, damping_lam)
-            del damping_lam
-            g_cell = engine._gamma_cell(populations)
-            S_new = _update_S(line, engine.eps, J, engine.B0)
-            populations = _rates_and_populations(
-                line, J, g_cell, engine.lte, engine.C, engine.T,
-                engine.nH, cfg.compat)
-            del g_cell
-        _sync(populations)
-        timings.append(time.perf_counter() - t0)
+        with obs.iteration():
+            t0 = time.perf_counter()
+            S_old = S_new
+            J = None    # drop the previous J before the new J pass
+            if cfg.rates_site_chunk or engine.lam_group is not None:
+                # production-memory path: damping per lambda chunk inside
+                # compute_J, rates streamed over slabs -- the full damping
+                # cube never sits next to J; with a lambda group, the rates
+                # over the block, then summed over the ranks
+                g_cell = engine._gamma_cell(populations)
+                J = engine.compute_J(S_old, populations, None)
+                S_new = _update_S(line, engine.eps, J, engine.B0)
+                populations = _rates_and_populations_slabbed(
+                    line, J, g_cell, engine.lte, engine.C, engine.T,
+                    engine.nH, cfg.compat, cfg.rates_site_chunk,
+                    engine.lam_group, engine.lam_block.start)
+                del g_cell
+            else:
+                # the damping cube for the J pass; the rates take the
+                # per-cell gamma (one R1 launch over all of J's rows)
+                damping_lam = engine.damping_lam(populations)
+                J = engine.compute_J(S_old, populations, damping_lam)
+                del damping_lam
+                g_cell = engine._gamma_cell(populations)
+                S_new = _update_S(line, engine.eps, J, engine.B0)
+                populations = _rates_and_populations(
+                    line, J, g_cell, engine.lte, engine.C, engine.T,
+                    engine.nH, cfg.compat)
+                del g_cell
+            # the criterion's readback completes the iteration's work on
+            # the card: every kernel launches on torch's current stream
+            diff = _criterion(S_new, S_old, engine._world())
+            timings.append(time.perf_counter() - t0)
 
         if checkpoint is not None and i % cfg.checkpoint_every == 0:
             _write_state(engine, checkpoint, populations, S_new)
@@ -1029,10 +1065,12 @@ def _run_iteration_streamed(engine, checkpoint=None):
     i = 0
     diff = float("inf")
     while diff > cfg.eps and i < cfg.maxiter:
-        t0 = time.perf_counter()
-        S, populations, diff = engine.iterate_streamed(S, populations)
-        _sync(populations)
-        timings.append(time.perf_counter() - t0)
+        with obs.iteration():
+            t0 = time.perf_counter()
+            # ends in the criterion's readback, which completes the
+            # iteration's work on the card
+            S, populations, diff = engine.iterate_streamed(S, populations)
+            timings.append(time.perf_counter() - t0)
         convergence.append(diff)
         i += 1
         if np.isnan(diff):

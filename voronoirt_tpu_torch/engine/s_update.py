@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import layer
 from ..physics.planck import _HC_OVER_K, B_lambda, _LOG_2HC2_IUNIT
 
 # kernel launches so far (not counting the plain version)
@@ -66,6 +67,7 @@ def _check(S, Jc, eps, T, lam_c, start):
                          f"cells {cells}, got {tuple(S.shape)}")
 
 
+@layer("rates")
 def s_update_stream(S, Jc, eps, T, lam_c, start):
     """The S update of the chunk Jc (B,) + cells of J, rows [start, start
     + B) of S (nlam,) + cells, written into S in place: returns (S, m),

@@ -30,6 +30,7 @@ class GrazingLayerOrderWarning(UserWarning):
 # under 3 sweeps (docs/PARITY.md item 2; tests/test_sweep_voronoi.py)
 GRAZING_MU = 0.45
 
+from ..observability import count, span
 from .neighbors import (voronoi_neighbors, bfs_layers, topo_levels,
                         BOTTOM_WALL, TOP_WALL)
 
@@ -92,6 +93,7 @@ def delaunay_lines(positions, neighbours, bounds):
     return lines, valid
 
 
+@span("grid.build_sites")
 def build_sites(positions, bounds, fields, max_nb=32, n_threads=0,
                 cache_dir=None):
     """Run the native tessellation + layering and assemble VoronoiSites.
@@ -103,12 +105,16 @@ def build_sites(positions, bounds, fields, max_nb=32, n_threads=0,
     layers) is loaded from / saved to a content-addressed disk cache
     (grid/cache.py) -- the analog of the reference persisting and
     re-reading neighbours.txt (src/functions.jl:13-23, src/io.jl:8-40).
-    Delaunay unit vectors are cheap and recomputed either way.
+    Delaunay unit vectors are cheap and recomputed either way.  A cache
+    lookup counts grid.tessellation_hit or grid.tessellation_miss.
     """
     from . import cache as _cache
     skey = _cache.sites_key(positions, bounds)
     cached = (_cache.load_tessellation(cache_dir, skey)
               if cache_dir else None)
+    if cache_dir:
+        count("grid.tessellation_hit" if cached is not None
+              else "grid.tessellation_miss")
     if cached is not None:
         neighbours, lay_up, lay_dn = cached
     else:
@@ -377,7 +383,8 @@ def build_voronoi_plan(sites: VoronoiSites, k, up, p=7.0,
 
     cache_dir: when set (and the sites carry a content_key), the built
     plan is loaded from / saved to the disk cache (grid/cache.py), so
-    repeated production launches and crash resume skip the host build.
+    repeated production launches and crash resume skip the host build;
+    a lookup counts grid.plan_hit or grid.plan_miss.
 
     Upwind selection: for every site, the two neighbours whose Delaunay
     lines have the largest positive dot product with k; if the second
@@ -414,7 +421,9 @@ def build_voronoi_plan(sites: VoronoiSites, k, up, p=7.0,
         pkey = _cache.plan_key(sites.content_key, k, up, p, compat,
                                order, n_sweeps)
         hit = _cache.load_plan(cache_dir, pkey)
-        if hit is not None and hit["n"] == n:
+        found = hit is not None and hit["n"] == n
+        count("grid.plan_hit" if found else "grid.plan_miss")
+        if found:
             return VoronoiPlan(k=tuple(k), up=up, **hit)
 
     nb = sites.neighbours

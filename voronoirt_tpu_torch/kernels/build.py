@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..observability import span
+
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # -fmad=false: no multiply-add contraction, so the kernels round op by op
@@ -86,40 +88,16 @@ def library_path(flags: tuple = NVCC_FLAGS) -> Path:
 
 
 @functools.cache
+@span("kernels.load")
 def library(flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
-    """The kernels' shared library, built on first call.  The wrappers
+    """The kernels' shared library, built on first call (the spans
+    kernels.load, and kernels.build around an nvcc run).  The wrappers
     use the default flags; other flags build a variant beside it, for
     measurement (tools/profile_iteration.py)."""
     srcs, _ = _sources(flags)
     lib_path = library_path(flags)
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build into a private name, then rename: a concurrent build
-        # never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
-                compile_flags = [f for f in flags if f != "-shared"]
-                objs = [os.path.join(objdir, p.stem + ".o") for p in srcs]
-                procs = [subprocess.Popen(
-                    [_nvcc(), *compile_flags, "-c", "-o", o, str(p)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True) for p, o in zip(srcs, objs)]
-                logs = [proc.communicate()[0] for proc in procs]
-                failed = [f"{p.name}:\n{log}" for p, log, proc
-                          in zip(srcs, logs, procs) if proc.returncode != 0]
-                if not failed:
-                    link = subprocess.run([_nvcc(), *flags, "-o", tmp, *objs],
-                                          capture_output=True, text=True)
-                    if link.returncode != 0:
-                        failed = [link.stdout + link.stderr]
-                if failed:
-                    raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        _build(srcs, flags, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         for suffix in ("_f64", "_f32"):
@@ -127,6 +105,39 @@ def library(flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+@span("kernels.build")
+def _build(srcs, flags, lib_path):
+    """Compile each source with its own nvcc, all started together, and
+    link the objects into lib_path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build into a private name, then rename: a concurrent build
+    # never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            compile_flags = [f for f in flags if f != "-shared"]
+            objs = [os.path.join(objdir, p.stem + ".o") for p in srcs]
+            procs = [subprocess.Popen(
+                [_nvcc(), *compile_flags, "-c", "-o", o, str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for p, o in zip(srcs, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            failed = [f"{p.name}:\n{log}" for p, log, proc
+                      in zip(srcs, logs, procs) if proc.returncode != 0]
+            if not failed:
+                link = subprocess.run([_nvcc(), *flags, "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+                if link.returncode != 0:
+                    failed = [link.stdout + link.stderr]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def launch_fn(name: str, dtype):

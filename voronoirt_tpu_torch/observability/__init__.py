@@ -1,5 +1,9 @@
-"""Timings, throughput metrics and profiler traces."""
+"""Spans, timings, throughput metrics and profiler traces."""
 
-from .metrics import PhaseTimer, device_trace, nan_guard, throughput
+from .metrics import (RECORDER, PhaseTimer, count, device_trace, iteration,
+                      layer, nan_guard, report, reset, span, throughput,
+                      wait)
 
-__all__ = ["PhaseTimer", "device_trace", "nan_guard", "throughput"]
+__all__ = ["RECORDER", "PhaseTimer", "count", "device_trace", "iteration",
+           "layer", "nan_guard", "report", "reset", "span", "throughput",
+           "wait"]

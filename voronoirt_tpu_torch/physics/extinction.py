@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..constants import c_0, hc
+from ..observability import layer
 from .atom import line_of_sight_velocity
 from .broadening import damping
 from .voigt import _SLAB, _SQRT_PI, voigt_profile
@@ -263,6 +264,7 @@ def _launch_e1(line, lam, vel, populations, a_cont, g_cell, damp, out,
     return True
 
 
+@layer("extinction")
 def alpha_tot(line, lam, v_los, populations, a_cont=None, *, g_cell=None,
               damp=None):
     """Total extinction [m^-1] of the wavelengths lam (B,) for one
@@ -311,6 +313,7 @@ def _check_group(line, lam, velocity, ks, flips, populations, a_cont,
         raise ValueError("alpha_tot_group inputs must be contiguous")
 
 
+@layer("extinction")
 def alpha_tot_group(line, lam, velocity, ks, flips, populations,
                     a_cont=None, *, g_cell=None, damp=None):
     """A mirror group's extinction stack [m^-1], (nz, P B, nx, ny) for

@@ -26,7 +26,7 @@ import torch
 
 from ..constants import (h, c_0, e, eps_0, m_e, hc, R_inf, E_inf, IUNIT_SI,
                          k_B)
-
+from ..observability import layer
 from .extinction import voigt_rows, voigt_rows_plain
 from .broadening import damping
 from .collisions import coll_exc_hydrogen_johnson, coll_ion_hydrogen_johnson
@@ -169,6 +169,7 @@ def _chunk_windows(line, r0, n_rows):
     return out
 
 
+@layer("rates")
 def calculate_R_chunk(line, acc, J_blk, r0, g_cell, lte_pops,
                       temperature, compat="reference", lead=None):
     """Accumulate one lambda block's contribution to the rate integrals

@@ -34,6 +34,8 @@ import ctypes
 
 import torch
 
+from ..observability import layer
+
 # kernel launches so far (not counting the plain versions)
 EMIT_LAUNCHES = 0       # group_emit
 STACK_LAUNCHES = 0      # group_stack
@@ -127,6 +129,7 @@ def _check_emit(planes, steps, w, down_flags, unflips, J_up, J_dn):
     return steps, dirn
 
 
+@layer("group_emit")
 def group_emit(planes, steps, w, down_flags, unflips, J_up, J_dn):
     """Reduce a piece of swept planes over the group's angles into J.
 
@@ -163,6 +166,7 @@ def group_stack_plain(sources, flips):
                      dim=sources[0].dim() - 3)
 
 
+@layer("group_emit")
 def group_stack(sources, flips):
     """The group's stack of P flipped fields.
 
@@ -214,6 +218,7 @@ def group_fold_plain(Jc, J_up, J_dn):
     Jc.add_((J_up + torch.flip(J_dn, [0])).transpose(0, 1))
 
 
+@layer("group_emit")
 def group_fold(Jc, J_up, J_dn):
     """Jc[b, z] += J_up[z, b] + J_dn[nz - 1 - z, b]: a group's two J
     halves (canonical z order, the originally-down angles' z-flipped)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability import layer
 from .formal import linear_weights
 
 # kernel launches so far (not counting the plain versions)
@@ -244,6 +245,7 @@ def march_chain(scratch, f_line, line, *, march_axis, sign, s_base,
     return out
 
 
+@layer("march_plane")
 def march_plane(alpha_p, alpha_c, S_p, S_c, I_p, r, f_line, w_cur, c_prev,
                 *, march_axis, sign, s_base, n_sweeps):
     """One marching z-plane update; (B, Nx, Ny) planes in, new I plane out.

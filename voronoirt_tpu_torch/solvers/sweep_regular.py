@@ -55,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..observability import span, wait
 from .group_emit import flip_field, group_emit, group_fold, group_stack
 from .march_plane import march_plane
 from .xy_bezier import xy_bezier
@@ -217,7 +218,8 @@ def group_plans(ks, ups, z, dx, dy, max_group=None):
 def _per_element(vals, B_lam, ref):
     """P per-plan values (scalars, or per-step tuples of length L) ->
     (P*B_lam,) or (L, P*B_lam) tensor, each plan's value repeated over
-    its B_lam batch block."""
+    its B_lam batch block: on the card a copy from pageable host memory,
+    which waits for the card's queue (its callers count the waits)."""
     a = np.asarray(vals, dtype=np.float64)
     a = np.repeat(a.T if a.ndim == 2 else a, B_lam, axis=-1)
     return torch.as_tensor(np.ascontiguousarray(a), dtype=ref.dtype,
@@ -280,8 +282,12 @@ def _xy_segment_pieces(plan, seg, S, alpha, carry, r, fx, fy, emit):
                          fx[j0:j1], fy[j0:j1], plan.sxs, plan.sys,
                          buf[:j1 - j0])
         emit(seg.steps[j0:j1], out)
-        # the next piece reuses buf: carry a copy of its last plane
-        carry = out[-1].clone() if j1 < L else out[-1]
+        if j1 < L:
+            # the next piece reuses buf: carry a copy of its last plane
+            with span("engine.carry", out.device):
+                carry = out[-1].clone()
+        else:
+            carry = out[-1]
     return carry
 
 
@@ -322,9 +328,10 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                                        refill, direct)
             continue
         if seg.case == "xy":
-            r = _per_element([s.r for s in segs_p], B_lam, S)
-            fx = _per_element([s.fx for s in segs_p], B_lam, S)
-            fy = _per_element([s.fy for s in segs_p], B_lam, S)
+            with wait(3):
+                r = _per_element([s.r for s in segs_p], B_lam, S)
+                fx = _per_element([s.fx for s in segs_p], B_lam, S)
+                fy = _per_element([s.fy for s in segs_p], B_lam, S)
             if halo is None:
                 carry = _xy_segment_pieces(lead, seg, S, alpha, carry, r,
                                            fx, fy, emit)
@@ -337,22 +344,24 @@ def _sweep_batched_impl(plans, S, alpha, I0, n_sweeps, down_flags, emit,
                                         fx[j], fy[j], lead.sxs, lead.sys))
                 emit((t,), carry[None])
             continue
-        if seg.case == "yz":
-            f_line = _per_element([p.fy_line for p in plans], B_lam, S)
-            r = _per_element([p.r_x for p in plans], B_lam, S)
-            statics = dict(march_axis="x", sign=lead.sign_x,
-                           s_base=lead.sys, n_sweeps=n_sweeps)
-        else:
-            f_line = _per_element([p.fx_line for p in plans], B_lam, S)
-            r = _per_element([p.r_y for p in plans], B_lam, S)
-            statics = dict(march_axis="y", sign=lead.sign_y,
-                           s_base=lead.sxs, n_sweeps=n_sweeps)
-        # the xz centre quirk: originally-down angles read centre alpha/S
-        # from the upper plane = the prev plane in canonical (z-flipped)
-        # coordinates; a 0/1 per-element blend keeps mixed groups exact
-        c_prev = _per_element(
-            [float(d and seg.case == "xz") for d in down_flags], B_lam, S)
-        w_cur = _per_element([s.w_cur for s in segs_p], B_lam, S)
+        yz = seg.case == "yz"
+        statics = dict(march_axis="x" if yz else "y",
+                       sign=lead.sign_x if yz else lead.sign_y,
+                       s_base=lead.sys if yz else lead.sxs,
+                       n_sweeps=n_sweeps)
+        with wait(4):
+            f_line = _per_element([p.fy_line if yz else p.fx_line
+                                   for p in plans], B_lam, S)
+            r = _per_element([p.r_x if yz else p.r_y for p in plans], B_lam,
+                             S)
+            # the xz centre quirk: originally-down angles read centre
+            # alpha/S from the upper plane = the prev plane in canonical
+            # (z-flipped) coordinates; a 0/1 per-element blend keeps
+            # mixed groups exact
+            c_prev = _per_element(
+                [float(d and seg.case == "xz") for d in down_flags], B_lam,
+                S)
+            w_cur = _per_element([s.w_cur for s in segs_p], B_lam, S)
         if halo is None:
             for j, t in enumerate(seg.steps):
                 carry = march_plane(alpha[t - dirn], alpha[t], S[t - dirn],
@@ -436,7 +445,8 @@ def sweep_batched_J(plans, S, alpha, I0, w, n_sweeps=3, down_flags=None,
         unflips = tuple((False, False) for _ in plans)
     if down_flags is None:
         down_flags = tuple(not p.up for p in plans)
-    w = torch.as_tensor(w, dtype=S.dtype, device=S.device)
+    with wait():
+        w = torch.as_tensor(w, dtype=S.dtype, device=S.device)
     shape = (S.shape[0], B_lam) + tuple(S.shape[2:])
     J_up = torch.empty(shape, dtype=S.dtype, device=S.device)
     J_dn = torch.empty_like(J_up)

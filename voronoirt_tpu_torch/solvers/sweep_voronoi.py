@@ -54,6 +54,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..observability import span, wait
 from .voronoi_level import lean_weights, level_src_ew, voronoi_stage
 
 LEVEL_STEPS = 0
@@ -393,8 +394,10 @@ def _sweep_slots(stages, site_gather, n_rows, relax_tol, S_T, a_T, I0):
     each lap reads one scalar back.  S_T/a_T: (n, B) site-ordered
     fields.  Returns I as (n, B)."""
     B = S_T.shape[1]
-    I = torch.zeros((n_rows + 1, B), dtype=S_T.dtype, device=S_T.device)
-    I[:I0.shape[-1]] = I0.T
+    with span("engine.sweep_fill", S_T.device):
+        I = torch.zeros((n_rows + 1, B), dtype=S_T.dtype,
+                        device=S_T.device)
+        I[:I0.shape[-1]] = I0.T
     for sd in stages:
         if sd.kind != "relax":
             _run_stage(I, sd, S_T, a_T)
@@ -413,10 +416,12 @@ def _sweep_slots(stages, site_gather, n_rows, relax_tol, S_T, a_T, I0):
                 rel = _run_hoisted_lap_d(I, sd, hoist)
             else:
                 rel = _run_relax_lap(I, sd, S_T, a_T)
-            streak = streak + 1 if float(rel) <= relax_tol else 0
+            with wait():
+                streak = streak + 1 if float(rel) <= relax_tol else 0
             if streak >= 2:
                 break
-    return I.index_select(0, site_gather)
+    with span("engine.sweep_gather", I.device):
+        return I.index_select(0, site_gather)
 
 
 def sweep_voronoi_t(plan, S_T, a_T, I0, n_sweeps=3, relax_tol=0.0):

@@ -49,6 +49,7 @@ import functools
 
 import torch
 
+from ..observability import layer
 from .formal import linear_weights
 
 # V1 launches so far: one a stage or relax-lap call (not counting the
@@ -189,6 +190,7 @@ def _occupancy(device_index, dtype, hoisted, fold):
     return tuple(info)
 
 
+@layer("voronoi_level")
 def voronoi_stage(I, sd, S_T=None, a_T=None, lean=None, change=None,
                   hoisted=False):
     """Run one stage (or relax lap) `sd` on I in place: from the fields

@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..observability import layer
 from .xy_plane import xy_plane_plain
 
 # kernel launches so far (not counting the plain version)
@@ -100,6 +101,7 @@ def _check(alpha, S, I0, steps, dirn, r, fx, fy, out):
     return steps
 
 
+@layer("xy_segment")
 def xy_segment(alpha, S, I0, steps, dirn, r, fx, fy, sxs, sys, out):
     """Run the xy steps `steps` (t0, t0 + dirn, ...) of one segment from
     the carried plane I0, writing each new plane into out[j]; returns
