@@ -13,6 +13,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      stencil-shift / march-direction combination with mixed per-element
      geometry: xy_plane (K1 one plane a launch), and K2 as
      march_coeffs, march_chain and their composition march_plane; then
+     march_chain at the split march_plane.chain_split chooses (W warps
+     a line, a halo exchange every H steps) bit for bit against the
+     plain chain, float64 and float32, at B = 1, 13, 52, 124, 200 and
+     lines of 32, 100, 256, 512 and 2048 points, every stencil shift,
+     march axis and sign, and timed beside its bound at (B, 256, 256)
+     for B = 1, 13, 52, 124; then
      xy_segment (K1 a segment a launch) at the same shapes and a
      320x320 plane (its global placement) and a 6x1 one, over every
      shift pair, both directions and segment lengths 1, 2, 7 and 214,
@@ -369,6 +375,13 @@ PHASE2_SHAPES = ((4 * PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
                  (16, 256, 256), (5, 37, 29),
                  (PROD["lambda_chunk"], PROD["nx"], PROD["ny"]),
                  (1, PROD["nx"], PROD["ny"]))
+# phase 2: K2's chain split (march_plane.chain_split) held at these
+# batches and lines (a line of SPLIT_COLUMNS columns, 3 passes), and
+# timed at (B, 256, 256) for the batches of SPLIT_TIMED
+SPLIT_BATCHES = (1, 13, 52, 124, 200)
+SPLIT_LINES = (32, 100, 256, 512, 2048)
+SPLIT_COLUMNS = 80
+SPLIT_TIMED = (1, 13, 52, 124)
 # the kernels an unsplit linear regular sweep launches
 UNSPLIT = ("xy_segment", "march_plane", "march_coeffs", "march_chain")
 # phase 2: xy segment lengths held against the plain version and the
@@ -498,6 +511,84 @@ def check_kernels():
             for k in PLANE_KERNELS:
                 worst[dtype_name][k] = max(worst[dtype_name][k], err[k][0])
     return worst
+
+
+def _chain_scratch(gen, B, N, M, dtype):
+    """A march_chain scratch (B, N, line_pad(M), 2) made on the card:
+    coeff in [0, 1), const in [-0.3, 0.7), zero padding pairs; and f_line
+    with an exact 0 and 1 among its values."""
+    import torch
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+    u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda",
+                                  dtype=torch.float64)
+    scratch = torch.zeros((B, N, mp.line_pad(M), 2), dtype=dtype,
+                          device="cuda")
+    scratch[:, :, :M, 0] = u(B, N, M).to(dtype)
+    scratch[:, :, :M, 1] = (u(B, N, M) - 0.3).to(dtype)
+    f_line = u(B).to(dtype)
+    f_line[0] = 0.0
+    if B > 1:
+        f_line[-1] = 1.0
+    return scratch, f_line
+
+
+def check_march_split():
+    """Phase 2: march_chain at the split march_plane.chain_split chooses
+    (W warps a line, an exchange every H steps), bit for bit (max abs err
+    0) against march_chain_plain, float64 and float32, at every B of
+    SPLIT_BATCHES and line of SPLIT_LINES, every stencil shift, march axis
+    and sign; then a launch at (B, 256, 256), 3 passes, for B in
+    SPLIT_TIMED, beside the chain's bound.  Returns {dtype: max abs err}
+    and {B: (split, us, bound us)}."""
+    import torch
+    from voronoirt_tpu_torch.solvers import march_plane as mp
+
+    gen = torch.Generator(device="cuda").manual_seed(2022)
+    worst = {}
+    for dtype_name in TOL:
+        dtype = getattr(torch, dtype_name)
+        worst[dtype_name] = 0.0
+        for B in SPLIT_BATCHES:
+            for M in SPLIT_LINES:
+                N = SPLIT_COLUMNS
+                scratch, f_line = _chain_scratch(gen, B, N, M, dtype)
+                split = mp.chain_split(M)
+                for axis in ("x", "y"):
+                    for sign in (1, -1):
+                        for s_base in (0, -1):
+                            st = dict(march_axis=axis, sign=sign,
+                                      s_base=s_base, n_sweeps=3)
+                            got = mp.march_chain(scratch, f_line, M, **st)
+                            want = mp.march_chain_plain(scratch, f_line, M,
+                                                        **st)
+                            err = float((got - want).abs().max())
+                            require(bool(torch.isfinite(got).all()) and
+                                    err == 0.0,
+                                    f"march_chain split {split} at B={B} "
+                                    f"M={M} {axis} sign {sign} s_base "
+                                    f"{s_base} ({dtype_name}): max abs err "
+                                    f"{err:.3e} against the plain chain")
+                            worst[dtype_name] = max(worst[dtype_name], err)
+            print(f"  march_chain split ({dtype_name}) B={B}: lines "
+                  f"{SPLIT_LINES} at "
+                  + ", ".join(f"(W, H) = {mp.chain_split(M)}"
+                              for M in SPLIT_LINES)
+                  + f", max abs err {worst[dtype_name]:.1e} against the "
+                  "plain chain", flush=True)
+    times = {}
+    for B in SPLIT_TIMED:
+        n = PROD["nx"]
+        scratch, f_line = _chain_scratch(gen, B, n, PROD["ny"], torch.float64)
+        st = dict(march_axis="x", sign=-1, s_base=-1, n_sweeps=3)
+        split = mp.chain_split(PROD["ny"])
+        us = 1e3 * _time_ms(lambda: mp.march_chain(
+            scratch, f_line, PROD["ny"], **st), 20)
+        bound = 1e3 * _bounds(B, n, PROD["ny"])["march_chain"][0]
+        times[B] = (split, us, bound)
+        print(f"  march_chain (B={B}, {n}x{PROD['ny']}, float64, 3 passes): "
+              f"split {split} {us:.2f} us; bound {bound:.2f} us, "
+              f"{100 * bound / us:.1f} % of it", flush=True)
+    return worst, times
 
 
 def _seg_fields(gen, nz, B, nx, ny, dtype):
@@ -2686,10 +2777,13 @@ def _production_iteration(atmos, dtype_name):
     seconds, J-pass share, rate, peak memory and launch counts, and
     requires the shapes, finite values and a launch of every kernel.
     Returns (result, engine, launches, max |sum(populations)/n_H - 1|)."""
+    from collections import Counter
+
     import torch
     from voronoirt_tpu_torch import Config
     from voronoirt_tpu_torch.engine import RegularEngine
     from voronoirt_tpu_torch.physics.atom import lyman_alpha_line
+    from voronoirt_tpu_torch.solvers import march_plane as mp
 
     p = PROD
     t0 = time.perf_counter()
@@ -2725,9 +2819,17 @@ def _production_iteration(atmos, dtype_name):
     eng._J_chunk_grouped = timed_J
     torch.cuda.reset_peak_memory_stats()
     _launch_counts(reset=True)
+    splits = Counter(mp.CHAIN_SPLIT)
     res = eng.run()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    splits = dict(Counter(mp.CHAIN_SPLIT) - splits)
+    want_split = mp.chain_split(p["ny"])
+    print(f"  march_chain launches by split (W, H): {splits}", flush=True)
+    require(set(splits) == {want_split} and
+            splits[want_split] == launches["march_chain"],
+            f"the iteration's chain launches took splits {splits}, not "
+            f"only {want_split}")
 
     require(res.iterations == 1 and len(res.timings) == 1,
             f"expected 1 iteration, ran {res.iterations}")
@@ -4578,6 +4680,7 @@ def main(argv=None):
     if want(2):
         phase("phase 2: kernels vs plain versions on the card")
         errs = check_kernels()
+        split_errs, split_times = check_march_split()
         for d, e in check_xy_segment(PHASE2_SHAPES).items():
             errs[d]["xy_segment"] = e
         B52, B13 = 4 * PROD["lambda_chunk"], PROD["lambda_chunk"]
@@ -4743,7 +4846,12 @@ def main(argv=None):
                 "launches_f32_iteration": launches32[name],
                 "max_abs_err_f32_iteration": errs32.get(name),
                 **({"ms_a_step_214_planes": seg_steps}
-                   if name == "xy_segment" else {})}
+                   if name == "xy_segment" else {}),
+                **({"split": {"max_abs_err": split_errs, "us_by_B": {
+                    str(B): {"W_H": list(t[0]), "us": t[1],
+                             "bound_us": t[2]}
+                    for B, t in split_times.items()}}}
+                   if name == "march_chain" else {})}
                for name in SWEEP_KERNELS]
     # the extinction's kernels: what they replace is the JAX package's
     # jitted XLA program, not a Pallas kernel

@@ -3,7 +3,8 @@
 on one CUDA card at the production group-plane shape.
 
     python3 tools/profile_march.py [--B 52] [--n 256] [--reps 20]
-                                   [--ptxas] [--lines] [--out march.json]
+                                   [--ptxas] [--lines] [--splits]
+                                   [--out march.json]
 
 For each march axis ('x': yz case, 'y': xz case) and n_sweeps 1, 2 and 3,
 times march_plane with CUDA events (float64, sign -1, s_base -1, mixed
@@ -17,7 +18,12 @@ the function reads once and writes once over the card's 3.35 TB/s.
 the registers, shared memory and spills of every kernel.  --lines times
 march_chain alone at (B, n, M) for lines of M = 32 ... 512 points (1 to
 16 points a lane), float64 and float32, x march, 3 passes: the time of
-one column step against the work in it.
+one column step against the work in it.  --splits times march_chain
+alone at the split march_plane.chain_split chooses (W warps a line, a
+halo exchange every H steps) at (B, M) = (1, 256), (13, 256), (52,
+256), (124, 256), (52, 512) and (52, 100), n = 256 columns, 3 passes,
+both march axes and both stencil shifts, each plane held bit for bit
+against the plain version.
 
 Prints the card line (nvidia-smi name, power limit) and a summary;
 --out also writes it as JSON.
@@ -110,6 +116,49 @@ def step_times(B, n, reps):
     return out
 
 
+SPLIT_SHAPES = ((1, 256), (13, 256), (52, 256), (124, 256), (52, 512),
+                (52, 100))
+
+
+def split_times(n, reps):
+    """march_chain alone at its split: us a launch (mean of both axes and
+    both stencil shifts) at SPLIT_SHAPES, each plane bit-equal to the
+    plain version's."""
+    out = []
+    for B, m in SPLIT_SHAPES:
+        planes, geom = inputs(B, n, torch.float64, m=m)
+        cases = []
+        for axis in ("x", "y"):
+            for s_base in (0, -1):
+                st = dict(march_axis=axis, sign=-1, s_base=s_base)
+                ps = planes if axis == "x" else [p.transpose(1, 2)
+                                                 .contiguous() for p in planes]
+                scratch = mp.march_coeffs(*ps, *geom, **st)
+                want = mp.march_chain_plain(scratch, geom[1], m, n_sweeps=3,
+                                            **st)
+                cases.append((scratch, st, want))
+        split = mp.chain_split(m)
+        us, err = [], 0.0
+        for scratch, st, want in cases:
+            run = lambda: mp.march_chain(scratch, geom[1], m, n_sweeps=3,
+                                         **st)
+            err = max(err, float((run() - want).abs().max()))
+            us.append(1e3 * time_ms(run, reps))
+        mean = sum(us) / len(us)
+        row = {"B": B, "M": m, "W_H": list(split), "us": mean,
+               "us_by_case": us}
+        print(f"  march_chain B={B} M={m} W={split[0]} H={split[1]}: "
+              f"{mean:.2f} us a launch ({1e3 * mean / (3 * n):.1f} ns a "
+              f"step; x/s0 x/s-1 y/s0 y/s-1 "
+              + " ".join(f"{u:.2f}" for u in us)
+              + f"), max abs err vs plain {err:.1e}", flush=True)
+        if err != 0.0:
+            raise SystemExit(f"march_chain at B={B} M={m} is not "
+                             f"bit-equal to the plain chain: {err}")
+        out.append(row)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--B", type=int, default=52)
@@ -117,6 +166,7 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--lines", action="store_true")
+    ap.add_argument("--splits", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -173,6 +223,8 @@ def main():
                   flush=True)
     if args.lines:
         res["lines"] = step_times(B, n, args.reps)
+    if args.splits:
+        res["splits"] = split_times(n, args.reps)
     mean3 = sum(res["march_plane"][a]["ms"][3] for a in ("x", "y")) / 2
     res["mean_ms_n_sweeps_3"] = mean3
     res["pct_of_bound"] = 100 * bound["march_plane"] / mean3

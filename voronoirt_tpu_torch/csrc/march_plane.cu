@@ -1,6 +1,6 @@
 // One z-plane of the yz / xz in-plane march of the regular sweep, as two
 // kernels: march_coeffs (the pass-invariant precompute, over the whole
-// card) and march_chain (the sequential column chain, one warp a line).
+// card) and march_chain (the sequential column chain, W warps a line).
 //
 // Replaces the Pallas kernel voronoirt_tpu/solvers/pallas_march.py
 // (_march_kernel, reached from march_plane_pallas); the reference loop is
@@ -36,37 +36,66 @@
 //
 // march_chain runs the n_sweeps * N dependent column steps.  Its bound is
 // the latency of that chain: each step needs the previous line at
-// m + s_base and m + s_base + 1.  One warp owns one batch element's line
-// (one block of 32 threads; B blocks): lane l holds the points
-// m = 32 j + l, j < PPL, in registers, and each step's neighbours come
-// from the adjacent lane by __shfl_sync (PPL shuffles a step), with the
-// periodic wrap between lane 31 and lane 0 and, on a line shorter than
-// MP, between point M - 1 and point 0.  No barrier runs per step.  The
-// (coeff, const) rows stream through a ring of kStages shared-memory
-// stages with cp.async, kStages rows ahead of use; each lane copies and
-// reads only its own points, so cp.async.wait_group alone orders a row's
-// arrival, and the warp waits once every 4 rows.  The warp's copies, ring
-// reads and yz stores each touch 32 consecutive points.  In the xz case the last pass's lines collect in a
-// shared tile of up to 32 columns, double-buffered: a full tile drains
-// during the next tile's steps, a few rows a step, as runs of consecutive
-// y per x, so no store is strided by ny and none waits on a flush; tile
-// rows are an odd number of words apart, so the drain's reads do not
-// conflict on the banks.  The stencil
-// shift, the march axis and a ragged line are template parameters, and
-// the last pass, which writes the output, is a loop of its own, so the
-// other passes compile alike for both axes.
-// Lines of up to kMaxLine = 2048 points run in the same kernel with PPL
-// up to 64.
+// m + s_base and m + s_base + 1.  A block of W warps (W = 1, 4 or 8)
+// owns one batch element's line (B blocks).  Warp w owns the run of
+// RUN = MP / W points from w RUN, and also steps a halo of kHalo = 32
+// points on the run's upwind side: after it for s_base 0, before it for
+// s_base -1.  A step's point reads only itself and its upwind neighbour
+// in the line before, so k steps after the halo was exact its first
+// kHalo - k points still are: every kHalo steps each warp writes the
+// points of its run that the other warps' halos read (its first or last
+// kHalo) into an exchange line in shared memory, indexed by point and
+// double-buffered, the block meets at its one barrier (bar.sync over the
+// W warps), and each warp reloads its halo from the line.  Between
+// exchanges no warp waits on another.  The line is periodic: the halo
+// after the last run is the first run's head, and on a line shorter than
+// MP the halo after point M - 1 is point 0, as the point map pt(e) = (w
+// RUN + e - lead) mod M gives it; a warp whose run lies past M owns
+// nothing and only meets the barrier.  Lane l of a warp holds the points
+// e = 32 j + l of its stretch (its run and halo), j < SL = RUN / 32 + 1
+// (SL = PPL at W = 1), in registers, and each step's neighbours come from
+// the adjacent lane by __shfl_sync (SL shuffles a step); the slot at the
+// stretch's downwind end reads a wrapped lane and is stale until the
+// next exchange, as no owned point reads it before.  W = 1 is one warp a
+// line: the whole line in its lanes, the periodic wrap between lane 31
+// and lane 0 and, on a line shorter than MP, between point M - 1 and
+// point 0 (RAGGED), no barrier at all.  The (coeff, const) rows stream
+// through a ring of kStages shared-memory stages with cp.async, kStages
+// rows ahead of use; each warp has its own part of a stage and each lane
+// copies and reads only its own slots' pairs, so cp.async.wait_group
+// alone orders a row's arrival, and a warp waits once every 4 rows.  A
+// warp's copies, ring reads and yz stores each touch 32 consecutive
+// points.  In the xz case the last pass's lines collect in a shared tile
+// of up to 32 columns, double-buffered: a full tile drains during the
+// next tile's steps, a few rows a step, as runs of consecutive y per x,
+// so no store is strided by ny and none waits on a flush; each warp
+// drains the rows of its own run; tile rows are an odd number of words
+// apart, so the drain's reads do not conflict on the banks.  The stencil
+// shift, the march axis, W and a ragged one-warp line are template
+// parameters, and the last pass, which writes the output, is a loop of
+// its own, so the other passes compile alike for both axes.  Lines of up
+// to kMaxLine = 2048 points run in the same kernel with PPL up to 64.
+//
+// W is a function of the line: solvers/march_plane.py chain_split
+// chooses W = min(8, PPL) from PPL 4 and one warp below, and the
+// launcher refuses any other (VRT_CHAIN_SPLITS lists the instances
+// built).  On the H100 (PERF.md §6, K2b by split, measured with W = 2
+// and 4 built too and the halo a launch argument) a step at 256 points
+// cost about 235 ns at W = 1 and 2, 177 at W = 4 and 170 at W = 8, at B =
+// 1, 13 and 52, and about 215 at W = 4 and 8 against 245 at B = 124; an
+// exchange every step cost more than the split saved, and a halo of 32,
+// the widest one extra slot a lane holds, was the fastest or within 4 %
+// of it.  What is left of a step is its latency: the shuffles, the four
+// dependent float64 operations and, in the xz case, the drain; a ring of
+// bulk (TMA) copies and reads a step ahead were measured and bought
+// nothing.  At B = 124 the chain reads its scratch n_sweeps times from
+// HBM (390 MB a launch at 256 x 256) and HBM sets its pace.
 //
 // Why points are strided over the lanes, not contiguous runs of PPL with
 // one shuffle a step: the contiguous layout's per-lane copies touch 32
 // lines an instruction, and with coalesced copies into a permuted ring
 // plus one __syncwarp a step it measured no faster on the H100 than this
-// layout.  At one point a lane a step still costs over a third of what
-// it costs at eight, and float32 saves a third at eight points and little
-// below (tools/profile_march.py --lines): most of a step is its latency,
-// not its arithmetic or its bytes.  B warps under-fill the 132 SMs at production (B = 52); filling
-// them means launching several groups' planes together, later work.
+// layout.
 //
 // Rounding: op for op the plain version's order, built with -fmad=false:
 // (1 - f) lo + f hi, then coeff * LI + const as a multiply and an add.
@@ -76,6 +105,9 @@ constexpr int kMaxLine = 2048;
 constexpr int kTile = 32;        // march_coeffs: a 32 x 32 tile a block
 constexpr int kTileRows = 4;     // of 32 x 4 threads, 8 points a thread
 constexpr int kRingBytes = 131072;   // march_chain: row ring budget
+constexpr int kSmemMax = 232448;     // shared memory a block may have (227 KB)
+constexpr int kHalo = 32;   // march_chain at W > 1: halo points, and steps
+                            // between exchanges
 
 template <typename T> struct PairOf;
 template <> struct PairOf<double> { using type = double2; };
@@ -179,14 +211,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
 }
 
-template <typename T, int PPL>
+template <typename T, int PPL, int W>
 struct ChainShape {
   using P = typename PairOf<T>::type;
   static constexpr int kMP = 32 * PPL;                    // padded line
-  static constexpr int kRowBytes = kMP * (int)sizeof(P);
-  static constexpr int kStagesRaw = kRingBytes / kRowBytes;
-  static constexpr int kStages =
-      kStagesRaw > 16 ? 16 : (kStagesRaw < 2 ? 2 : kStagesRaw);
+  // a warp's run of the line, and the slots a lane holds: the whole line
+  // at W = 1, else the run and its halo, one slot a lane
+  static constexpr int kRun = kMP / W;
+  static constexpr int kSL = W == 1 ? PPL : kRun / 32 + kHalo / 32;
+  static constexpr int kRowBytes = W * 32 * kSL * (int)sizeof(P);
   // xz last pass: two tiles of kTileCols columns, one row of kMP points
   // a column, rows an odd number of T apart; 66 KB a tile up to 256
   // points a line, 32.5 KB above, so ring and tiles fit in 227 KB
@@ -196,58 +229,97 @@ struct ChainShape {
       kTileBytes / (kTileStride * (int)sizeof(T));
   static constexpr int kTileCols =
       kTileColsRaw > 32 ? 32 : (kTileColsRaw < 1 ? 1 : kTileColsRaw);
-  // rows drained a step: a tile drains in kTileCols steps up to 256
-  // points a line (at most 16 rows a step, held in registers)
-  static constexpr int kDrainRaw = (kMP + kTileCols - 1) / kTileCols;
+  static constexpr int kTilesBytes =
+      2 * kTileCols * kTileStride * (int)sizeof(T);
+  // W > 1: the exchange line, double-buffered, indexed by point
+  static constexpr int kXBytes = W == 1 ? 0 : 2 * kMP * (int)sizeof(T);
+  static constexpr int kRingBudget =
+      W == 1 || kRingBytes <= kSmemMax - kTilesBytes - kXBytes
+          ? kRingBytes : kSmemMax - kTilesBytes - kXBytes;
+  static constexpr int kStagesRaw = kRingBudget / kRowBytes;
+  static constexpr int kStages =
+      kStagesRaw > 16 ? 16 : (kStagesRaw < 2 ? 2 : kStagesRaw);
+  // rows a warp drains a step: its run's tile drains in kTileCols steps
+  // up to 256 points a run (at most 16 rows a step, held in registers)
+  static constexpr int kDrainRaw = (kRun + kTileCols - 1) / kTileCols;
   static constexpr int kDrainRows = kDrainRaw > 16 ? 16 : kDrainRaw;
-  static constexpr size_t kSmem = (size_t)kStages * kRowBytes +
-      2 * (size_t)kTileCols * kTileStride * sizeof(T);
+  static constexpr size_t kSmem =
+      (size_t)kStages * kRowBytes + kTilesBytes + kXBytes;
+  static_assert(W == 1 || kRun >= kHalo, "a run holds its neighbour's halo");
+  static_assert(kHalo == 32, "the halo is one slot a lane");
+  static_assert(kSmem <= (size_t)kSmemMax, "shared memory of a block");
 };
 
-template <typename T, int PPL, bool RAGGED, int S_BASE, bool MARCH_X>
-__global__ void __launch_bounds__(32)
+template <typename T, int PPL, int W, bool RAGGED, int S_BASE, bool MARCH_X>
+__global__ void __launch_bounds__(32 * W)
 march_chain_kernel(const T* __restrict__ scratch,
                    const T* __restrict__ f_line, T* __restrict__ out,
                    int nx, int ny, int sign, int n_sweeps) {
-  using Shape = ChainShape<T, PPL>;
+  using Shape = ChainShape<T, PPL, W>;
   using P = typename Shape::P;
   constexpr int MP = Shape::kMP;
+  constexpr int RUN = Shape::kRun;
+  constexpr int SL = Shape::kSL;
+  constexpr int E = 32 * SL;                 // a warp's slots
   constexpr int S = Shape::kStages;
   constexpr int TS = Shape::kTileStride;
   constexpr int TW = Shape::kTileCols;
   constexpr unsigned kFull = 0xffffffffu;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  P* ring = reinterpret_cast<P*>(smem_raw);                // [S][MP]
-  T* tiles = reinterpret_cast<T*>(ring + (size_t)S * MP);  // [2][TW][TS]
+  P* ring = reinterpret_cast<P*>(smem_raw);                  // [S][W][E]
+  T* tiles = reinterpret_cast<T*>(ring + (size_t)S * W * E);  // [2][TW][TS]
+  T* xline = tiles + 2 * TW * TS;                             // [2][MP]
 
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
   const int b = blockIdx.x;
   const int N = MARCH_X ? nx : ny;
   const int M = MARCH_X ? ny : nx;
   const long long base = (long long)b * nx * ny;
-  // this lane's points of a row: m = j * 32 + lane, j < PPL
-  const P* rows = reinterpret_cast<const P*>(scratch) +
-                  (long long)b * N * MP + lane;
+  const P* rows = reinterpret_cast<const P*>(scratch) + (long long)b * N * MP;
   const T f = f_line[b];
   const T omf = T(1) - f;
   const int steps = n_sweeps * N;
   const int first_last = steps - N;          // first step of the last pass
 
+  // warp w's slots: slot j of a lane is point e = 32 j + lane of the
+  // warp's stretch, which is the line point pt(e) = (w RUN + e - lead)
+  // mod M.  The warp owns the points of its run, e in [lead, lead +
+  // n_own); the kHalo points on the upwind side of it are its halo, after
+  // the run for S_BASE 0 (lead 0), before it for S_BASE -1 (lead kHalo).
+  // At W = 1 the stretch is the line, lead 0, and pt(e) = e
+  const int start = w * RUN;
+  const int lead = W > 1 && S_BASE != 0 ? kHalo : 0;
+  const int n_own = W == 1 ? M : (M - start < 0 ? 0 : (M - start < RUN
+                                                        ? M - start : RUN));
+  const int h_lo = S_BASE == 0 ? n_own : 0;
+  // the points of the run the other warps' halos read: its first kHalo
+  // (S_BASE 0) or its last kHalo (S_BASE -1)
+  const int n_x = kHalo < n_own ? kHalo : n_own;
+  const int x_lo = S_BASE == 0 ? 0 : lead + n_own - n_x;
+  int pt[SL];
+#pragma unroll
+  for (int j = 0; j < SL; ++j) {
+    const int m = (start + 32 * j + lane - lead) % M;
+    pt[j] = W == 1 ? 32 * j + lane : (m < 0 ? m + M : m);
+  }
+
   // point M - 1, where the line wraps to point 0: lane 31's last slot
-  // unless the line is RAGGED (shorter than MP)
+  // unless the line is RAGGED (shorter than MP; W = 1 only)
   const int wrap_lane = (M - 1) % 32, wrap_slot = (M - 1) / 32;
   const int src_next = (lane + 1) & 31, src_prev = (lane + 31) & 31;
 
-  // issue the next row into its ring stage (an empty group past the end)
+  // issue the next row into its ring stage (an empty group past the end):
+  // each lane copies the pairs of its own slots
   int n_issue = 0, i_issue = 0;              // i_issue = n_issue % N
   auto issue = [&]() {
     if (n_issue < steps) {
       const int c = sign > 0 ? i_issue : N - 1 - i_issue;
       const P* src = rows + (long long)c * MP;
-      P* dst = ring + (n_issue % S) * MP + lane;
+      P* dst = ring + ((n_issue % S) * W + w) * E + lane;
 #pragma unroll
-      for (int j = 0; j < PPL; ++j)
-        cp_async_pair<sizeof(P)>(dst + j * 32, src + j * 32);
+      for (int j = 0; j < SL; ++j)
+        cp_async_pair<sizeof(P)>(dst + j * 32, src + pt[j]);
     }
     cp_async_commit();
     ++n_issue;
@@ -257,10 +329,12 @@ march_chain_kernel(const T* __restrict__ scratch,
   // xz case: the last pass's lines collect in tile g % 2 for the columns
   // of tile group g, and the full tile g - 1 drains during group g, a
   // few rows a step: lane cc writes column clo + cc, so every store is a
-  // run of w consecutive y at one x
+  // run of consecutive y at one x.  A warp drains the rows of its own
+  // run, so only __syncwarp orders a tile's writes and reads
   constexpr int R = Shape::kDrainRows;
+  const int d_end = start + n_own;           // past the warp's last row
   const T* d_tile = tiles;                   // the tile draining
-  int d_m = M, d_clo = 0, d_w = 0;           // its next row, columns
+  int d_m = d_end, d_clo = 0, d_w = 0;       // its next row, columns
   auto drain = [&]() {                       // its next R rows: all loads
     if (lane < d_w) {                        // first, then all stores
       const T* trow = d_tile + (sign > 0 ? lane : d_w - 1 - lane) * TS;
@@ -268,30 +342,32 @@ march_chain_kernel(const T* __restrict__ scratch,
       T vals[R];
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        vals[r] = d_m + r < M ? trow[d_m + r] : T(0);
+        vals[r] = d_m + r < d_end ? trow[d_m + r] : T(0);
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        if (d_m + r < M) ocol[(long long)r * ny] = vals[r];
+        if (d_m + r < d_end) ocol[(long long)r * ny] = vals[r];
     }
-    d_m = d_m + R < M ? d_m + R : M;
+    d_m = d_m + R < d_end ? d_m + R : d_end;
   };
-  // start draining tile group g (its first step g0, its w columns)
-  auto start_drain = [&](int g0, int w) {
+  // start draining tile group g (its first step g0, its `cols` columns)
+  auto start_drain = [&](int g0, int cols) {
     d_tile = tiles + ((g0 / TW) & 1) * TW * TS;
-    d_clo = sign > 0 ? g0 : N - g0 - w;
-    d_w = w;
-    d_m = 0;
+    d_clo = sign > 0 ? g0 : N - g0 - cols;
+    d_w = cols;
+    d_m = start;
   };
 
   for (int k = 0; k < S; ++k) issue();
 
-  T v[PPL];
+  T v[SL];
 #pragma unroll
-  for (int j = 0; j < PPL; ++j) v[j] = T(0);
+  for (int j = 0; j < SL; ++j) v[j] = T(0);
 
-  // one column step: the line buffer v from row n of the ring
+  // one column step: the stretch v from row n of the ring.  At W > 1
+  // the slot past the stretch's downwind end takes a wrapped lane's
+  // value: it is stale, and no owned point reads it before an exchange
   auto step = [&](int n) {
-    const P* st = ring + (n % S) * MP + lane;
+    const P* st = ring + ((n % S) * W + w) * E + lane;
     if (S_BASE == 0) {
       // point m + 1: lane + 1's same slot; lane 31 takes lane 0's next
       // slot; point M - 1 takes point 0.  Ascending j, so every value
@@ -299,9 +375,9 @@ march_chain_kernel(const T* __restrict__ scratch,
       const T p0 = RAGGED ? __shfl_sync(kFull, v[0], 0) : T(0);
       const T v0 = v[0];
 #pragma unroll
-      for (int j = 0; j < PPL; ++j) {
+      for (int j = 0; j < SL; ++j) {
         T hi = __shfl_sync(
-            kFull, lane == 0 ? (j + 1 < PPL ? v[j + 1] : v0) : v[j],
+            kFull, lane == 0 ? (j + 1 < SL ? v[j + 1] : v0) : v[j],
             src_next);
         if (RAGGED && lane == wrap_lane && j == wrap_slot) hi = p0;
         const P ck = st[j * 32];
@@ -315,13 +391,13 @@ march_chain_kernel(const T* __restrict__ scratch,
       T pm = v[0];
       if (RAGGED) {
 #pragma unroll
-        for (int j = 1; j < PPL; ++j)
+        for (int j = 1; j < SL; ++j)
           if (j == wrap_slot) pm = v[j];
         pm = __shfl_sync(kFull, pm, wrap_lane);
       }
-      const T vl = v[PPL - 1];
+      const T vl = v[SL - 1];
 #pragma unroll
-      for (int j = PPL - 1; j >= 0; --j) {
+      for (int j = SL - 1; j >= 0; --j) {
         T lo = __shfl_sync(
             kFull, lane == 31 ? (j > 0 ? v[j - 1] : vl) : v[j], src_prev);
         if (RAGGED && lane == 0 && j == 0) lo = pm;
@@ -332,45 +408,80 @@ march_chain_kernel(const T* __restrict__ scratch,
     }
   };
 
+  // W > 1: after kHalo steps a halo is exact no more, so every kHalo
+  // steps each warp puts the points the others' halos read into the
+  // exchange line, the block's warps meet at one barrier, and each warp
+  // reloads its halo.  The line alternates between two buffers, so a
+  // warp may write the next one while another still reads this one
+  int since = 0, x_buf = 0;
+  auto exchange = [&]() {
+    T* xl = xline + x_buf * MP;
+    x_buf ^= 1;
+#pragma unroll
+    for (int j = 0; j < SL; ++j)
+      if ((unsigned)(32 * j + lane - x_lo) < (unsigned)n_x) xl[pt[j]] = v[j];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SL; ++j)
+      if (n_own > 0 && (unsigned)(32 * j + lane - h_lo) < (unsigned)kHalo)
+        v[j] = xl[pt[j]];
+  };
+  auto next_step = [&](int n) {
+    if (W > 1) {
+      if (since == kHalo) {
+        exchange();
+        since = 0;
+      }
+      ++since;
+    }
+    step(n);
+  };
+  // is slot j of this lane one of the warp's own points
+  auto owned = [&](int j) {
+    return (unsigned)(32 * j + lane - lead) < (unsigned)n_own;
+  };
+
   // the ring is waited on once every K steps: rows n .. n + K - 1 have
   // landed when the wait returns
   constexpr int K = S >= 8 ? 4 : 1;
   int n = 0;
   for (; n < first_last; ++n) {              // every pass but the last
     if (n % K == 0) cp_async_wait<S - K>();
-    step(n);
+    next_step(n);
     issue();
   }
   for (int i = 0; i < N; ++i, ++n) {         // the last pass, with output
     if (n % K == 0) cp_async_wait<S - K>();
-    step(n);
+    next_step(n);
     if (MARCH_X) {                           // yz: the line is a row of y
       const int c = sign > 0 ? i : N - 1 - i;
-      T* orow = out + base + (long long)c * ny;
+      T* orow = out + base + (long long)c * ny + start - lead;
 #pragma unroll
-      for (int j = 0; j < PPL; ++j)
-        if (j * 32 + lane < M) orow[j * 32 + lane] = v[j];
+      for (int j = 0; j < SL; ++j)
+        if (owned(j)) orow[j * 32 + lane] = v[j];
     } else {                                 // xz: collect, and drain
       const int slot = i % TW;               // step in its tile group
       if (slot == 0 && i > 0) {              // the group before is full
-        while (d_m < M) drain();             // (the one before drains)
+        while (d_m < d_end) drain();         // (the one before drains)
         __syncwarp();
         start_drain(i - TW, TW);
       }
-      T* trow = tiles + ((i / TW) & 1) * TW * TS + slot * TS + lane;
+      T* trow = tiles + ((i / TW) & 1) * TW * TS + slot * TS + start - lead +
+                lane;
 #pragma unroll
-      for (int j = 0; j < PPL; ++j) trow[j * 32] = v[j];
-      if (d_m < M) drain();
+      for (int j = 0; j < SL; ++j)
+        if (owned(j)) trow[j * 32] = v[j];
+      if (d_m < d_end) drain();
     }
     issue();
   }
   cp_async_wait<0>();
   if (!MARCH_X) {                            // the last group, and the one
-    while (d_m < M) drain();                 // before if it was short
+    while (d_m < d_end) drain();             // before if it was short
     __syncwarp();
     const int g_last = (N - 1) - (N - 1) % TW;
     start_drain(g_last, N - g_last);
-    while (d_m < M) drain();
+    while (d_m < d_end) drain();
   }
 }
 
@@ -395,64 +506,69 @@ static int launch_coeffs(const T* a_p, const T* a_c, const T* s_p,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int PPL, bool RAGGED, int S_BASE, bool MARCH_X>
+template <typename T, int PPL, int W, bool RAGGED, int S_BASE, bool MARCH_X>
 static int launch_chain_cfg(const T* scratch, const T* f_line, T* out, int B,
                             int nx, int ny, int sign, int n_sweeps,
                             void* stream) {
-  const size_t smem = ChainShape<T, PPL>::kSmem;
-  auto kernel = march_chain_kernel<T, PPL, RAGGED, S_BASE, MARCH_X>;
+  const size_t smem = ChainShape<T, PPL, W>::kSmem;
+  auto kernel = march_chain_kernel<T, PPL, W, RAGGED, S_BASE, MARCH_X>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, 32, smem, (cudaStream_t)stream>>>(scratch, f_line, out, nx, ny,
-                                                 sign, n_sweeps);
+  kernel<<<B, 32 * W, smem, (cudaStream_t)stream>>>(scratch, f_line, out, nx,
+                                                     ny, sign, n_sweeps);
   return (int)cudaGetLastError();
 }
 
 // the stencil shift, the march axis and a line shorter than MP are
-// compile-time: as runtime branches they cost the chain 10 % a step
-template <typename T, int PPL>
-static int launch_chain_ppl(const T* scratch, const T* f_line, T* out, int B,
-                            int nx, int ny, bool ragged, int march_x,
-                            int sign, int s_base, int n_sweeps,
-                            void* stream) {
+// compile-time: as runtime branches they cost the chain 10 % a step.  A
+// split line (W > 1) reaches its wrap through pt(), so its ragged lines
+// run the full lines' instance
+template <typename T, int PPL, int W>
+static int launch_chain_split(const T* scratch, const T* f_line, T* out,
+                              int B, int nx, int ny, bool ragged,
+                              int march_x, int sign, int s_base,
+                              int n_sweeps, void* stream) {
   using Launch = int (*)(const T*, const T*, T*, int, int, int, int, int,
                          void*);
+  constexpr bool RG = W == 1;
   static constexpr Launch table[2][2][2] = {
-      {{launch_chain_cfg<T, PPL, false, 0, false>,
-        launch_chain_cfg<T, PPL, false, 0, true>},
-       {launch_chain_cfg<T, PPL, false, -1, false>,
-        launch_chain_cfg<T, PPL, false, -1, true>}},
-      {{launch_chain_cfg<T, PPL, true, 0, false>,
-        launch_chain_cfg<T, PPL, true, 0, true>},
-       {launch_chain_cfg<T, PPL, true, -1, false>,
-        launch_chain_cfg<T, PPL, true, -1, true>}}};
+      {{launch_chain_cfg<T, PPL, W, false, 0, false>,
+        launch_chain_cfg<T, PPL, W, false, 0, true>},
+       {launch_chain_cfg<T, PPL, W, false, -1, false>,
+        launch_chain_cfg<T, PPL, W, false, -1, true>}},
+      {{launch_chain_cfg<T, PPL, W, RG, 0, false>,
+        launch_chain_cfg<T, PPL, W, RG, 0, true>},
+       {launch_chain_cfg<T, PPL, W, RG, -1, false>,
+        launch_chain_cfg<T, PPL, W, RG, -1, true>}}};
   return table[ragged][s_base != 0][march_x != 0](scratch, f_line, out, B,
                                                   nx, ny, sign, n_sweeps,
                                                   stream);
 }
 
+// the (PPL, W) pairs built, one W a line: solvers/march_plane.py
+// chain_split's choice; a launch at any other W is refused
+#define VRT_CHAIN_SPLITS(X)                                                \
+  X(1, 1) X(2, 1) X(4, 4) X(8, 8) X(16, 8) X(32, 8) X(64, 8)
+
 template <typename T>
 static int launch_chain(const T* scratch, const T* f_line, T* out, int B,
                         int nx, int ny, int mp, int march_x, int sign,
-                        int s_base, int n_sweeps, void* stream) {
+                        int s_base, int n_sweeps, int w, void* stream) {
   if (B == 0 || nx == 0 || ny == 0) return 0;
   const int M = march_x ? ny : nx;
   if (M > kMaxLine || mp < M || mp > 32 * 64 || mp % 32 != 0 ||
       (s_base != 0 && s_base != -1))
     return (int)cudaErrorInvalidValue;
   const bool ragged = M != mp;
-#define VRT_CHAIN(PPL)                                                     \
-  case PPL:                                                                \
-    return launch_chain_ppl<T, PPL>(scratch, f_line, out, B, nx, ny,       \
-                                    ragged, march_x, sign, s_base,         \
-                                    n_sweeps, stream);
-  switch (mp / 32) {
-    VRT_CHAIN(1) VRT_CHAIN(2) VRT_CHAIN(4) VRT_CHAIN(8) VRT_CHAIN(16)
-    VRT_CHAIN(32) VRT_CHAIN(64)
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define VRT_CHAIN(PPL, W)                                                  \
+  if (mp == 32 * PPL && w == W)                                            \
+    return launch_chain_split<T, PPL, W>(scratch, f_line, out, B, nx, ny,  \
+                                         ragged, march_x, sign, s_base,    \
+                                         n_sweeps, stream);
+  VRT_CHAIN_SPLITS(VRT_CHAIN)
 #undef VRT_CHAIN
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int vrt_march_coeffs_f64(
@@ -479,16 +595,16 @@ extern "C" int vrt_march_coeffs_f32(
 extern "C" int vrt_march_chain_f64(const double* scratch,
                                    const double* f_line, double* out, int B,
                                    int nx, int ny, int mp, int march_x,
-                                   int sign, int s_base, int n_sweeps,
+                                   int sign, int s_base, int n_sweeps, int w,
                                    void* stream) {
   return launch_chain<double>(scratch, f_line, out, B, nx, ny, mp, march_x,
-                              sign, s_base, n_sweeps, stream);
+                              sign, s_base, n_sweeps, w, stream);
 }
 
 extern "C" int vrt_march_chain_f32(const float* scratch, const float* f_line,
                                    float* out, int B, int nx, int ny, int mp,
                                    int march_x, int sign, int s_base,
-                                   int n_sweeps, void* stream) {
+                                   int n_sweeps, int w, void* stream) {
   return launch_chain<float>(scratch, f_line, out, B, nx, ny, mp, march_x,
-                             sign, s_base, n_sweeps, stream);
+                             sign, s_base, n_sweeps, w, stream);
 }

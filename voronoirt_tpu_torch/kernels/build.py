@@ -44,7 +44,7 @@ _SIGNATURES = {
     "vrt_xy_bezier_segment": [_P] * 5 + [_I] * 9 + [_P],
     "vrt_xy_bezier_segment_info": [_I] * 2 + [_P],
     "vrt_march_coeffs": [_P] * 10 + [_I] * 7 + [_P],
-    "vrt_march_chain": [_P] * 3 + [_I] * 8 + [_P],
+    "vrt_march_chain": [_P] * 3 + [_I] * 9 + [_P],
     "vrt_xy_segment": [_P] * 7 + [_I] * 8 + [_P],
     "vrt_xy_segment_info": [_I] * 2 + [_P],
     "vrt_alpha_tot": [_P] * 8 + [_I] * 7 + [_P] * 2 + [_D] * 7 + [_P],

@@ -22,31 +22,51 @@ I_new = coeff LI(buf) + const, in two kernels (csrc/march_plane.cu):
   along the march, point along the line, the pair (coeff, const) last;
   the line padded to MP = line_pad(M) points with zero pairs;
 - march_chain: the n_sweeps * N sequential column steps on that scratch,
-  one warp a line, rows prefetched into shared memory, no barrier a step.
+  a block of W warps a line, rows prefetched into shared memory.  Warp w
+  owns the run of P = MP / W points from w P, and also steps a halo of
+  H = 32 points on the run's upwind side (after it for s_base 0, before
+  it for -1): a step's point reads only itself and one neighbour of the
+  line before, so after k steps the halo's first H - k points are still
+  exact.  Every H steps the warps swap the points their neighbours'
+  halos need through shared memory, at one barrier; between those no
+  warp waits on another, and a lane holds P / 32 + 1 points instead of
+  MP / 32.  (W, H) = (1, 0) is one warp a line, the whole line in its
+  lanes, no barrier at all.
 
 march_plane is their composition.  Each has its plain version here
 (march_coeffs_plain, march_chain_plain, march_plane_plain), with the
-kernel's arithmetic in the kernel's order.
+kernel's arithmetic in the kernel's order; the split changes which warp
+computes a point, not how, so the chain is bit-equal at every (W, H).
+
+chain_split(M) chooses (W, H) from the line alone (the table in PERF.md
+§6, K2b by split); the kernel library builds that W for each line and
+refuses any other.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  LAUNCHES counts march_plane calls that launched
 the kernels; COEFFS_LAUNCHES and CHAIN_LAUNCHES count each kernel's
-launches.
+launches, CHAIN_SPLIT the chain's launches by (W, H), which
+observability.report() also shows among its counts, as
+"march_plane.CHAIN_SPLIT.W8 H32".
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from ..observability import layer
+from ..observability import count, layer
 from .formal import linear_weights
 
 # kernel launches so far (not counting the plain versions)
 LAUNCHES = 0
 COEFFS_LAUNCHES = 0
 CHAIN_LAUNCHES = 0
+CHAIN_SPLIT = Counter()   # chain launches by (W, H)
 
 MAX_LINE = 2048   # csrc/march_plane.cu kMaxLine
+HALO = 32         # csrc/march_plane.cu kHalo
 
 
 def line_pad(M):
@@ -129,6 +149,20 @@ def march_plane_plain(alpha_p, alpha_c, S_p, S_c, I_p, r, f_line, w_cur,
     line = alpha_c.shape[-1 if march_axis == "x" else -2]
     return march_chain_plain(scratch, f_line, line, march_axis=march_axis,
                              sign=sign, s_base=s_base, n_sweeps=n_sweeps)
+
+
+def chain_split(M):
+    """(W, H) of march_chain for lines of M points: warps a line, and
+    steps between the warps' exchanges: the widest split, W = min(8,
+    MP / 32), with the halo of HALO points.  On the H100 it was the
+    fastest, or within 4 % of it, of W = 1, 2, 4, 8 and H = 1, 8, 16, 32
+    at every (B, M) measured (PERF.md §6, K2b by split), B from 1 to 124:
+    a block runs on one SM whatever B is, so B does not enter.  Lines of
+    up to 64 points stay one warp: a split warp would hold as many
+    slots."""
+    ppl = line_pad(M) // 32
+    W = min(8, ppl) if ppl >= 4 else 1
+    return (W, HALO) if W > 1 else (1, 0)
 
 
 def _check_statics(march_axis, sign, s_base, n_sweeps=1):
@@ -231,6 +265,7 @@ def march_chain(scratch, f_line, line, *, march_axis, sign, s_base,
     if not _on_card([scratch, f_line], "march_chain"):
         return march_chain_plain(scratch, f_line, line, **statics)
     _check_line(line)
+    split = chain_split(line)
     from ..kernels import build
     nx, ny = (N, line) if march_axis == "x" else (line, N)
     out = torch.empty((B, nx, ny), dtype=scratch.dtype, device=scratch.device)
@@ -238,9 +273,12 @@ def march_chain(scratch, f_line, line, *, march_axis, sign, s_base,
     global CHAIN_LAUNCHES
     with torch.cuda.device(scratch.device):
         CHAIN_LAUNCHES += 1
+        CHAIN_SPLIT[split] += 1
+        count("march_plane.CHAIN_SPLIT.W%d H%d" % split)
         err = fn(scratch.data_ptr(), f_line.data_ptr(), out.data_ptr(), B,
                  nx, ny, mp, int(march_axis == "x"), int(sign), int(s_base),
-                 int(n_sweeps), torch.cuda.current_stream().cuda_stream)
+                 int(n_sweeps), split[0],
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "march_chain")
     return out
 
